@@ -7,16 +7,26 @@ Phases, each printed with its wall seconds:
   1. build the CUDA kernels of video_unscreen_tpu_torch/csrc (one nvcc call);
   2. build the green pipeline (configs/green.json with the chroma seed) at
      1080p -> 544x960 and load the MattingUNet weights
-     (weights/matting_unet.msgpack; missing weights fail the run);
-  3. hold each kernel (K1 trimap, K2 morph, K3 flood) bit-exact against its
-     plain PyTorch version on the card at the main path's shapes, and time
-     both with CUDA events;
+     (weights/matting_unet.msgpack); bg mode also needs weights/stm.msgpack
+     (a missing weights file fails the run);
+  3. hold each kernel against its plain PyTorch version on the card at the
+     main paths' shapes, and time both with CUDA events: K1 trimap, K2
+     morph and K3 flood bit-exact (green's 544x960 and 272x480, bg's
+     1080x1920 with the 4x4 ellipse), K4 attention (the STM memory read,
+     Lq 2040 x Lk 22440, dk 128, dv 512) to rtol 1e-4 / atol 1e-5, with
+     SDPA timed beside it as its yardstick;
   4. run `FusedGreenPipeline.run` on 8 seeded synthetic 1080p green-screen
      frames with every launch count reset just before, check that each
      kernel launched, the outputs (IoU with the synthetic ground truth
      > 0.75), and the frames per second;
   5. run the first 2 frames again on the host (device="cpu", the plain
-     versions) and hold the card's alphas to the JAX suite's bound.
+     versions) and hold the card's alphas to the JAX suite's bound;
+  6. run bg mode (`pipeline/bg.py:run`, configs/bg.json with the chroma
+     seed at 960) on the same 8 frames, counts reset just before: each of
+     K1-K4 must launch, IoU with the ground truth > 0.8 on frame 0 and
+     > 0.75 on average, frames/s over the 7 tracked frames;
+  7. run bg mode on 2 smaller frames on the card and on the host and hold
+     the alphas to the same bound.
 
 Then it prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any
@@ -36,7 +46,11 @@ FRAME_HW = (1080, 1920)
 WORK_LONG_SIDE = 960
 N_FRAMES = 8
 N_CPU_FRAMES = 2
+BG_HOST_HW = (270, 480)  # bg card-vs-host frames: the host's CG stays short
 SEED = 0
+# the STM memory read on the bg path: 544x960 / 16 query pixels against a
+# bank of 10 slots plus the previous frame (K4's shape)
+ATTN_LQ, ATTN_SLOTS, ATTN_DK, ATTN_DV = 34 * 60, 11, 128, 512
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -52,14 +66,16 @@ def phase(name, t0):
 
 def green_clip(n, h, w, seed):
     """A magenta ellipse moving right over a noisy green screen (the
-    pattern of the repo's synthetic clips, at 1080p), and its GT alpha."""
+    pattern of the repo's synthetic clips; radii 260 x 170 and 6 px per
+    frame at 1080p, scaled with the frame), and its GT alpha."""
     import numpy as np
     rng = np.random.RandomState(seed)
     yy, xx = np.mgrid[0:h, 0:w]
+    ry, rx, step = 260.0 * h / 1080, 170.0 * w / 1920, 6.0 * w / 1920
     frames, gts = [], []
     for t in range(n):
-        blob = ((yy - h // 2) ** 2 / 260.0 ** 2
-                + (xx - (w // 3 + 6 * t)) ** 2 / 170.0 ** 2) < 1.0
+        blob = ((yy - h // 2) ** 2 / ry ** 2
+                + (xx - (w // 3 + step * t)) ** 2 / rx ** 2) < 1.0
         img = np.empty((h, w, 3), np.float32)
         img[...] = (40, 190, 50)
         img[blob] = (150, 60, 170)
@@ -201,10 +217,179 @@ def kernel_phase(device):
     return rows
 
 
+def bg_kernel_phase(device, rows):
+    """K2 and K3 at bg mode's full-resolution shapes, and K4, against their
+    plain versions; adds to `rows`."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from video_unscreen_tpu_torch.ops.kernels import attention as ka
+    from video_unscreen_tpu_torch.ops.kernels import connected as kcc
+    from video_unscreen_tpu_torch.ops.kernels import morph as km
+    from video_unscreen_tpu_torch.ops.morphology import ellipse_offsets
+
+    h, w = FRAME_HW
+    # K2: bg's dilate(., 4, 2) at 1080x1920 (the even 4x4 ellipse)
+    offs = ellipse_offsets(4)
+    mask = torch.from_numpy(soft_mask(h, w, SEED + 2)).to(device)
+    for dil in (True, False):
+        got = km.morph(mask, offs, 2, dil)
+        err = float((got - km.morph_plain(mask, offs, 2, dil)).abs().max())
+        check(err == 0.0, f"morph k=4 1080p dilate={dil}: differs by {err}")
+    ms = cuda_ms(lambda: km.morph(mask, offs, 2, True), 100)
+    plain = cuda_ms(lambda: km.morph_plain(mask, offs, 2, True), 3)
+    n_nb = len([o for o in offs if o != (0, 0)])
+    b, by = bound(2 * h * w * 4, h * w * 2 * n_nb)
+    rows["morph"]["bg_1080x1920_k4_iters2"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    print(f"  K2 morph 1080x1920 k=4 iters=2: {ms:.4f} ms (plain "
+          f"{plain:.4f} ms, bound {b:.4f} ms)", flush=True)
+
+    # K3: object removal's labels at 1080x1920
+    rng = np.random.RandomState(SEED + 3)
+    cases = [(soft_mask(h, w, SEED + 4) > 120).astype(np.float32) * 255,
+             (rng.rand(h, w) < 0.45).astype(np.float32) * 255]
+    for i, c in enumerate(cases):
+        m = torch.from_numpy(c).to(device)
+        for g, t in zip(kcc.connected_components_compact(m), kcc.cc_plain(m)):
+            check(torch.equal(g, t), f"flood 1080p case {i} differs")
+    m = torch.from_numpy(cases[0]).to(device)
+    ms = cuda_ms(lambda: kcc.connected_components_compact(m), 50)
+    plain = cuda_ms(lambda: kcc.cc_plain(m), 1, rounds=3)
+    b, by = bound(h * w * 12, h * w * 2)
+    rows["flood"]["bg_1080x1920"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
+                                         bound_by=by)
+    print(f"  K3 flood 1080x1920: {ms:.4f} ms (plain {plain:.4f} ms, bound "
+          f"{b:.4f} ms)", flush=True)
+
+    # K4: the STM memory read; the modular bg path passes two frames, so
+    # the bank is empty and only the last slot's keys are valid
+    lq, lk, dk, dv = ATTN_LQ, ATTN_SLOTS * ATTN_LQ, ATTN_DK, ATTN_DV
+    rng = np.random.RandomState(SEED + 5)
+    q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(device)
+               for s in ((lq, dk), (lk, dk), (lk, dv)))
+    masks = {"stm": torch.zeros(lk, device=device),
+             "all": torch.ones(lk, device=device),
+             "none": torch.zeros(lk, device=device)}
+    masks["stm"][-lq:] = 1.0
+    err = rel = 0.0
+    for name, mk in masks.items():
+        out, lse = ka.masked_memory_attention(q, k, v, mk)
+        for g, t in zip((out, lse), ka.attention_plain(q, k, v, mk)):
+            d = (g - t).abs()
+            check(bool((d <= 1e-5 + 1e-4 * t.abs()).all()),
+                  f"attention mask={name}: max |diff| {float(d.max())}")
+            err = max(err, float(d.max()))
+            rel = max(rel, float(d.max() / t.abs().max().clamp_min(1e-30)))
+        if name == "none":
+            check(not out.any() and not lse.any(), "attention: no valid key "
+                  "must give 0")
+    mk = masks["stm"]
+    ms = cuda_ms(lambda: ka.masked_memory_attention(q, k, v, mk), 20)
+    ms_all = cuda_ms(lambda: ka.masked_memory_attention(q, k, v,
+                                                        masks["all"]), 20)
+    plain = cuda_ms(lambda: ka.attention_plain(q, k, v, mk), 5)
+    q4, k4, v4 = q[None, None], k[None, None], v[None, None]
+    bool_mask = (mk > 0)[None, None, None, :]
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=bool_mask), 5)
+    # the least work this input needs: the valid keys only
+    n_valid = int(mk.sum())
+    n_bytes = 4 * (lq * dk + n_valid * (dk + dv) + lk + lq * dv + lq)
+    b, by = bound(n_bytes, 2 * lq * n_valid * (dk + dv))
+    b_all, _ = bound(4 * (lq * dk + lk * (dk + dv + 1) + lq * (dv + 1)),
+                     2 * lq * lk * (dk + dv))
+    rows["attention"] = dict(
+        source="video_unscreen_tpu_torch/csrc/attention.cu",
+        replaces="video_unscreen_tpu/ops/pallas/attention.py:32",
+        max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain,
+        bound_ms=b, bound_by=by, library_ms=lib,
+        all_valid=dict(ms=ms_all, bound_ms=b_all))
+    print(f"  K4 attention Lq {lq} Lk {lk} dk {dk} dv {dv}, {n_valid} valid "
+          f"keys: {ms:.4f} ms (plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
+          f"bound {b:.4f} ms over the valid keys, {b_all:.4f} ms over every "
+          f"key); all keys valid: {ms_all:.4f} ms; max |diff| {err:.3g} "
+          f"(relative {rel:.3g})", flush=True)
+
+
+def bg_config(stm_weights, matting_weights):
+    """configs/bg.json with the weights-free chroma seed at 960 (the SCHP
+    seed is not ported yet)."""
+    from video_unscreen_tpu_torch.config import load_config
+    cfg = load_config(str(ROOT / "configs" / "bg.json"))
+    cfg["binseg"] = {"type": "chroma", "input_long_side": 960}
+    cfg["stm"]["model_path"] = str(stm_weights)
+    cfg["vmatting"]["model_path"] = str(matting_weights)
+    return cfg
+
+
+def iou(alpha, gt):
+    import numpy as np
+    p = alpha >= 128
+    return float((gt & p).sum() / max((gt | p).sum(), 1))
+
+
 def within_bound(got, want):
     import numpy as np
     d = np.abs(got.astype(np.int16) - want.astype(np.int16))
     return int(d.max()), float((d > 1).mean())
+
+
+def bg_phases(frames, gts, stm_weights, matting_weights):
+    """bg mode on the card, then card against host; returns the bg path's
+    kernel counts."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.ops import kernels
+    from video_unscreen_tpu_torch.pipeline import bg
+
+    cfg = bg_config(stm_weights, matting_weights)
+    t0 = time.perf_counter()
+    bg.run(cfg, frames[:2], device="cuda")  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    phase("bg warm-up (2 frames)", t0)
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = bg.run(cfg, frames, device="cuda")
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    phase("bg pipeline", t0)
+    secs = res["frame_seconds"]
+    fps = (N_FRAMES - 1) / sum(secs[1:])
+    print(f"  bg 1080p (STM and matting at 544x960), {N_FRAMES} frames: "
+          f"{fps:.3f} frames/s over frames 1-{N_FRAMES - 1} (tracked; frame "
+          f"0, the seed frame, {secs[0] * 1e3:.1f} ms, excluded); per-frame "
+          f"ms {[round(t * 1e3, 1) for t in secs]}; (calls, launches) "
+          f"{counts}", flush=True)
+    for k, (_, n) in counts.items():
+        check(n > 0, f"kernel {k} was not launched on the bg path")
+    check(counts["attention"][0] == N_FRAMES - 1,
+          f"STM memory reads {counts['attention']}, want one per tracked "
+          f"frame")
+    check(len(res["alphas"]) == N_FRAMES and all(
+        a.shape == FRAME_HW and a.dtype == np.uint8 for a in res["alphas"]),
+        "bg alphas shape/dtype")
+    check(all(f.shape == FRAME_HW + (3,) for f in res["fgs"]), "bg fg shape")
+    ious = [iou(a, g) for a, g in zip(res["alphas"], gts)]
+    print(f"  bg IoU with the synthetic ground truth: per frame "
+          f"{[round(v, 4) for v in ious]}, mean {np.mean(ious):.4f}",
+          flush=True)
+    check(ious[0] > 0.8 and np.mean(ious) > 0.75,
+          f"bg IoU with the ground truth {ious}")
+
+    t0 = time.perf_counter()
+    small, _ = green_clip(N_CPU_FRAMES, *BG_HOST_HW, seed=SEED)
+    card = bg.run(cfg, small, device="cuda")["alphas"]
+    host = bg.run(cfg, small, device="cpu")["alphas"]
+    dmax, frac = within_bound(np.stack(card), np.stack(host))
+    phase(f"bg host run ({N_CPU_FRAMES} frames at {BG_HOST_HW[0]}x"
+          f"{BG_HOST_HW[1]})", t0)
+    print(f"  bg card vs host alphas: max |diff| {dmax}, |diff| > 1 on "
+          f"{frac:.6f}", flush=True)
+    check(dmax <= 4 and frac < 1e-3,
+          f"bg card vs host alphas: max {dmax}, frac>1 {frac}")
+    return counts
 
 
 def main():
@@ -247,6 +432,8 @@ def main():
     cfg["binseg"] = {"type": "chroma"}
     weights = ROOT / "weights" / "matting_unet.msgpack"
     check(weights.is_file(), f"the MattingUNet weights {weights} are missing")
+    stm_weights = ROOT / "weights" / "stm.msgpack"
+    check(stm_weights.is_file(), f"the STM weights {stm_weights} are missing")
     cfg["vmatting"]["model_path"] = str(weights)
     pipe = FusedGreenPipeline(cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
                               device="cuda")
@@ -255,6 +442,7 @@ def main():
 
     t0 = time.perf_counter()
     rows = kernel_phase(device)
+    bg_kernel_phase(device, rows)
     phase("kernels vs plain", t0)
 
     t0 = time.perf_counter()
@@ -271,13 +459,14 @@ def main():
     alphas, fgs, bgs = pipe.run(frames)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = kernels.counts()
+    counts = {"green": kernels.counts()}
     phase("pipeline", t0)
     fps = N_FRAMES / dt
     print(f"  green 1080p -> 544x960, {N_FRAMES} frames: {fps:.2f} "
-          f"frames/s; (calls, launches) {counts}", flush=True)
-    for k, (_, n) in counts.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
+          f"frames/s; (calls, launches) {counts['green']}", flush=True)
+    for k in ("trimap", "morph", "flood"):
+        check(counts["green"][k][1] > 0,
+              f"kernel {k} was not launched on the green path")
     check(alphas.shape == (N_FRAMES, 544, 960) and alphas.dtype == np.uint8,
           f"alphas {alphas.shape} {alphas.dtype}")
     check(fgs.shape == bgs.shape == (N_FRAMES, 544, 960, 3), "fg/bg shape")
@@ -303,10 +492,17 @@ def main():
     check(dmax <= 4 and frac < 1e-3,
           f"card vs host alphas: max {dmax}, frac>1 {frac}")
 
+    counts["bg"] = bg_phases(frames, gts, stm_weights, weights)
+
     out = []
-    for k, (calls, n) in counts.items():
-        out.append(dict(name=k, route="cuda", launches=n, calls=calls,
-                        library_ms=None, **rows[k]))
+    for k in counts["green"]:
+        row = {"library_ms": None, **rows[k]}
+        by_path = {p: dict(zip(("calls", "launches"), c[k]))
+                   for p, c in counts.items()}
+        out.append(dict(name=k, route="cuda",
+                        launches=sum(c["launches"] for c in by_path.values()),
+                        calls=sum(c["calls"] for c in by_path.values()),
+                        by_path=by_path, **row))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -51,19 +51,27 @@ def test_chip_smoke_imports_nothing_of_jax():
     assert "video_unscreen_tpu_torch" in roots
 
 
-@pytest.mark.parametrize("entry", ["pipeline", "run_fused"])
+@pytest.mark.parametrize("entry", ["pipeline", "run_fused", "bg_run",
+                                   "stm_agent"])
 def test_entry_points_refuse_missing_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal path does not run")
+    from tests.test_pipeline_bg import BG_TEST_CFG
     from tests.test_pipeline_green import TEST_CFG
+    from video_unscreen_tpu_torch.agents.stm import STMAgent
+    from video_unscreen_tpu_torch.pipeline import bg
     from video_unscreen_tpu_torch.pipeline.fused_green import (
         FusedGreenPipeline, run_fused)
     frames = [torch.zeros((96, 128, 3), dtype=torch.uint8).numpy()]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "pipeline":
             FusedGreenPipeline(TEST_CFG, (96, 128), work_long_side=128)
-        else:
+        elif entry == "run_fused":
             run_fused(TEST_CFG, frames, work_long_side=128)
+        elif entry == "bg_run":
+            bg.run(BG_TEST_CFG, frames)
+        else:
+            STMAgent()
 
 
 def test_unported_options_raise():

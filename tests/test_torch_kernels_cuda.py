@@ -15,6 +15,7 @@ import torch
 # the name `tests.torch_port_util` does not resolve
 from torch_port_util import (assert_equal, blob_mask, cuda, require_cuda,
                              soft_mask)
+from video_unscreen_tpu_torch.ops.kernels import attention as ka
 from video_unscreen_tpu_torch.ops.kernels import connected as kcc
 from video_unscreen_tpu_torch.ops.kernels import morph as km
 from video_unscreen_tpu_torch.ops.morphology import ellipse_offsets
@@ -88,6 +89,77 @@ def test_flood_kernel_on_blobs():
 
 
 @cuda
+@pytest.mark.parametrize("dil", [True, False])
+def test_morph_kernel_even_se_full_res(dil):
+    """bg mode's dilate(., 4, 2) at 1080x1920: the 4x4 ellipse is anchored
+    at (2, 2) and covers its top-left 3x3 cross, so its offsets run from
+    -2 to 0 (asymmetric)."""
+    require_cuda()
+    offs = ellipse_offsets(4)
+    assert min(min(o) for o in offs) == -2 and max(max(o) for o in offs) == 0
+    x = _dev(soft_mask(1080, 1920, seed=4))
+    before = km.MORPH.launches
+    assert_equal(km.morph(x, offs, 2, dil), km.morph_plain(x, offs, 2, dil))
+    assert km.MORPH.launches == before + 1
+
+
+@cuda
+@pytest.mark.parametrize("case", ["blobs", "random"])
+def test_flood_kernel_full_res(case):
+    """Object removal's labeling at bg mode's full 1080x1920 (2,025 count
+    blocks feed the one-block scan)."""
+    require_cuda()
+    if case == "blobs":
+        m = _dev(blob_mask(1080, 1920, seed=2, speckle=0.01))
+    else:
+        rng = np.random.RandomState(5)
+        m = _dev((rng.rand(1080, 1920) < 0.45) * 255.0)
+    before = kcc.FLOOD.launches
+    for g, w in zip(kcc.connected_components_compact(m), kcc.cc_plain(m)):
+        assert_equal(g, w)
+    assert kcc.FLOOD.launches == before + 7
+
+
+def _attention_case(lq, lk, dk, dv, mask_name, seed=0):
+    rng = np.random.RandomState(seed)
+    mask = np.zeros(lk, np.float32)
+    if mask_name == "stm":             # empty bank: only the last frame
+        mask[-lq:] = 1.0
+    elif mask_name == "all":
+        mask[:] = 1.0
+    elif mask_name == "all_but_one":
+        mask[lk // 3] = 1.0
+    elif mask_name == "random":
+        mask = (rng.rand(lk) > 0.5).astype(np.float32)
+    return [_dev(a) for a in (rng.randn(lq, dk), rng.randn(lk, dk),
+                              rng.randn(lk, dv), mask)]
+
+
+@cuda
+@pytest.mark.parametrize("mask_name", ["stm", "all", "all_but_one", "none",
+                                       "random"])
+@pytest.mark.parametrize("shape", [(2040, 22440, 128, 512),
+                                   (200, 600, 128, 512), (37, 70, 64, 36)])
+def test_attention_kernel(shape, mask_name):
+    """K4 against its plain version: the bg path's shape (Lq 2040 queries
+    at 544x960 / 16, an 11-slot bank) and ragged ones; rtol 1e-4, atol
+    1e-5 on out and LSE (f32 sums in another order)."""
+    require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = _attention_case(*shape, mask_name)
+    before = (ka.ATTENTION.calls, ka.ATTENTION.launches)
+    out, lse = ka.masked_memory_attention(q, k, v, mask)
+    assert (ka.ATTENTION.calls, ka.ATTENTION.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_out, want_lse = ka.attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    for got, want in ((out, want_out), (lse, want_lse)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    if mask_name == "none":
+        assert not out.any() and not lse.any()
+
+
+@cuda
 def test_wrappers_reject_bad_input():
     require_cuda()
     x = _dev(soft_mask(32, 64))
@@ -97,6 +169,14 @@ def test_wrappers_reject_bad_input():
         km.trimap(x.double(), ellipse_offsets(3), 2)        # not float32
     with pytest.raises(ValueError):
         kcc.connected_components_compact(x[None])           # not 2-D
+    q, k, v, mask = _attention_case(64, 128, 128, 512, "all")
+    with pytest.raises(ValueError):
+        ka.masked_memory_attention(q, k, v[:, 1:], mask)    # dv not 4n
+    with pytest.raises(ValueError):
+        ka.masked_memory_attention(q, k.t(), v, mask)       # k not (Lk, dk)
+    with pytest.raises(ValueError):
+        ka.masked_memory_attention(q[:, :2].contiguous(), k[:, :2]
+                                   .contiguous(), v, mask)  # dk not 4n
 
 
 @cuda
@@ -122,3 +202,37 @@ def test_green_pipeline_card_matches_host():
            for dev in ("cuda", "cpu")}
     d = np.abs(out["cuda"][0].astype(int) - out["cpu"][0].astype(int))
     assert d.max() <= 4 and (d > 1).mean() < 1e-3, (d.max(), (d > 1).mean())
+
+
+@cuda
+def test_bg_pipeline_card_matches_host():
+    """bg mode (chroma seed, shipped STM and matting weights) at 96x128 on
+    the card and on the host: uint8 alphas within the JAX suite's bound."""
+    require_cuda()
+    from video_unscreen_tpu_torch.config import load_config
+    from video_unscreen_tpu_torch.ops.kernels import reset_counts, counts
+    from video_unscreen_tpu_torch.pipeline import bg
+    cfg = load_config("configs/bg.json")
+    cfg["binseg"] = {"type": "chroma", "input_long_side": 128}
+    for key in ("stm", "trimap", "vmatting"):
+        cfg[key]["input_long_side"] = 128
+    rng = np.random.RandomState(0)
+    frames = []
+    yy, xx = np.mgrid[0:96, 0:128]
+    for t in range(3):
+        img = np.empty((96, 128, 3), np.float32)
+        img[...] = (40, 190, 50)
+        img[((yy - 48) ** 2 / 900 + (xx - 50 - 4 * t) ** 2 / 400) < 1] = (
+            150, 60, 170)
+        frames.append((img + rng.randn(96, 128, 3) * 5).clip(0, 255)
+                      .astype(np.uint8))
+    reset_counts()
+    card = bg.run(cfg, frames, device="cuda")
+    launched = counts()
+    host = bg.run(cfg, frames, device="cpu")
+    assert all(n > 0 for _, n in launched.values()), launched
+    assert launched["attention"] == (2, 2), launched
+    for a, b in zip(card["alphas"], host["alphas"]):
+        d = np.abs(a.astype(int) - b.astype(int))
+        assert d.max() <= 4 and (d > 1).mean() < 1e-3, (d.max(),
+                                                         (d > 1).mean())

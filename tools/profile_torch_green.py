@@ -66,17 +66,18 @@ def instrumented(pipe):
             setattr(fused_green, mod_attr, fn)
 
 
-def device_kernels(events):
-    """Kernel events: device-side, minus the device copies of our spans."""
+def device_kernels(events, stages=STAGES):
+    """Kernel events: device-side, minus the device copies of the spans
+    named `stages`."""
     return [e for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in STAGES]
+            and e.name not in stages]
 
 
-def busy_ms(events):
+def busy_ms(events, stages=STAGES):
     """Union of the device intervals of all kernels, in ms."""
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in device_kernels(events))
+                   for e in device_kernels(events, stages))
     total, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:

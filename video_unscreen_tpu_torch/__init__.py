@@ -6,7 +6,8 @@ kernel written by hand (`csrc/`, bound in `ops/kernels/`). It imports
 torch, numpy and the standard library only.
 
 Ported so far: green-screen unscreen with the chroma seed
-(`pipeline/fused_green.py:FusedGreenPipeline`).
+(`pipeline/fused_green.py:FusedGreenPipeline`) and bg mode's modular
+pipeline with the STM tracker (`pipeline/bg.py:run`).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """VMattingAgent: temporal alpha matting with the MattingUNet.
 
-Port of `video_unscreen_tpu/agents/vmatting.py` (`device_forward_impl`):
+Port of `video_unscreen_tpu/agents/vmatting.py` (`device_forward_impl`
+and the host API `forward`):
 pad/resize to a multiple of 32, the {0, 128, 255} trimap as three one-hot
 channels, the net, the inverse geometry, and the hard reset outside the
 unknown band (0 where the trimap is 0, 1 where it is 255).
@@ -14,9 +15,10 @@ import torch
 import torch.nn.functional as F
 
 from ..models.matting_unet import MattingUNet
-from ..ops.geometry import imnormalize, inv_pad_resize, pad_resize
+from ..ops.geometry import (get_target_size, imnormalize, inv_pad_resize,
+                            pad_resize)
 from ..utils.checkpoint import load_matting_unet
-from ..utils.device import resolve_device
+from ..utils.device import as_float, resolve_device
 
 
 class VMattingAgent:
@@ -76,3 +78,15 @@ class VMattingAgent:
         pred = torch.where(trimap == 0.0, 0.0, pred)
         pred = torch.where(trimap == 255.0, 1.0, pred)
         return pred * 255.0
+
+    @torch.inference_mode()
+    def forward(self, img, alpha_pre, trimap) -> torch.Tensor:
+        """BGR frame, previous alpha and trimap (numpy or tensors, uint8
+        ranges) -> the uint8 alpha on the agent's device."""
+        tri = as_float(trimap, self.device)
+        h, w = tri.shape
+        input_hw = get_target_size(h, w, self.input_long_side, self.DIVISION)
+        out = self.device_forward_impl(as_float(img, self.device),
+                                       as_float(alpha_pre, self.device), tri,
+                                       input_hw)
+        return out.clamp(0, 255).to(torch.uint8)

@@ -1,8 +1,9 @@
 """Color-space conversions in OpenCV 8-bit ranges on float tensors.
 
-Port of `video_unscreen_tpu/ops/color.py` (`bgr2hsv`, `hsv2bgr`,
-`bgr2lab`): HSV with H in 0..180 and S/V in 0..255, Lab as L*255/100 and
-a/b offset by 128, so the pipeline's windows and thresholds carry over.
+Port of `video_unscreen_tpu/ops/color.py` (`bgr2gray`, `bgr2hsv`,
+`hsv2bgr`, `bgr2lab`): HSV with H in 0..180 and S/V in 0..255, Lab as
+L*255/100 and a/b offset by 128, so the pipeline's windows and thresholds
+carry over.
 Channels are last, as in the JAX package.
 """
 
@@ -17,6 +18,12 @@ _RGB2XYZ = ((0.412453, 0.357580, 0.180423),
             (0.212671, 0.715160, 0.072169),
             (0.019334, 0.119193, 0.950227))
 _XN, _ZN = 0.950456, 1.088754
+
+
+def bgr2gray(img: torch.Tensor) -> torch.Tensor:
+    """cv2.COLOR_BGR2GRAY: 0.299 R + 0.587 G + 0.114 B."""
+    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+    return 0.299 * r + 0.587 * g + 0.114 * b
 
 
 def bgr2hsv(img: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Compositing math on the green path: chroma window, fg un-blend, Lab
-color correction, foreground gate.
+"""Compositing math: chroma window, fg un-blend, bg blend-out, Lab color
+correction, foreground gate.
 
-Port of the main-path part of `video_unscreen_tpu/ops/compositing.py`.
+Port of the green and bg paths' part of
+`video_unscreen_tpu/ops/compositing.py`.
 """
 
 from __future__ import annotations
@@ -41,6 +42,13 @@ def get_fg(img: torch.Tensor, alpha: torch.Tensor,
     bg_hsv = bgr2hsv(bg)
     a = (alpha / 255.0)[..., None]
     return hsv2bgr(torch.clamp(img_hsv - (1.0 - a) * bg_hsv, 0.0, 255.0))
+
+
+def get_bg(alpha: torch.Tensor, bg: torch.Tensor) -> torch.Tensor:
+    """(1 - alpha) * bg in HSV space."""
+    bg_hsv = bgr2hsv(bg)
+    a = (alpha / 255.0)[..., None]
+    return hsv2bgr(torch.clamp((1.0 - a) * bg_hsv, 0.0, 255.0))
 
 
 def exist_foreground(mask: torch.Tensor,

@@ -60,9 +60,15 @@ def resize(img: torch.Tensor, out_hw: Tuple[int, int],
     if method != "linear":
         raise ValueError(f"resize: unknown method {method!r}")
     x = img.permute(2, 0, 1)[None] if img.dim() == 3 else img[None, None]
-    y = F.interpolate(x, size=out_hw, mode="bilinear", align_corners=False,
-                      antialias=False)[0]
+    y = resize_nchw(x, out_hw)[0]
     return y.permute(1, 2, 0).contiguous() if img.dim() == 3 else y[0]
+
+
+def resize_nchw(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """"linear" `resize` of an (N, C, H, W) batch."""
+    return F.interpolate(x, size=(int(out_hw[0]), int(out_hw[1])),
+                         mode="bilinear", align_corners=False,
+                         antialias=False)
 
 
 def _fit_size(h: int, w: int, target_h: int, target_w: int):

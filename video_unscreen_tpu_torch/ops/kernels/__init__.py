@@ -1,16 +1,18 @@
 """Hand-written CUDA kernels (`csrc/`): wrappers, launch counts and plain
 versions.
 
-K1 `morph.trimap`, K2 `morph.morph` (replacing `ops/pallas/morph.py`) and
+K1 `morph.trimap`, K2 `morph.morph` (replacing `ops/pallas/morph.py`),
 K3 `connected.connected_components_compact` (replacing
-`ops/pallas/flood.py`). A wrapper runs its plain version for a CPU tensor
+`ops/pallas/flood.py`) and K4 `attention.masked_memory_attention`
+(replacing the forward of `ops/pallas/attention.py`). A wrapper runs its plain version for a CPU tensor
 and launches its kernel for a CUDA tensor; nothing builds at import.
 """
 
+from .attention import ATTENTION
 from .connected import FLOOD
 from .morph import MORPH, TRIMAP
 
-COUNTERS = (TRIMAP, MORPH, FLOOD)
+COUNTERS = (TRIMAP, MORPH, FLOOD, ATTENTION)
 
 
 def reset_counts() -> None:

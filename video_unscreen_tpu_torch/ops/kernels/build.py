@@ -32,6 +32,7 @@ _SIGNATURES = {
     "vut_morph": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P),
     "vut_trimap": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P),
     "vut_flood": (_P, _P, _P, _P, _I, _I, _P, _P),
+    "vut_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
 }
 
 _lib = None

@@ -31,6 +31,14 @@ def ellipse_kernel(ksize: int) -> np.ndarray:
     return kernel
 
 
+def cross_kernel(ksize: int) -> np.ndarray:
+    """cv2.MORPH_CROSS replica."""
+    kernel = np.zeros((ksize, ksize), np.uint8)
+    kernel[ksize // 2, :] = 1
+    kernel[:, ksize // 2] = 1
+    return kernel
+
+
 def _se_offsets(kernel: np.ndarray):
     """(dy, dx) offsets of the SE's active cells, relative to the anchor."""
     ky, kx = kernel.shape
@@ -40,6 +48,10 @@ def _se_offsets(kernel: np.ndarray):
 
 def ellipse_offsets(ksize: int):
     return _se_offsets(ellipse_kernel(ksize))
+
+
+def cross_offsets(ksize: int):
+    return _se_offsets(cross_kernel(ksize))
 
 
 def dilate(mask: torch.Tensor, kernelsize: int = 5,

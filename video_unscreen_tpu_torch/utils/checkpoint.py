@@ -16,11 +16,19 @@ second.
   weights (in, out, kh, kw) with both spatial axes flipped;
 - BatchNorm `scale`/`bias` and `batch_stats` `mean`/`var` ->
   `weight`/`bias`/`running_mean`/`running_var`.
+
+`load_stm` maps the STM's flax variables to a `state_dict` for
+`models/stm.py:STM` the same way (conv kernels HWIO -> OIHW, BatchNorm as
+above, flax's eps 1e-5 kept by the modules), with flax's auto-names taken
+by order: `Bottleneck_3` -> `blocks.3`, `Conv_2` -> `convs.2`,
+`BatchNorm_1` -> `bns.1`, `ResBlock_0` -> `resblocks.0`, `Refine_1` ->
+`refines.1`; explicit names (`encoder_q`, `stem_conv1`, `kv_m`, ...) stay.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import struct
 from typing import Any, Dict, Iterator, Tuple, Union
 
@@ -153,6 +161,54 @@ def load_matting_unet(source) -> Dict[str, torch.Tensor]:
     stats = {"mean": "running_mean", "var": "running_var"}
     for path, arr in _leaves(tree.get("batch_stats", {})):
         mod = ".".join(path[:-1])
+        state[f"{mod}.{stats[path[-1]]}"] = _tensor(arr)
+        state[f"{mod}.num_batches_tracked"] = torch.tensor(0)
+    return state
+
+
+# flax auto-name prefix -> the port's ModuleList attribute
+_AUTO_NAMES = {"Conv": "convs", "BatchNorm": "bns", "Bottleneck": "blocks",
+               "BasicBlock": "blocks", "ResBlock": "resblocks",
+               "Refine": "refines"}
+_AUTO_RE = re.compile(r"^([A-Za-z]+)_(\d+)$")
+
+
+def _module_path(path: Tuple[str, ...]) -> str:
+    parts = []
+    for name in path:
+        m = _AUTO_RE.match(name)
+        if m and m.group(1) in _AUTO_NAMES:
+            parts.append(f"{_AUTO_NAMES[m.group(1)]}.{m.group(2)}")
+        else:
+            parts.append(name)
+    return ".".join(parts)
+
+
+def load_stm(source) -> Dict[str, torch.Tensor]:
+    """state_dict for `models/stm.py:STM` from a flax msgpack path or from
+    the flax variables as a nested dict of numpy arrays. Every leaf maps to
+    one entry; a leaf of an unknown kind raises here, and one the model does
+    not have raises in `load_state_dict` (strict)."""
+    tree = source if isinstance(source, dict) else read_msgpack(source)
+    unknown = set(tree) - {"params", "batch_stats"}
+    if unknown:
+        raise ValueError(f"unexpected collections {sorted(unknown)}")
+    state: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(tree["params"]):
+        mod, leaf = _module_path(path[:-1]), path[-1]
+        if leaf == "kernel" and arr.ndim == 4:
+            state[f"{mod}.weight"] = _tensor(arr.transpose(3, 2, 0, 1))
+        elif leaf == "bias":
+            state[f"{mod}.bias"] = _tensor(arr)
+        elif leaf == "scale":
+            state[f"{mod}.weight"] = _tensor(arr)
+        else:
+            raise ValueError(f"unexpected parameter {'/'.join(path)}")
+    stats = {"mean": "running_mean", "var": "running_var"}
+    for path, arr in _leaves(tree.get("batch_stats", {})):
+        if path[-1] not in stats:
+            raise ValueError(f"unexpected batch stat {'/'.join(path)}")
+        mod = _module_path(path[:-1])
         state[f"{mod}.{stats[path[-1]]}"] = _tensor(arr)
         state[f"{mod}.num_batches_tracked"] = torch.tensor(0)
     return state

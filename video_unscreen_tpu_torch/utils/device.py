@@ -25,3 +25,9 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: 'cuda' or 'cpu'")
     return dev
+
+
+def as_float(x, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a float32 tensor on `device` (uint8
+    values convert exactly, as `jnp.asarray(x, jnp.float32)` does)."""
+    return torch.as_tensor(x).to(device=device, dtype=torch.float32)
