@@ -14,7 +14,11 @@ Phases, each printed with its wall seconds:
      morph and K3 flood bit-exact (green's 544x960 and 272x480, bg's
      1080x1920 with the 4x4 ellipse), K4 attention (the STM memory read,
      Lq 2040 x Lk 22440, dk 128, dv 512) to rtol 1e-4 / atol 1e-5, with
-     SDPA timed beside it as its yardstick;
+     SDPA timed beside it as its yardstick, and K5 (dQ) and K6 (dK, dV),
+     the read's backward, from a seeded dO at the training shape (Lq 64,
+     Lk 128) and at bg's shape with the STM mask, every key valid and no
+     key valid: rtol 1e-4 / atol 1e-5, masked keys' dK and dV exactly 0,
+     with the plain versions and SDPA's backward timed beside them;
   4. run `FusedGreenPipeline.run` on 8 seeded synthetic 1080p green-screen
      frames with every launch count reset just before, check that each
      kernel launched, the outputs (IoU with the synthetic ground truth
@@ -26,7 +30,16 @@ Phases, each printed with its wall seconds:
      K1-K4 must launch, IoU with the ground truth > 0.8 on frame 0 and
      > 0.75 on average, frames/s over the 7 tracked frames;
   7. run bg mode on 2 smaller frames on the card and on the host and hold
-     the alphas to the same bound.
+     the alphas to the same bound;
+  8. train the STM 3 AdamW steps from weights/stm.msgpack at the trainer's
+     defaults (batch 8, 128x128, clip_len 3, lr 5e-4) on the port's own
+     synthetic clips, counts reset just before: every loss finite, K4, K5
+     and K6 one launch per batch item per step; the steps per second; then
+     save with `save_stm` and read back with `load_stm` bit for bit;
+  9. one train step on the card and the same step on the host (batch 2,
+     64x64, clip_len 3): the loss to 1e-4 relative, the parameters and the
+     BatchNorm statistics as `tests/test_torch_train_stm.py` holds the
+     port to the JAX step.
 
 Then it prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any
@@ -51,6 +64,10 @@ SEED = 0
 # the STM memory read on the bg path: 544x960 / 16 query pixels against a
 # bank of 10 slots plus the previous frame (K4's shape)
 ATTN_LQ, ATTN_SLOTS, ATTN_DK, ATTN_DV = 34 * 60, 11, 128, 512
+# STM training at the trainer's defaults: 128x128 clips of 3 frames, so
+# 8x8 queries against 2 memory frames (K5/K6's training shape)
+TRAIN_BATCH, TRAIN_HW, TRAIN_CLIP, TRAIN_LR, TRAIN_STEPS = 8, 128, 3, 5e-4, 3
+TRAIN_HOST = dict(batch=2, hw=64)  # the card-vs-host step
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -312,6 +329,217 @@ def bg_kernel_phase(device, rows):
           f"(relative {rel:.3g})", flush=True)
 
 
+def attention_bwd_phase(device, rows):
+    """K5 and K6 against the plain backward at the training shape and at
+    bg's shape; adds their rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from video_unscreen_tpu_torch.ops.kernels import attention as ka
+
+    rng = np.random.RandomState(SEED + 6)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            device)
+
+    dk, dv = ATTN_DK, ATTN_DV
+    tq = (TRAIN_HW // 16) ** 2
+    tk = (TRAIN_CLIP - 1) * tq
+    lq, lk = ATTN_LQ, ATTN_SLOTS * ATTN_LQ
+    q, k, v, do = randn(lq, dk), randn(lk, dk), randn(lk, dv), randn(lq, dv)
+    stm = torch.zeros(lk, device=device)
+    stm[-lq:] = 1.0
+    cases = {"train": (randn(tq, dk), randn(tk, dk), randn(tk, dv),
+                       torch.ones(tk, device=device), randn(tq, dv)),
+             "stm": (q, k, v, stm, do),
+             "all": (q, k, v, torch.ones(lk, device=device), do),
+             "none": (q, k, v, torch.zeros(lk, device=device), do)}
+    err = rel = 0.0
+    args = {}
+    for name, (q_, k_, v_, m_, do_) in cases.items():
+        out, lse = ka.attention_plain(q_, k_, v_, m_)
+        delta = (do_ * out).sum(dim=1)
+        args[name] = (q_, k_, v_, m_, do_, lse, delta)
+        dq = ka.attention_bwd_dq(*args[name])
+        dkk, dvv = ka.attention_bwd_dkv(*args[name])
+        want = ka.attention_bwd_plain(q_, k_, v_, m_, out, lse, do_)
+        for what, g, t in zip(("dQ", "dK", "dV"), (dq, dkk, dvv), want):
+            d = (g - t).abs()
+            check(bool((d <= 1e-5 + 1e-4 * t.abs()).all()),
+                  f"attention backward {what} mask={name}: max |diff| "
+                  f"{float(d.max())}")
+            err = max(err, float(d.max()))
+            rel = max(rel, float(d.max() / t.abs().max().clamp_min(1e-30)))
+        dead = m_ <= 0
+        check(not dkk[dead].any() and not dvv[dead].any(),
+              f"attention backward mask={name}: a masked key's dK or dV is "
+              f"not 0")
+        if name == "none":
+            check(not dq.any() and not dkk.any() and not dvv.any(),
+                  "attention backward: no valid key must give 0")
+
+    def sdpa_bwd_ms(q_, k_, v_, m_, do_, reps):
+        q4, k4, v4 = (t[None, None].clone().requires_grad_()
+                      for t in (q_, k_, v_))
+        o4 = F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=(m_ > 0)[None, None, None, :])
+        g4 = do_[None, None]
+        return cuda_ms(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), g4, retain_graph=True), reps)
+
+    def cost(kind, n_q, n_k, n_valid):
+        """bound() of K5 or K6 over n_valid keys: q, dO, lse, delta, the
+        valid keys' k and v and the mask read once, dq (or every key's dk
+        and dv) written once."""
+        flops = 2 * n_q * n_valid * (2 * dk + (dv if kind == "dq"
+                                               else 2 * dv))
+        n_in = n_q * (dk + dv + 2) + n_valid * (dk + dv) + n_k
+        n_out = n_q * dk if kind == "dq" else n_k * (dk + dv)
+        return bound(4 * (n_in + n_out), flops)
+
+    times = {}
+    for name, reps in (("train", 200), ("stm", 20), ("all", 3)):
+        a = args[name]
+        times[name] = (cuda_ms(lambda: ka.attention_bwd_dq(*a), reps),
+                       cuda_ms(lambda: ka.attention_bwd_dkv(*a), reps))
+    plain = {name: (cuda_ms(lambda: ka.attention_bwd_dq_plain(*args[name]),
+                            reps, rounds=3),
+                    cuda_ms(lambda: ka.attention_bwd_dkv_plain(*args[name]),
+                            reps, rounds=3))
+             for name, reps in (("train", 50), ("stm", 3))}
+    lib = {name: sdpa_bwd_ms(*cases[name], reps)
+           for name, reps in (("train", 50), ("stm", 3))}
+    n_valid = int(stm.sum())
+    for i, (key, line) in enumerate((("attention_bwd_dq", "75"),
+                                     ("attention_bwd_dkv", "106"))):
+        kind = "dq" if i == 0 else "dkv"
+        b_t, by_t = cost(kind, tq, tk, tk)
+        b_s, by_s = cost(kind, lq, lk, n_valid)
+        b_a, _ = cost(kind, lq, lk, lk)
+        rows[key] = dict(
+            source="video_unscreen_tpu_torch/csrc/attention.cu",
+            replaces=f"video_unscreen_tpu/ops/pallas/attention.py:{line}",
+            max_abs_err=err, max_rel_err=rel, ms=times["train"][i],
+            plain_ms=plain["train"][i], bound_ms=b_t, bound_by=by_t,
+            library_ms=lib["train"],
+            bg_shape=dict(ms=times["stm"][i], plain_ms=plain["stm"][i],
+                          bound_ms=b_s, bound_by=by_s, library_ms=lib["stm"],
+                          all_valid_ms=times["all"][i],
+                          all_valid_bound_ms=b_a))
+        print(f"  K{5 + i} attention backward {kind}: training shape (Lq "
+              f"{tq}, Lk {tk}): {times['train'][i]:.4f} ms (plain "
+              f"{plain['train'][i]:.4f} ms, SDPA backward {lib['train']:.4f} "
+              f"ms, bound {b_t:.5f} ms); bg shape (Lq {lq}, Lk {lk}), "
+              f"{n_valid} valid keys: {times['stm'][i]:.4f} ms (plain "
+              f"{plain['stm'][i]:.4f} ms, SDPA backward {lib['stm']:.4f} ms, "
+              f"bound {b_s:.4f} ms over the valid keys); all keys valid: "
+              f"{times['all'][i]:.4f} ms (bound {b_a:.4f} ms); max |diff| "
+              f"{err:.3g} (relative {rel:.3g})", flush=True)
+
+
+def train_phases(stm_weights):
+    """STM training on the card, then one step on the card against the
+    same step on the host; returns the training path's kernel counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.ops import kernels
+    from video_unscreen_tpu_torch.parallel import train_stm as ts
+    from video_unscreen_tpu_torch.utils.checkpoint import load_stm, save_stm
+
+    model = ts.make_stm_train_state("cuda", init_from=str(stm_weights))
+    step = ts.make_stm_train_step(model, *ts.make_optimizer(
+        model, TRAIN_LR, TRAIN_STEPS))
+    rng = np.random.RandomState(SEED)
+    batches = [ts.make_clip_batch(rng, TRAIN_BATCH, (TRAIN_HW, TRAIN_HW),
+                                  TRAIN_CLIP) for _ in range(TRAIN_STEPS)]
+    read = ("attention", "attention_bwd_dq", "attention_bwd_dkv")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    losses, secs, per_step = [], [], []
+    for batch in batches:
+        before = kernels.counts()
+        t1 = time.perf_counter()
+        loss = float(step(batch))   # reads the loss: synchronizes
+        secs.append(time.perf_counter() - t1)
+        after = kernels.counts()
+        losses.append(loss)
+        per_step.append({k: tuple(a - b for a, b in zip(after[k], before[k]))
+                         for k in read})
+    counts = kernels.counts()
+    phase(f"stm train ({TRAIN_STEPS} steps)", t0)
+    steps_per_s = (TRAIN_STEPS - 1) / sum(secs[1:])
+    print(f"  stm train, batch {TRAIN_BATCH} at {TRAIN_HW}x{TRAIN_HW}, "
+          f"clip_len {TRAIN_CLIP}: losses {losses}; step seconds "
+          f"{[round(t, 4) for t in secs]}; {steps_per_s:.3f} steps/s over "
+          f"steps 2-{TRAIN_STEPS} on {torch.cuda.get_device_name(0)}; "
+          f"(calls, launches) per step {per_step}", flush=True)
+    check(all(np.isfinite(losses)), f"stm train losses {losses}")
+    for n in per_step:
+        for k in read:
+            check(n[k] == (TRAIN_BATCH, TRAIN_BATCH),
+                  f"stm train step launched {k} {n[k]}, want one per batch "
+                  f"item")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "stm.msgpack"
+        save_stm(path, model)
+        back = load_stm(path)
+    for key, t in model.state_dict().items():
+        if not key.endswith("num_batches_tracked"):
+            check(torch.equal(back[key], t.cpu()),
+                  f"save_stm/load_stm changed {key}")
+
+    t0 = time.perf_counter()
+    batch = ts.make_clip_batch(np.random.RandomState(SEED + 1),
+                               TRAIN_HOST["batch"], (TRAIN_HOST["hw"],) * 2,
+                               TRAIN_CLIP)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = ts.make_stm_train_state(dev, init_from=str(stm_weights))
+        loss = float(ts.make_stm_train_step(m, *ts.make_optimizer(
+            m, TRAIN_LR, TRAIN_STEPS))(batch))
+        runs[dev] = (m, loss)
+    phase("stm train host step", t0)
+    (card, c_loss), (host, h_loss) = runs["cuda"], runs["cpu"]
+    check(abs(c_loss - h_loss) <= 1e-4 * abs(h_loss),
+          f"stm train card loss {c_loss} vs host {h_loss}")
+    # the rule of tests/test_torch_train_stm.py: where |g| is within the
+    # gradient tolerance of 0, Adam's first step is about lr sign(g)
+    grads = {n: p.grad for n, p in host.named_parameters()}
+    gmax = max(float(g.abs().max()) for g in grads.values())
+    worst = n_noise = 0
+    for name, p in card.named_parameters():
+        want = dict(host.named_parameters())[name].detach()
+        got, g = p.detach().cpu(), grads[name]
+        noise = g.abs() <= 1e-3 * float(g.abs().max()) + 2e-6 * gmax
+        d = (got - want).abs()
+        ratio = d / (1e-6 + 1e-4 * want.abs())
+        worst = max(worst, float(ratio[~noise].max()) if (~noise).any()
+                    else 0.0)
+        n_noise += int(noise.sum())
+        check(bool((d[noise] <= 2 * TRAIN_LR).all()),
+              f"stm train card vs host {name}: max |diff| {float(d.max())}")
+    check(worst <= 1.0, f"stm train card vs host parameters: worst "
+          f"|diff| / (1e-6 + 1e-4 |p|) {worst}")
+    stats_rel = 0.0
+    host_bufs = dict(host.named_buffers())
+    for name, b in card.named_buffers():
+        if "running" in name:
+            want = host_bufs[name]
+            stats_rel = max(stats_rel, float((b.cpu() - want).abs().max()
+                                             / want.abs().max()))
+    check(stats_rel <= 1e-4, f"stm train card vs host BatchNorm statistics: "
+          f"{stats_rel}")
+    print(f"  stm train card vs host (batch {TRAIN_HOST['batch']}, "
+          f"{TRAIN_HOST['hw']}x{TRAIN_HOST['hw']}): loss {c_loss} vs "
+          f"{h_loss}; parameters: worst |diff| / (1e-6 + 1e-4 |p|) "
+          f"{worst:.4f} ({n_noise} near-zero-gradient entries held to 2 lr); "
+          f"statistics relative {stats_rel:.3g}", flush=True)
+    return counts
+
+
 def bg_config(stm_weights, matting_weights):
     """configs/bg.json with the weights-free chroma seed at 960 (the SCHP
     seed is not ported yet)."""
@@ -362,8 +590,9 @@ def bg_phases(frames, gts, stm_weights, matting_weights):
           f"0, the seed frame, {secs[0] * 1e3:.1f} ms, excluded); per-frame "
           f"ms {[round(t * 1e3, 1) for t in secs]}; (calls, launches) "
           f"{counts}", flush=True)
-    for k, (_, n) in counts.items():
-        check(n > 0, f"kernel {k} was not launched on the bg path")
+    for k in ("trimap", "morph", "flood", "attention"):
+        check(counts[k][1] > 0,
+              f"kernel {k} was not launched on the bg path")
     check(counts["attention"][0] == N_FRAMES - 1,
           f"STM memory reads {counts['attention']}, want one per tracked "
           f"frame")
@@ -443,6 +672,7 @@ def main():
     t0 = time.perf_counter()
     rows = kernel_phase(device)
     bg_kernel_phase(device, rows)
+    attention_bwd_phase(device, rows)
     phase("kernels vs plain", t0)
 
     t0 = time.perf_counter()
@@ -493,6 +723,7 @@ def main():
           f"card vs host alphas: max {dmax}, frac>1 {frac}")
 
     counts["bg"] = bg_phases(frames, gts, stm_weights, weights)
+    counts["train"] = train_phases(stm_weights)
 
     out = []
     for k in counts["green"]:

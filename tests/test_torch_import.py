@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
-`video_unscreen_tpu_torch` loads no JAX, flax, msgpack, cv2 or JAX-package
-module, `chip_smoke.py` imports none either, and the entry points refuse a
-missing card instead of quietly running on the host."""
+`video_unscreen_tpu_torch` (the trainer's `parallel/` modules included)
+loads no JAX, flax, msgpack, cv2 or JAX-package module, `chip_smoke.py`
+and `tools/train_stm_torch.py` import none either, and the entry points
+refuse a missing card instead of quietly running on the host."""
 import ast
 import os
 import subprocess
@@ -39,26 +40,49 @@ def test_port_imports_nothing_of_jax():
     assert bad == [] or bad == [""], f"forbidden modules loaded: {bad}"
 
 
-def test_chip_smoke_imports_nothing_of_jax():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _import_roots(path):
+    tree = ast.parse(path.read_text())
     roots = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    roots = _import_roots(ROOT / "chip_smoke.py")
     assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
     assert "video_unscreen_tpu_torch" in roots
 
 
+def test_port_trainer_imports_nothing_of_jax():
+    roots = _import_roots(ROOT / "tools" / "train_stm_torch.py")
+    assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
+    assert "video_unscreen_tpu_torch" in roots
+    probe = ("import importlib.util, sys\n"
+             "spec = importlib.util.spec_from_file_location('t', "
+             "'tools/train_stm_torch.py')\n"
+             "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+             f"print(sorted(k for k in sys.modules if k.split('.')[0] in "
+             f"{set(FORBIDDEN)!r}))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 @pytest.mark.parametrize("entry", ["pipeline", "run_fused", "bg_run",
-                                   "stm_agent"])
+                                   "stm_agent", "stm_train_state"])
 def test_entry_points_refuse_missing_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal path does not run")
     from tests.test_pipeline_bg import BG_TEST_CFG
     from tests.test_pipeline_green import TEST_CFG
     from video_unscreen_tpu_torch.agents.stm import STMAgent
+    from video_unscreen_tpu_torch.parallel.train_stm import \
+        make_stm_train_state
     from video_unscreen_tpu_torch.pipeline import bg
     from video_unscreen_tpu_torch.pipeline.fused_green import (
         FusedGreenPipeline, run_fused)
@@ -70,8 +94,10 @@ def test_entry_points_refuse_missing_cuda(entry):
             run_fused(TEST_CFG, frames, work_long_side=128)
         elif entry == "bg_run":
             bg.run(BG_TEST_CFG, frames)
-        else:
+        elif entry == "stm_agent":
             STMAgent()
+        else:
+            make_stm_train_state()
 
 
 def test_unported_options_raise():

@@ -159,6 +159,76 @@ def test_attention_kernel(shape, mask_name):
         assert not out.any() and not lse.any()
 
 
+def _dead_keys_are_zero(mask, *grads):
+    """dK and dV rows of masked keys are exactly 0."""
+    dead = mask <= 0
+    for g in grads:
+        assert not g[dead].any()
+
+
+@cuda
+@pytest.mark.parametrize("mask_name", ["stm", "all", "all_but_one", "none",
+                                       "random"])
+@pytest.mark.parametrize("shape", [(2040, 22440, 128, 512),
+                                   (200, 600, 128, 512), (37, 70, 64, 36)])
+def test_attention_bwd_kernels(shape, mask_name):
+    """K5 (dQ) and K6 (dK, dV) against the plain backward, from the plain
+    forward's out and LSE and a seeded dO: the bg path's shape and ragged
+    ones; rtol 1e-4, atol 1e-5 (f32 sums in another order; see below for
+    the one-valid-key case); masked keys' dK and dV exactly 0, and every
+    gradient exactly 0 with no valid key."""
+    require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask = _attention_case(*shape, mask_name)
+    out, lse = ka.attention_plain(q, k, v, mask)
+    dout = _dev(np.random.RandomState(1).randn(shape[0], shape[3]))
+    delta = (dout * out).sum(dim=1)
+    before = [(c.calls, c.launches)
+              for c in (ka.ATTENTION_BWD_DQ, ka.ATTENTION_BWD_DKV)]
+    dq = ka.attention_bwd_dq(q, k, v, mask, dout, lse, delta)
+    dk, dv = ka.attention_bwd_dkv(q, k, v, mask, dout, lse, delta)
+    assert [(c.calls, c.launches)
+            for c in (ka.ATTENTION_BWD_DQ, ka.ATTENTION_BWD_DKV)] == [
+        (n + 1, m + 1) for n, m in before]
+    want = ka.attention_bwd_plain(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    # With one valid key the softmax is constant: the exact dQ and dK are
+    # 0, and both versions return the rounding noise of dS = P (dP -
+    # delta), a difference of two sums of dv products that agree to f32
+    # rounding of their own size; that noise is held to 1e-5 of |dP|.
+    noise = 1.0
+    if mask_name == "all_but_one":
+        noise = max(1.0, float((dout @ v[mask > 0].T).abs().max()))
+    for got, w, atol in zip((dq, dk, dv), want, (1e-5 * noise,) * 2
+                            + (1e-5,)):
+        torch.testing.assert_close(got, w, rtol=1e-4, atol=atol)
+    _dead_keys_are_zero(mask, dk, dv)
+    if mask_name == "none":
+        assert not dq.any() and not dk.any() and not dv.any()
+
+
+@cuda
+def test_autograd_read_launches_the_kernels():
+    """MaskedMemoryAttention on the card: K4 forward, K5 and K6 backward,
+    one launch each, gradients as the plain backward's."""
+    require_cuda()
+    q, k, v, mask = _attention_case(64, 128, 128, 512, "random")
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    dout = _dev(np.random.RandomState(2).randn(64, 512))
+    before = [(c.calls, c.launches) for c in (
+        ka.ATTENTION, ka.ATTENTION_BWD_DQ, ka.ATTENTION_BWD_DKV)]
+    out = ka.MaskedMemoryAttention.apply(q, k, v, mask)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert [(c.calls, c.launches) for c in (
+        ka.ATTENTION, ka.ATTENTION_BWD_DQ, ka.ATTENTION_BWD_DKV)] == [
+        (n + 1, m + 1) for n, m in before]
+    with torch.no_grad():
+        o, lse = ka.attention_plain(q, k, v, mask)
+        want = ka.attention_bwd_plain(q, k, v, mask, o, lse, dout)
+    for got, w in zip(grads, want):
+        torch.testing.assert_close(got, w, rtol=1e-4, atol=1e-5)
+
+
 @cuda
 def test_wrappers_reject_bad_input():
     require_cuda()
@@ -177,6 +247,19 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         ka.masked_memory_attention(q[:, :2].contiguous(), k[:, :2]
                                    .contiguous(), v, mask)  # dk not 4n
+    out, lse = ka.masked_memory_attention(q, k, v, mask)
+    dout = torch.ones_like(out)
+    delta = (dout * out).sum(dim=1)
+    for fn in (ka.attention_bwd_dq, ka.attention_bwd_dkv):
+        with pytest.raises(ValueError):
+            fn(q, k, v, mask, dout[:, 4:].contiguous(), lse, delta)  # dout
+        with pytest.raises(ValueError):
+            fn(q, k, v, mask, dout, lse[1:], delta)            # lse not (Lq,)
+    # the autograd read refuses what K4 refuses (dk > 128), on the card,
+    # and never sends it to the plain version
+    wide = _attention_case(64, 128, 132, 512, "all")
+    with pytest.raises(ValueError):
+        ka.MaskedMemoryAttention.apply(*wide)
 
 
 @cuda
@@ -230,8 +313,12 @@ def test_bg_pipeline_card_matches_host():
     card = bg.run(cfg, frames, device="cuda")
     launched = counts()
     host = bg.run(cfg, frames, device="cpu")
-    assert all(n > 0 for _, n in launched.values()), launched
+    assert all(n > 0 for name, (_, n) in launched.items()
+               if not name.startswith("attention_bwd")), launched
     assert launched["attention"] == (2, 2), launched
+    # inference runs no backward
+    assert launched["attention_bwd_dq"] == launched["attention_bwd_dkv"] \
+        == (0, 0), launched
     for a, b in zip(card["alphas"], host["alphas"]):
         d = np.abs(a.astype(int) - b.astype(int))
         assert d.max() <= 4 and (d > 1).mean() < 1e-3, (d.max(),

@@ -40,7 +40,7 @@ from video_unscreen_tpu_torch.pipeline import bg  # noqa: E402
 PATCHES = (
     ("seed", binseg.ChromaSegAgent, "forward"),
     ("stm", stm.STMAgent, "forward"),
-    ("memory_read", stm_model, "masked_memory_attention"),
+    ("memory_read", stm_model, "memory_read"),
     ("object_removal", bg, "remove_invalid_objects_cfg"),
     ("trimap", trimap.TrimapAgent, "forward"),
     ("matting", vmatting.VMattingAgent, "forward"),

@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .batchnorm import FlaxBatchNorm2d
+
 _BN_EPS = 1e-5  # flax BatchNorm's default epsilon
 # |x| from which the float32 tanh of XLA (Eigen's rational approximation)
 # returns exactly +-1; a correctly rounded tanh gets there only at ~9.01
@@ -35,8 +37,8 @@ def _conv1x1(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 1, bias=False)
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=_BN_EPS)
+def _bn(c: int) -> FlaxBatchNorm2d:
+    return FlaxBatchNorm2d(c, eps=_BN_EPS)
 
 
 def _up(c: int) -> nn.ConvTranspose2d:

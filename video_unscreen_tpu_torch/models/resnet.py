@@ -6,8 +6,9 @@ Port of `video_unscreen_tpu/models/resnet.py` (`BasicBlock`, `Bottleneck`,
 convolutions are `convs.0, convs.1, ...` and its BatchNorms `bns.0, ...`
 in the order flax names them `Conv_0, BatchNorm_0, ...`, and the trunk's
 blocks are one flat `blocks` list (`Bottleneck_0, Bottleneck_1, ...`), so
-`utils/checkpoint.py` maps a flax tree by order. BatchNorm eps is flax's
-1e-5; inference uses the running statistics.
+`utils/checkpoint.py` maps a flax tree by order. BatchNorm is
+`batchnorm.FlaxBatchNorm2d` (flax's eps 1e-5, momentum and variance);
+inference uses the running statistics.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .batchnorm import FlaxBatchNorm2d
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1,
@@ -36,7 +39,7 @@ class BasicBlock(nn.Module):
         if use_projection:
             convs.append(_conv(cin, planes, 1, stride))
         self.convs = nn.ModuleList(convs)
-        self.bns = nn.ModuleList(nn.BatchNorm2d(planes, eps=1e-5)
+        self.bns = nn.ModuleList(FlaxBatchNorm2d(planes)
                                  for _ in convs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -60,7 +63,7 @@ class Bottleneck(nn.Module):
         if use_projection:
             convs.append(_conv(cin, out_ch, 1, stride))
         self.convs = nn.ModuleList(convs)
-        self.bns = nn.ModuleList(nn.BatchNorm2d(c.out_channels, eps=1e-5)
+        self.bns = nn.ModuleList(FlaxBatchNorm2d(c.out_channels)
                                  for c in convs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -100,11 +103,11 @@ class ResNet(nn.Module):
             cin = in_channels
             for i, (ch, s) in enumerate(zip(chans, strides)):
                 setattr(self, f"stem_conv{i + 1}", _conv(cin, ch, 3, s, 1, 1))
-                setattr(self, f"stem_bn{i + 1}", nn.BatchNorm2d(ch, eps=1e-5))
+                setattr(self, f"stem_bn{i + 1}", FlaxBatchNorm2d(ch))
                 cin = ch
         else:
             self.stem_conv1 = _conv(in_channels, width, 7, 2, 1, 3)
-            self.stem_bn1 = nn.BatchNorm2d(width, eps=1e-5)
+            self.stem_bn1 = FlaxBatchNorm2d(width)
             cin = width
         blocks = []
         self.stage_ends = []

@@ -8,11 +8,15 @@ decoder to 2-class logits upsampled x4, and the soft aggregation.
 Convolutions are NCHW. The memory keys and values keep the JAX package's
 (B, T, Hm, Wm, C) layout: row-major, that is the (Lk, C) matrix the
 attention kernel reads, so `memorize` returns NHWC and the bank needs no
-transpose. `memory_read` sends a CUDA tensor to kernel K4
-(`ops/kernels/attention.py`) and a CPU tensor to its plain version; there
-is no other branch. Submodule names follow flax's creation order
-(`convs.N` for `Conv_N`, `resblocks.N` for `ResBlock_N`, `refines.N` for
-`Refine_N`) so `utils/checkpoint.py:load_stm` maps a flax tree by order.
+transpose. `memory_read` goes through `MaskedMemoryAttention`
+(`ops/kernels/attention.py`): on a CUDA tensor its forward is kernel K4
+and its backward kernels K5 and K6, on a CPU tensor their plain versions;
+there is no other branch; under `torch.no_grad` only K4 runs. In train
+mode (`nn.Module.train()`, the JAX package's `train=True`) the BatchNorms
+update their statistics as flax's do (`batchnorm.FlaxBatchNorm2d`).
+Submodule names follow flax's creation order (`convs.N` for `Conv_N`,
+`resblocks.N` for `ResBlock_N`, `refines.N` for `Refine_N`) so
+`utils/checkpoint.py:load_stm` maps a flax tree by order.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.geometry import resize_nchw
-from ..ops.kernels.attention import masked_memory_attention
+from ..ops.kernels.attention import MaskedMemoryAttention
 from .resnet import ResNet
 
 
@@ -116,8 +120,8 @@ def memory_read(mem_k: torch.Tensor, mem_v: torch.Tensor,
     qk = q_k.reshape(b, hm * wm, ck)
     mask = valid.to(torch.float32).repeat_interleave(hm * wm, dim=1)
     mem = torch.stack([
-        masked_memory_attention(qk[i].contiguous(), mk[i].contiguous(),
-                                mv[i].contiguous(), mask[i].contiguous())[0]
+        MaskedMemoryAttention.apply(qk[i].contiguous(), mk[i].contiguous(),
+                                    mv[i].contiguous(), mask[i].contiguous())
         for i in range(b)])
     return torch.cat([mem.reshape(b, hm, wm, cv), q_v], dim=-1)
 

@@ -33,6 +33,8 @@ _SIGNATURES = {
     "vut_trimap": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P),
     "vut_flood": (_P, _P, _P, _P, _I, _I, _P, _P),
     "vut_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "vut_attention_bwd_dq": (_P,) * 8 + (_I,) * 4 + (_P, _P),
+    "vut_attention_bwd_dkv": (_P,) * 9 + (_I,) * 4 + (_P, _P),
 }
 
 _lib = None

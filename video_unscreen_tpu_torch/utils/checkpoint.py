@@ -23,6 +23,12 @@ above, flax's eps 1e-5 kept by the modules), with flax's auto-names taken
 by order: `Bottleneck_3` -> `blocks.3`, `Conv_2` -> `convs.2`,
 `BatchNorm_1` -> `bns.1`, `ResBlock_0` -> `resblocks.0`, `Refine_1` ->
 `refines.1`; explicit names (`encoder_q`, `stem_conv1`, `kv_m`, ...) stay.
+
+`save_stm` is its inverse: it writes an STM's `params` and `batch_stats`
+in the layout flax's `to_bytes` writes (maps of strings, each array an
+ext type 1 `(shape, dtype_name, raw_bytes)`), which `read_msgpack` and the
+JAX package's `utils/checkpoint.py:load_variables` read. Torch's
+`num_batches_tracked` is not written.
 """
 
 from __future__ import annotations
@@ -212,3 +218,107 @@ def load_stm(source) -> Dict[str, torch.Tensor]:
         state[f"{mod}.{stats[path[-1]]}"] = _tensor(arr)
         state[f"{mod}.num_batches_tracked"] = torch.tensor(0)
     return state
+
+
+_FLAX_AUTO = {v: k for k, v in _AUTO_NAMES.items() if k != "BasicBlock"}
+
+
+def _flax_path(module: str) -> Tuple[str, ...]:
+    """`encoder_q.blocks.3.convs.1` -> (encoder_q, Bottleneck_3, Conv_1):
+    `_module_path` backwards (the STM's blocks are bottlenecks)."""
+    parts, out = module.split("."), []
+    while parts:
+        name = parts.pop(0)
+        if name in _FLAX_AUTO and parts and parts[0].isdigit():
+            out.append(f"{_FLAX_AUTO[name]}_{parts.pop(0)}")
+        else:
+            out.append(name)
+    return tuple(out)
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    """msgpack-encode `obj` (dict, str, bytes, int, tuple, ndarray) into
+    `out`, each with the smallest header, as msgpack's packer does."""
+    def header(n: int, fix: int, fix_max: int, codes: Tuple[int, ...],
+               widths: Tuple[int, ...]) -> None:
+        if fix is not None and n <= fix_max:
+            out.append(fix | n)
+            return
+        for code, width in zip(codes, widths):
+            if n < 1 << (8 * width):
+                out.append(code)
+                out.extend(n.to_bytes(width, "big"))
+                return
+        raise ValueError(f"msgpack: length {n} too large")
+
+    if isinstance(obj, dict):
+        header(len(obj), 0x80, 15, (0xDE, 0xDF), (2, 4))
+        for key, val in obj.items():
+            _pack(key, out)
+            _pack(val, out)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        header(len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB), (1, 2, 4))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray)):
+        header(len(obj), None, -1, (0xC4, 0xC5, 0xC6), (1, 2, 4))
+        out += obj
+    elif isinstance(obj, (tuple, list)):
+        header(len(obj), 0x90, 15, (0xDC, 0xDD), (2, 4))
+        for val in obj:
+            _pack(val, out)
+    elif isinstance(obj, int) and 0 <= obj < 1 << 64:
+        header(obj, 0x00, 0x7F, (0xCC, 0xCD, 0xCE, 0xCF), (1, 2, 4, 8))
+    elif isinstance(obj, np.ndarray):
+        payload = bytearray()
+        _pack((tuple(int(n) for n in obj.shape), obj.dtype.name,
+               obj.tobytes("C")), payload)
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            out.append(fixext[n])
+        else:
+            header(n, None, -1, (0xC7, 0xC8, 0xC9), (1, 2, 4))
+        out.append(_EXT_NDARRAY)
+        out += payload
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def save_stm(path: Union[str, os.PathLike], model: torch.nn.Module) -> None:
+    """Write `models/stm.py:STM`'s variables as a flax msgpack file (the
+    inverse of `load_stm`): conv weights OIHW -> HWIO kernels, BatchNorm
+    `weight`/`bias` -> `scale`/`bias`, `running_mean`/`running_var` ->
+    `batch_stats` `mean`/`var`, all float32; `num_batches_tracked` is
+    dropped. The file is written whole under a temporary name, then
+    renamed."""
+    tree: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    leaf_names = {"running_mean": ("batch_stats", "mean"),
+                  "running_var": ("batch_stats", "var")}
+    for key, t in model.state_dict().items():
+        mod, leaf = key.rsplit(".", 1)
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in leaf_names:
+            coll, name = leaf_names[leaf]
+        elif leaf == "weight":
+            coll, name = "params", "kernel" if arr.ndim == 4 else "scale"
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+        elif leaf == "bias":
+            coll, name = "params", "bias"
+        else:
+            raise ValueError(f"unexpected state entry {key}")
+        node = tree[coll]
+        for part in _flax_path(mod):
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
+    buf = bytearray()
+    _pack(tree, buf)
+    path = os.fspath(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(buf)
+    os.replace(tmp, path)
