@@ -13,12 +13,15 @@ Phases, each printed with its wall seconds:
      main paths' shapes, and time both with CUDA events: K1 trimap, K2
      morph and K3 flood bit-exact (green's 544x960 and 272x480, bg's
      1080x1920 with the 4x4 ellipse), K4 attention (the STM memory read,
-     Lq 2040 x Lk 22440, dk 128, dv 512) to rtol 1e-4 / atol 1e-5, with
-     SDPA timed beside it as its yardstick, and K5 (dQ) and K6 (dK, dV),
-     the read's backward, from a seeded dO at the training shape (Lq 64,
-     Lk 128) and at bg's shape with the STM mask, every key valid and no
-     key valid: rtol 1e-4 / atol 1e-5, masked keys' dK and dV exactly 0,
-     with the plain versions and SDPA's backward timed beside them;
+     Lq 2040 x Lk 22440, dk 128, dv 512, and one training read, Lq 64 x
+     Lk 128) to rtol 1e-4 / atol 1e-5, with SDPA timed beside it as its
+     yardstick, and K5 (dQ) and K6 (dK, dV), the read's backward, from a
+     seeded dO at the training shape and at bg's shape with the STM mask,
+     every key valid and no key valid: rtol 1e-4 / atol 1e-5, masked
+     keys' dK and dV exactly 0, K5 deterministic, with the plain versions
+     and SDPA's backward timed beside them; then the read as a train step
+     makes it (8 items, one call each of K4, K5, K6, against SDPA on the
+     same batch) and 3-item batches of ragged reads over every mask kind;
   4. run `FusedGreenPipeline.run` on 8 seeded synthetic 1080p green-screen
      frames with every launch count reset just before, check that each
      kernel launched, the outputs (IoU with the synthetic ground truth
@@ -34,7 +37,9 @@ Phases, each printed with its wall seconds:
   8. train the STM 3 AdamW steps from weights/stm.msgpack at the trainer's
      defaults (batch 8, 128x128, clip_len 3, lr 5e-4) on the port's own
      synthetic clips, counts reset just before: every loss finite, K4, K5
-     and K6 one launch per batch item per step; the steps per second; then
+     and K6 one call per step for the whole batch (K4 2 launches: the
+     live-tile list and the kernel; K5 the kernel and the sum of its key
+     splits; K6 1); the steps per second; then
      save with `save_stm` and read back with `load_stm` bit for bit;
   9. one train step on the card and the same step on the host (batch 2,
      64x64, clip_len 3): the loss to 1e-4 relative, the parameters and the
@@ -70,6 +75,7 @@ TRAIN_BATCH, TRAIN_HW, TRAIN_CLIP, TRAIN_LR, TRAIN_STEPS = 8, 128, 3, 5e-4, 3
 TRAIN_HOST = dict(batch=2, hw=64)  # the card-vs-host step
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32X3_OPS_PER_S = 495e12 / 3  # H100 SXM TF32 tensor cores, 3 passes
 
 
 def check(cond, msg):
@@ -144,10 +150,107 @@ def cuda_ms(fn, reps, rounds=7):
     return sorted(times)[len(times) // 2]
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_bounds(kind, n_b, n_q, n_k, n_valid, dk, dv):
+    """bound() of K4 ("fwd"), K5 ("dq") or K6 ("dkv") on n_b items of
+    n_q queries over n_k keys of which n_valid are valid, at the f32 rate
+    and at the 3xTF32 tensor-core rate: q, the valid keys' k and v and
+    the mask read once (and for the backward dO, lse and delta), the
+    outputs written once."""
+    per_pair = {"fwd": dk + dv, "dq": 2 * dk + dv, "dkv": 2 * dk + 2 * dv}
+    flops = 2 * n_b * n_q * n_valid * per_pair[kind]
+    if kind == "fwd":
+        n_io = n_q * dk + n_valid * (dk + dv) + n_k + n_q * (dv + 1)
+    else:
+        n_io = (n_q * (dk + dv + 2) + n_valid * (dk + dv) + n_k
+                + (n_q * dk if kind == "dq" else n_k * (dk + dv)))
+    return {"f32": bound(4 * n_b * n_io, flops),
+            "3xtf32": bound(4 * n_b * n_io, flops, TF32X3_OPS_PER_S)}
+
+
+def as_bh(t):
+    """(B, L, d) or (L, d) -> (B, 1, L, d), SDPA's batch and head axes."""
+    return t.reshape(-1, 1, *t.shape[-2:])
+
+
+def sdpa_fwd_ms(q, k, v, mask, reps):
+    """SDPA on the same read with the boolean mask: the library time."""
+    import torch.nn.functional as F
+    q4, k4, v4 = as_bh(q), as_bh(k), as_bh(v)
+    m4 = (mask > 0).reshape(-1, 1, 1, mask.shape[-1])
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=m4), reps)
+
+
+def sdpa_bwd_ms(q, k, v, mask, dout, reps):
+    """SDPA's backward (dQ, dK and dV) on the same read."""
+    import torch
+    import torch.nn.functional as F
+    q4, k4, v4 = (as_bh(t).clone().requires_grad_() for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=(mask > 0).reshape(-1, 1, 1, mask.shape[-1]))
+    g4 = as_bh(dout)
+    return cuda_ms(lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), g4, retain_graph=True), reps)
+
+
+def item_mask(name, lq, lk, rng):
+    """The key masks the kernels are held on: the STM read's (an empty
+    bank, the last frame valid), every key, one key, none, random, one
+    live 64-key tile in the middle, only the last key."""
+    import numpy as np
+    m = np.zeros(lk, np.float32)
+    if name == "stm":
+        m[-lq:] = 1.0
+    elif name == "all":
+        m[:] = 1.0
+    elif name == "one":
+        m[lk // 3] = 1.0
+    elif name == "random":
+        m = (rng.rand(lk) > 0.5).astype(np.float32)
+    elif name == "mid_tile":
+        mid = (-(-lk // 64)) // 2 * 64
+        m[mid:mid + 64] = 1.0
+    elif name == "last_key":
+        m[-1] = 1.0
+    return m
+
+
+def held_close(what, got, want, atol=1e-5):
+    """|got - want| <= atol + 1e-4 |want| everywhere (the card checks'
+    tolerance); returns (max |diff|, max |diff| / max |want|)."""
+    d = (got - want).abs()
+    check(bool((d <= atol + 1e-4 * want.abs()).all()),
+          f"{what}: max |diff| {float(d.max())}")
+    return float(d.max()), float(d.max() / want.abs().max().clamp_min(1e-30))
+
+
+def held_bwd(what, got, want, mask, dout, v):
+    """dQ, dK, dV of one item held as tests/test_torch_kernels_cuda.py
+    holds them: where a single key is valid the exact dQ and dK are 0 and
+    both versions return rounding noise, held to 1e-5 of |dO V^T|; masked
+    keys' dK and dV exactly 0; with no valid key every gradient 0."""
+    n_valid = int((mask > 0).sum())
+    noise = 1.0
+    if n_valid == 1:
+        noise = max(1.0, float((dout @ v[mask > 0].T).abs().max()))
+    errs = [held_close(f"{what} {name}", g, t, atol)
+            for name, g, t, atol in zip(("dQ", "dK", "dV"), got, want,
+                                        (1e-5 * noise,) * 2 + (1e-5,))]
+    dead = mask <= 0
+    check(not got[1][dead].any() and not got[2][dead].any(),
+          f"{what}: a masked key's dK or dV is not 0")
+    if n_valid == 0:
+        check(not any(g.any() for g in got),
+              f"{what}: no valid key must give 0")
+    # relative to |want| only where the exact gradient is not 0
+    exact = errs[2:] if n_valid == 1 else errs
+    return max(e[0] for e in errs), max(e[1] for e in exact)
 
 
 def kernel_phase(device):
@@ -293,48 +396,63 @@ def bg_kernel_phase(device, rows):
     for name, mk in masks.items():
         out, lse = ka.masked_memory_attention(q, k, v, mk)
         for g, t in zip((out, lse), ka.attention_plain(q, k, v, mk)):
-            d = (g - t).abs()
-            check(bool((d <= 1e-5 + 1e-4 * t.abs()).all()),
-                  f"attention mask={name}: max |diff| {float(d.max())}")
-            err = max(err, float(d.max()))
-            rel = max(rel, float(d.max() / t.abs().max().clamp_min(1e-30)))
+            e = held_close(f"attention mask={name}", g, t)
+            err, rel = max(err, e[0]), max(rel, e[1])
         if name == "none":
             check(not out.any() and not lse.any(), "attention: no valid key "
                   "must give 0")
     mk = masks["stm"]
-    ms = cuda_ms(lambda: ka.masked_memory_attention(q, k, v, mk), 20)
+    ms = cuda_ms(lambda: ka.masked_memory_attention(q, k, v, mk), 50)
     ms_all = cuda_ms(lambda: ka.masked_memory_attention(q, k, v,
                                                         masks["all"]), 20)
     plain = cuda_ms(lambda: ka.attention_plain(q, k, v, mk), 5)
-    q4, k4, v4 = q[None, None], k[None, None], v[None, None]
-    bool_mask = (mk > 0)[None, None, None, :]
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=bool_mask), 5)
+    lib = sdpa_fwd_ms(q, k, v, mk, 5)
+    lib_all = sdpa_fwd_ms(q, k, v, masks["all"], 5)
     # the least work this input needs: the valid keys only
     n_valid = int(mk.sum())
-    n_bytes = 4 * (lq * dk + n_valid * (dk + dv) + lk + lq * dv + lq)
-    b, by = bound(n_bytes, 2 * lq * n_valid * (dk + dv))
-    b_all, _ = bound(4 * (lq * dk + lk * (dk + dv + 1) + lq * (dv + 1)),
-                     2 * lq * lk * (dk + dv))
+    bd = attn_bounds("fwd", 1, lq, lk, n_valid, dk, dv)
+    bd_all = attn_bounds("fwd", 1, lq, lk, lk, dk, dv)
+
+    # K4 at the training shape: one read (Lq 64, Lk 128, every key valid)
+    tq = (TRAIN_HW // 16) ** 2
+    tk = (TRAIN_CLIP - 1) * tq
+    qt, kt, vt = q[:tq].contiguous(), k[:tk].contiguous(), v[:tk].contiguous()
+    mt = torch.ones(tk, device=device)
+    for g, t in zip(ka.masked_memory_attention(qt, kt, vt, mt),
+                    ka.attention_plain(qt, kt, vt, mt)):
+        e = held_close("attention training shape", g, t)
+        err, rel = max(err, e[0]), max(rel, e[1])
+    ms_t = cuda_ms(lambda: ka.masked_memory_attention(qt, kt, vt, mt), 200)
+    plain_t = cuda_ms(lambda: ka.attention_plain(qt, kt, vt, mt), 50)
+    lib_t = sdpa_fwd_ms(qt, kt, vt, mt, 50)
+    bd_t = attn_bounds("fwd", 1, tq, tk, tk, dk, dv)
     rows["attention"] = dict(
         source="video_unscreen_tpu_torch/csrc/attention.cu",
         replaces="video_unscreen_tpu/ops/pallas/attention.py:32",
         max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain,
-        bound_ms=b, bound_by=by, library_ms=lib,
-        all_valid=dict(ms=ms_all, bound_ms=b_all))
+        bound_ms=bd["3xtf32"][0], bound_by=bd["3xtf32"][1],
+        bound_f32_ms=bd["f32"][0], library_ms=lib,
+        all_valid=dict(ms=ms_all, bound_ms=bd_all["3xtf32"][0],
+                       bound_f32_ms=bd_all["f32"][0], library_ms=lib_all),
+        train_shape=dict(ms=ms_t, plain_ms=plain_t,
+                         bound_ms=bd_t["3xtf32"][0],
+                         bound_f32_ms=bd_t["f32"][0], library_ms=lib_t))
     print(f"  K4 attention Lq {lq} Lk {lk} dk {dk} dv {dv}, {n_valid} valid "
           f"keys: {ms:.4f} ms (plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
-          f"bound {b:.4f} ms over the valid keys, {b_all:.4f} ms over every "
-          f"key); all keys valid: {ms_all:.4f} ms; max |diff| {err:.3g} "
-          f"(relative {rel:.3g})", flush=True)
+          f"bound {bd['3xtf32'][0]:.4f} ms at 3xTF32 / {bd['f32'][0]:.4f} "
+          f"ms at f32 over the valid keys); all keys valid: {ms_all:.4f} ms "
+          f"(SDPA {lib_all:.4f} ms, bound {bd_all['3xtf32'][0]:.4f} / "
+          f"{bd_all['f32'][0]:.4f} ms); training shape (Lq {tq}, Lk {tk}): "
+          f"{ms_t:.4f} ms (plain {plain_t:.4f} ms, SDPA {lib_t:.4f} ms, "
+          f"bound {bd_t['3xtf32'][0]:.5f} / {bd_t['f32'][0]:.5f} ms); max "
+          f"|diff| {err:.3g} (relative {rel:.3g})", flush=True)
 
 
 def attention_bwd_phase(device, rows):
-    """K5 and K6 against the plain backward at the training shape and at
-    bg's shape; adds their rows."""
+    """K5 and K6 against the plain backward at the training shape (one
+    item) and at bg's shape; adds their rows' numbers of those shapes."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from video_unscreen_tpu_torch.ops.kernels import attention as ka
 
     rng = np.random.RandomState(SEED + 6)
@@ -361,45 +479,18 @@ def attention_bwd_phase(device, rows):
         out, lse = ka.attention_plain(q_, k_, v_, m_)
         delta = (do_ * out).sum(dim=1)
         args[name] = (q_, k_, v_, m_, do_, lse, delta)
-        dq = ka.attention_bwd_dq(*args[name])
-        dkk, dvv = ka.attention_bwd_dkv(*args[name])
+        got = (ka.attention_bwd_dq(*args[name]),
+               *ka.attention_bwd_dkv(*args[name]))
         want = ka.attention_bwd_plain(q_, k_, v_, m_, out, lse, do_)
-        for what, g, t in zip(("dQ", "dK", "dV"), (dq, dkk, dvv), want):
-            d = (g - t).abs()
-            check(bool((d <= 1e-5 + 1e-4 * t.abs()).all()),
-                  f"attention backward {what} mask={name}: max |diff| "
-                  f"{float(d.max())}")
-            err = max(err, float(d.max()))
-            rel = max(rel, float(d.max() / t.abs().max().clamp_min(1e-30)))
-        dead = m_ <= 0
-        check(not dkk[dead].any() and not dvv[dead].any(),
-              f"attention backward mask={name}: a masked key's dK or dV is "
-              f"not 0")
-        if name == "none":
-            check(not dq.any() and not dkk.any() and not dvv.any(),
-                  "attention backward: no valid key must give 0")
-
-    def sdpa_bwd_ms(q_, k_, v_, m_, do_, reps):
-        q4, k4, v4 = (t[None, None].clone().requires_grad_()
-                      for t in (q_, k_, v_))
-        o4 = F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=(m_ > 0)[None, None, None, :])
-        g4 = do_[None, None]
-        return cuda_ms(lambda: torch.autograd.grad(
-            o4, (q4, k4, v4), g4, retain_graph=True), reps)
-
-    def cost(kind, n_q, n_k, n_valid):
-        """bound() of K5 or K6 over n_valid keys: q, dO, lse, delta, the
-        valid keys' k and v and the mask read once, dq (or every key's dk
-        and dv) written once."""
-        flops = 2 * n_q * n_valid * (2 * dk + (dv if kind == "dq"
-                                               else 2 * dv))
-        n_in = n_q * (dk + dv + 2) + n_valid * (dk + dv) + n_k
-        n_out = n_q * dk if kind == "dq" else n_k * (dk + dv)
-        return bound(4 * (n_in + n_out), flops)
+        e = held_bwd(f"attention backward mask={name}", got, want, m_, do_,
+                     v_)
+        err, rel = max(err, e[0]), max(rel, e[1])
+    first = ka.attention_bwd_dq(*args["all"])
+    check(torch.equal(first, ka.attention_bwd_dq(*args["all"])),
+          "attention dQ: two calls differ")
 
     times = {}
-    for name, reps in (("train", 200), ("stm", 20), ("all", 3)):
+    for name, reps in (("train", 200), ("stm", 50), ("all", 5)):
         a = args[name]
         times[name] = (cuda_ms(lambda: ka.attention_bwd_dq(*a), reps),
                        cuda_ms(lambda: ka.attention_bwd_dkv(*a), reps))
@@ -409,33 +500,143 @@ def attention_bwd_phase(device, rows):
                             reps, rounds=3))
              for name, reps in (("train", 50), ("stm", 3))}
     lib = {name: sdpa_bwd_ms(*cases[name], reps)
-           for name, reps in (("train", 50), ("stm", 3))}
+           for name, reps in (("train", 50), ("stm", 3), ("all", 3))}
     n_valid = int(stm.sum())
     for i, (key, line) in enumerate((("attention_bwd_dq", "75"),
                                      ("attention_bwd_dkv", "106"))):
         kind = "dq" if i == 0 else "dkv"
-        b_t, by_t = cost(kind, tq, tk, tk)
-        b_s, by_s = cost(kind, lq, lk, n_valid)
-        b_a, _ = cost(kind, lq, lk, lk)
+        # K5 runs on the tensor cores (3xTF32), K6 on the FMA units (f32)
+        rate = "3xtf32" if i == 0 else "f32"
+        b_t = attn_bounds(kind, 1, tq, tk, tk, dk, dv)
+        b_s = attn_bounds(kind, 1, lq, lk, n_valid, dk, dv)
+        b_a = attn_bounds(kind, 1, lq, lk, lk, dk, dv)
         rows[key] = dict(
             source="video_unscreen_tpu_torch/csrc/attention.cu",
             replaces=f"video_unscreen_tpu/ops/pallas/attention.py:{line}",
-            max_abs_err=err, max_rel_err=rel, ms=times["train"][i],
-            plain_ms=plain["train"][i], bound_ms=b_t, bound_by=by_t,
-            library_ms=lib["train"],
+            max_abs_err=err, max_rel_err=rel,
+            train_shape=dict(ms=times["train"][i],
+                             plain_ms=plain["train"][i],
+                             bound_f32_ms=b_t["f32"][0],
+                             bound_3xtf32_ms=b_t["3xtf32"][0],
+                             library_ms=lib["train"]),
             bg_shape=dict(ms=times["stm"][i], plain_ms=plain["stm"][i],
-                          bound_ms=b_s, bound_by=by_s, library_ms=lib["stm"],
+                          bound_ms=b_s[rate][0], bound_by=b_s[rate][1],
+                          bound_f32_ms=b_s["f32"][0],
+                          bound_3xtf32_ms=b_s["3xtf32"][0],
+                          library_ms=lib["stm"],
                           all_valid_ms=times["all"][i],
-                          all_valid_bound_ms=b_a))
+                          all_valid_bound_f32_ms=b_a["f32"][0],
+                          all_valid_bound_3xtf32_ms=b_a["3xtf32"][0],
+                          all_valid_library_ms=lib["all"]))
         print(f"  K{5 + i} attention backward {kind}: training shape (Lq "
               f"{tq}, Lk {tk}): {times['train'][i]:.4f} ms (plain "
               f"{plain['train'][i]:.4f} ms, SDPA backward {lib['train']:.4f} "
-              f"ms, bound {b_t:.5f} ms); bg shape (Lq {lq}, Lk {lk}), "
+              f"ms, bound {b_t['3xtf32'][0]:.5f} ms at 3xTF32 / "
+              f"{b_t['f32'][0]:.5f} ms at f32); bg shape (Lq {lq}, Lk {lk}), "
               f"{n_valid} valid keys: {times['stm'][i]:.4f} ms (plain "
               f"{plain['stm'][i]:.4f} ms, SDPA backward {lib['stm']:.4f} ms, "
-              f"bound {b_s:.4f} ms over the valid keys); all keys valid: "
-              f"{times['all'][i]:.4f} ms (bound {b_a:.4f} ms); max |diff| "
+              f"bound {b_s['3xtf32'][0]:.4f} / {b_s['f32'][0]:.4f} ms over "
+              f"the valid keys); all keys valid: {times['all'][i]:.4f} ms "
+              f"(SDPA backward {lib['all']:.4f} ms, bound "
+              f"{b_a['3xtf32'][0]:.4f} / {b_a['f32'][0]:.4f} ms); max |diff| "
               f"{err:.3g} (relative {rel:.3g})", flush=True)
+
+
+def train_read_phase(device, rows):
+    """The read as a train step makes it, one call each of K4, K5 and K6
+    on the batch (8 items of Lq 64 over Lk 128, every key valid), against
+    the batched plain versions and SDPA on the same (8, 1, Lq, d) batch:
+    this sets the K4-K6 rows' main numbers. Then batched ragged reads (3
+    items, mask kinds cycling) of K4, K5 and K6 against the plain ones."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.ops.kernels import attention as ka
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    dk, dv, b = ATTN_DK, ATTN_DV, TRAIN_BATCH
+    tq = (TRAIN_HW // 16) ** 2
+    tk = (TRAIN_CLIP - 1) * tq
+
+    def read(n_b, lq, lk, dk_, dv_):
+        return [torch.randn(*s, generator=gen, device=device)
+                for s in ((n_b, lq, dk_), (n_b, lk, dk_), (n_b, lk, dv_),
+                          (n_b, lq, dv_))]
+
+    q, k, v, do = read(b, tq, tk, dk, dv)
+    mask = torch.ones(b, tk, device=device)
+    out, lse = ka.masked_memory_attention(q, k, v, mask)
+    want_out, want_lse = ka.attention_plain(q, k, v, mask)
+    errs = [held_close("batched training read out", out, want_out),
+            held_close("batched training read lse", lse, want_lse)]
+    delta = (do * want_out).sum(dim=-1)
+    a = (q, k, v, mask, do, want_lse, delta)
+    got = (ka.attention_bwd_dq(*a), *ka.attention_bwd_dkv(*a))
+    want = ka.attention_bwd_plain(q, k, v, mask, want_out, want_lse, do)
+    errs += [held_bwd(f"batched training read item {i}",
+                      [g[i] for g in got], [w[i] for w in want], mask[i],
+                      do[i], v[i]) for i in range(b)]
+
+    # batched ragged reads: every mask kind, Lq and Lk not tile multiples
+    kinds = ["stm", "all", "one", "none", "random", "mid_tile", "last_key"]
+    rng = np.random.RandomState(SEED + 8)
+    for shape in ((200, 600, 128, 512), (37, 70, 64, 36)):
+        for first in (0, 3, 6):
+            names = [kinds[(first + i) % len(kinds)] for i in range(3)]
+            qr, kr, vr, dr = read(3, *shape)
+            mr = torch.from_numpy(np.stack([item_mask(n, *shape[:2], rng)
+                                            for n in names])).to(device)
+            o, l_ = ka.masked_memory_attention(qr, kr, vr, mr)
+            wo, wl = ka.attention_plain(qr, kr, vr, mr)
+            errs += [held_close(f"ragged read {shape} {names} out", o, wo),
+                     held_close(f"ragged read {shape} {names} lse", l_, wl)]
+            for i, n in enumerate(names):
+                if n == "none":
+                    check(not o[i].any() and not l_[i].any(),
+                          "ragged read: no valid key must give 0")
+            ar = (qr, kr, vr, mr, dr, wl, (dr * wo).sum(dim=-1))
+            gr = (ka.attention_bwd_dq(*ar), *ka.attention_bwd_dkv(*ar))
+            wr = ka.attention_bwd_plain(qr, kr, vr, mr, wo, wl, dr)
+            errs += [held_bwd(f"ragged read {shape} {names[i]}",
+                              [g[i] for g in gr], [w[i] for w in wr],
+                              mr[i], dr[i], vr[i]) for i in range(3)]
+    err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+
+    sdpa_bwd = sdpa_bwd_ms(q, k, v, mask, do, 50)  # dQ, dK and dV
+    times = {
+        "attention": (cuda_ms(lambda: ka.masked_memory_attention(
+            q, k, v, mask), 200), cuda_ms(lambda: ka.attention_plain(
+                q, k, v, mask), 50), sdpa_fwd_ms(q, k, v, mask, 50)),
+        "attention_bwd_dq": (cuda_ms(lambda: ka.attention_bwd_dq(*a), 200),
+                             cuda_ms(lambda: ka.attention_bwd_dq_plain(*a),
+                                     50), sdpa_bwd),
+        "attention_bwd_dkv": (cuda_ms(lambda: ka.attention_bwd_dkv(*a), 200),
+                              cuda_ms(lambda: ka.attention_bwd_dkv_plain(*a),
+                                      50), sdpa_bwd)}
+    for key, kind, rate in (("attention", "fwd", "3xtf32"),
+                            ("attention_bwd_dq", "dq", "3xtf32"),
+                            ("attention_bwd_dkv", "dkv", "f32")):
+        ms, plain, lib = times[key]
+        bd = attn_bounds(kind, b, tq, tk, tk, dk, dv)
+        row = dict(ms=ms, plain_ms=plain, bound_ms=bd[rate][0],
+                   bound_by=bd[rate][1], bound_f32_ms=bd["f32"][0],
+                   bound_3xtf32_ms=bd["3xtf32"][0], library_ms=lib)
+        if key == "attention":   # the bg read stays K4's main number
+            rows[key]["train_batch"] = row
+        else:
+            rows[key].update(row)
+            rows[key]["max_abs_err"] = max(rows[key]["max_abs_err"], err)
+            rows[key]["max_rel_err"] = max(rows[key]["max_rel_err"], rel)
+        print(f"  {key} on the training batch ({b} x Lq {tq}, Lk {tk}), "
+              f"one call: {ms:.4f} ms (plain {plain:.4f} ms, SDPA "
+              f"{'forward' if kind == 'fwd' else 'backward'} {lib:.4f} ms, "
+              f"bound {bd['3xtf32'][0]:.5f} ms at 3xTF32 / "
+              f"{bd['f32'][0]:.5f} ms at f32)", flush=True)
+    rows["attention"]["max_abs_err"] = max(rows["attention"]["max_abs_err"],
+                                           err)
+    rows["attention"]["max_rel_err"] = max(rows["attention"]["max_rel_err"],
+                                           rel)
+    print(f"  batched reads (training batch, ragged 3-item batches): max "
+          f"|diff| {err:.3g} (relative {rel:.3g})", flush=True)
 
 
 def train_phases(stm_weights):
@@ -446,6 +647,7 @@ def train_phases(stm_weights):
     import numpy as np
     import torch
     from video_unscreen_tpu_torch.ops import kernels
+    from video_unscreen_tpu_torch.ops.kernels import attention as ka
     from video_unscreen_tpu_torch.parallel import train_stm as ts
     from video_unscreen_tpu_torch.utils.checkpoint import load_stm, save_stm
 
@@ -477,11 +679,18 @@ def train_phases(stm_weights):
           f"steps 2-{TRAIN_STEPS} on {torch.cuda.get_device_name(0)}; "
           f"(calls, launches) per step {per_step}", flush=True)
     check(all(np.isfinite(losses)), f"stm train losses {losses}")
+    # one call per step for the whole batch: K4 is the live-tile list and
+    # K4, K5 (handed K4's list) the kernel and the sum of its key splits
+    tq = (TRAIN_HW // 16) ** 2
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    want = {"attention": (1, 2),
+            "attention_bwd_dq": (1, 1 + (ka.dq_splits(
+                TRAIN_BATCH, tq, (TRAIN_CLIP - 1) * tq, n_sm) > 1)),
+            "attention_bwd_dkv": (1, 1)}
     for n in per_step:
         for k in read:
-            check(n[k] == (TRAIN_BATCH, TRAIN_BATCH),
-                  f"stm train step launched {k} {n[k]}, want one per batch "
-                  f"item")
+            check(n[k] == want[k], f"stm train step launched {k} {n[k]}, "
+                  f"want {want[k]}")
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "stm.msgpack"
         save_stm(path, model)
@@ -673,6 +882,7 @@ def main():
     rows = kernel_phase(device)
     bg_kernel_phase(device, rows)
     attention_bwd_phase(device, rows)
+    train_read_phase(device, rows)
     phase("kernels vs plain", t0)
 
     t0 = time.perf_counter()

@@ -1,8 +1,11 @@
 """K4's plain version and the port's STM memory read against the JAX
-package: the Pallas flash kernel in interpret mode (out and LSE) and the
-JAX `memory_read`'s einsum branch. Shapes are not tile multiples (Lq 200,
-Lk 600 against the Pallas tiles of 128 and 256). Tolerance: rtol 1e-5 and
-atol 1e-5, f32 sums taken in another order."""
+package: the Pallas flash kernel in interpret mode (out and LSE), alone
+and vmapped over a batch as the JAX STM reads, and the JAX `memory_read`'s
+einsum branch. Shapes are not tile multiples (Lq 200, Lk 600 against the
+Pallas tiles of 128 and 256). Tolerance: rtol 1e-5 and atol 1e-5, f32 sums
+taken in another order. Then the 3xTF32 products of K4 and K5, emulated in
+torch, against the card's check."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -90,3 +93,114 @@ def test_memory_read_matches_jax(b, valid):
                       tt(qv))
     assert got.shape == (b, hm, wm, 2 * DV)
     np.testing.assert_allclose(nn_(got), want, rtol=1e-5, atol=1e-5)
+
+
+def _batch_masks(lk, rng):
+    """Three items whose fully masked 64-key tiles lie at the start and
+    the end (item 0) and in the middle (item 1); item 2 has no valid
+    key."""
+    m = (rng.rand(3, lk) > 0.3).astype(np.float32)
+    m[0, :128] = 0.0
+    m[0, 4 * 64:] = 0.0
+    m[1, 2 * 64:3 * 64] = 0.0
+    m[2] = 0.0
+    return m
+
+
+def test_batched_plain_matches_vmapped_pallas():
+    """The batched plain forward (B 3) against `jax.vmap` of the Pallas
+    forward, out and LSE; each item also as its own 2-D call."""
+    rng = np.random.RandomState(8)
+    b, lq, lk, dk, dv = 3, 70, 300, 64, 128
+    q, k, v = (rng.randn(*s).astype(np.float32)
+               for s in ((b, lq, dk), (b, lk, dk), (b, lk, dv)))
+    mask = _batch_masks(lk, rng)
+
+    def one(a, b_, c, m):
+        return _fwd_call(*_pad_inputs(a, b_, c, m, 128, 256), True)
+
+    want_out, want_lse = jax.vmap(one)(*map(jnp.asarray, (q, k, v, mask)))
+    want_out = np.asarray(want_out)[:, :lq]
+    want_lse = np.asarray(want_lse)[:, :lq, 0]
+    out, lse = ka.masked_memory_attention(tt(q), tt(k), tt(v), tt(mask))
+    assert out.shape == (b, lq, dv) and lse.shape == (b, lq)
+    np.testing.assert_allclose(nn_(out), want_out, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(nn_(lse), want_lse, rtol=1e-5, atol=1e-5)
+    assert not nn_(out)[2].any() and not nn_(lse)[2].any()
+    for i in range(b):
+        o, l_ = ka.attention_plain(tt(q[i]), tt(k[i]), tt(v[i]),
+                                   tt(mask[i]))
+        np.testing.assert_allclose(nn_(o), nn_(out)[i], rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(nn_(l_), nn_(lse)[i], rtol=1e-5,
+                                   atol=1e-5)
+
+
+# -- 3xTF32 ---------------------------------------------------------------
+def _tf32(x):
+    """x rounded to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero, as `cvt.rna.tf32.f32` rounds it."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a, b, passes):
+    """a @ b on operands rounded as the tensor cores take them: one TF32
+    pass, or 3xTF32 (small*big + big*small + big*big, f32 sums)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _k4_k5_tc(q, k, v, mask, dout, lse, delta, passes):
+    """K4's (out, lse) and K5's dQ with every product (S = Q K^T, P V,
+    dP = dO V^T, dS K) emulated as the kernels form them."""
+    scale = ka._scale(q.shape[1])
+    s = torch.where(mask[None] > 0, _mm(q, k.T, passes) * scale, -1e30)
+    m = s.max(dim=1, keepdim=True).values
+    p = torch.exp(s - m)
+    l_fin = p.sum(dim=1, keepdim=True).clamp_min(1e-30)
+    any_valid = m > -0.5e30
+    out = torch.where(any_valid, _mm(p, v, passes) / l_fin, 0.0)
+    lse_tc = torch.where(any_valid, m + torch.log(l_fin), 0.0)[:, 0]
+    p_b = torch.exp(s - lse[:, None])
+    ds = p_b * (_mm(dout, v.T, passes) - delta[:, None])
+    return out, lse_tc, _mm(ds, k, passes) * scale
+
+
+@pytest.mark.parametrize("case", ["train", "bg_stm", "bg_all"])
+def test_3xtf32_products_hold_the_card_check(case):
+    """K4's and K5's products on the tensor cores: with the 3xTF32 split
+    every output holds the card's check |d| <= 1e-5 + 1e-4 |t| against
+    the f32 plain versions, at the training shape (Lq 64, Lk 128, dk 128,
+    dv 512, every key valid) and at bg's shape cut to Lq 240 (an 11-slot
+    bank, the STM mask or every key valid). The error one TF32 pass would
+    give is printed (`-s`), not asserted: it is why the kernels take three
+    passes."""
+    lq, slots = {"train": (64, 2), "bg_stm": (240, 11),
+                 "bg_all": (240, 11)}[case]
+    lk = lq * slots
+    rng = np.random.RandomState(9)
+    q, k, v, dout = (tt(rng.randn(*s).astype(np.float32)) for s in (
+        (lq, DK), (lk, DK), (lk, DV), (lq, DV)))
+    mask = torch.ones(lk)
+    if case == "bg_stm":
+        mask[:-lq] = 0.0
+    out, lse = ka.attention_plain(q, k, v, mask)
+    delta = (dout * out).sum(dim=1)
+    want = (out, lse, ka.attention_bwd_dq_plain(q, k, v, mask, dout, lse,
+                                                delta))
+    worst = {}
+    for passes in (3, 1):
+        got = _k4_k5_tc(q, k, v, mask, dout, lse, delta, passes)
+        worst[passes] = [
+            (float((g - w).abs().max()),
+             float(((g - w).abs() / (1e-5 + 1e-4 * w.abs())).max()))
+            for g, w in zip(got, want)]
+    print(f"\n3xTF32 vs 1xTF32 at {case} (Lq {lq}, Lk {lk}): (max |d|, "
+          f"max |d| / (1e-5 + 1e-4 |t|)) for K4 out, K4 lse, K5 dQ: "
+          f"3 passes {worst[3]}; 1 pass {worst[1]}")
+    for what, (_, ratio) in zip(("out", "lse", "dQ"), worst[3]):
+        assert ratio <= 1.0, (case, what, worst[3])

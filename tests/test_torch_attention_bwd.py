@@ -4,10 +4,12 @@
 of the Pallas `masked_memory_attention` with its flash-backward custom VJP
 in interpret mode, as `tests/test_pallas_attention.py` runs it: a random
 mask at Lq 150 x Lk 300, the STM mask (bank empty, the last frame valid),
-one valid key, no valid key, and the batched (vmap) read. Tolerance rtol
-1e-4, atol 1e-5 (f32 sums in another order); a masked key's dK and dV must
-be exactly 0. Then `MaskedMemoryAttention` through `gradcheck` in float64,
-and the port's `memory_read` gradients against the JAX einsum read's."""
+one valid key, no valid key, and the batched (vmap) read, per item and as
+one batched call. Tolerance rtol 1e-4, atol 1e-5 (f32 sums in another
+order); a masked key's dK and dV must be exactly 0. Then
+`MaskedMemoryAttention` through `gradcheck` in float64, the port's
+`memory_read` gradients against the JAX einsum read's, and K5's choice of
+key splits."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -168,3 +170,60 @@ def test_memory_read_gradients_match_jax(valid):
     for w, t_ in zip(want, got):
         np.testing.assert_allclose(nn_(t_), np.asarray(w), rtol=1e-4,
                                    atol=1e-5)
+
+
+def test_batched_plain_backward_matches_vmapped_pallas_vjp():
+    """The batched plain backward (B 3, one call) against `jax.vjp` of the
+    vmapped Pallas read: item 0's fully masked 64-key tiles lie at the
+    start and the end, item 1's in the middle, item 2 has no valid key;
+    the batched autograd read gives the same gradients."""
+    rng = np.random.RandomState(10)
+    b, lq, lk, dk, dv = 3, 70, 300, 64, 128
+    q, k, v = (rng.randn(*s).astype(np.float32)
+               for s in ((b, lq, dk), (b, lk, dk), (b, lk, dv)))
+    g = rng.randn(b, lq, dv).astype(np.float32)
+    mask = (rng.rand(b, lk) > 0.3).astype(np.float32)
+    mask[0, :128] = 0.0
+    mask[0, 4 * 64:] = 0.0
+    mask[1, 2 * 64:3 * 64] = 0.0
+    mask[2] = 0.0
+
+    def fn(a, b_, c, m):
+        return masked_memory_attention(a, b_, c, m, interpret=True)
+
+    _, vjp = jax.vjp(lambda a, b_, c: jax.vmap(fn)(a, b_, c,
+                                                  jnp.asarray(mask)),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    got = _port_grads(q, k, v, mask, g)
+    tq, tk, tv = (tt(a).requires_grad_() for a in (q, k, v))
+    auto = torch.autograd.grad(
+        ka.MaskedMemoryAttention.apply(tq, tk, tv, tt(mask)), (tq, tk, tv),
+        tt(g))
+    for name, w, t, a in zip(("dq", "dk", "dv"), want, got, auto):
+        assert t.shape == w.shape and a.shape == w.shape
+        np.testing.assert_allclose(nn_(t), w, rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+        np.testing.assert_allclose(nn_(a), nn_(t), rtol=0, atol=0,
+                                   err_msg=name)
+    dead = mask == 0
+    assert not nn_(got[1])[dead].any() and not nn_(got[2])[dead].any()
+    assert not any(nn_(t)[2].any() for t in got)
+
+
+@pytest.mark.parametrize("b,lq,lk,n_sm,want", [
+    (1, 2040, 22440, 132, 8),   # bg's read: 32 query tiles x 8 = 256
+    (8, 64, 128, 132, 2),       # training: capped at the 2 key tiles
+    (1, 64, 22440, 132, 264),   # one query tile: 264 blocks
+    (16, 2040, 22440, 132, 1),  # 512 blocks fill the card already
+    (1, 37, 70, 132, 2),        # a ragged last key tile counts
+])
+def test_dq_splits(b, lq, lk, n_sm, want):
+    """K5 splits its key range into as many shares as keep (query tiles
+    x splits x B) blocks within two waves of the SMs, never into more
+    splits than 64-key tiles, and at least one."""
+    n = ka.dq_splits(b, lq, lk, n_sm)
+    assert n == want
+    blocks = b * -(-lq // 64)
+    assert n == 1 or blocks * n <= 2 * n_sm
+    assert n == -(-lk // 64) or blocks * (n + 1) > 2 * n_sm

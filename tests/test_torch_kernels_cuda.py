@@ -120,43 +120,125 @@ def test_flood_kernel_full_res(case):
     assert kcc.FLOOD.launches == before + 7
 
 
+MASKS = ["stm", "all", "all_but_one", "none", "random", "mid_tile",
+         "last_key"]
+
+
+def _mask(name, lq, lk, rng):
+    mask = np.zeros(lk, np.float32)
+    if name == "stm":                  # empty bank: only the last frame
+        mask[-lq:] = 1.0
+    elif name == "all":
+        mask[:] = 1.0
+    elif name == "all_but_one":
+        mask[lk // 3] = 1.0
+    elif name == "random":
+        mask = (rng.rand(lk) > 0.5).astype(np.float32)
+    elif name == "mid_tile":           # one live 64-key tile in the middle
+        mid = (-(-lk // 64)) // 2 * 64
+        mask[mid:mid + 64] = 1.0
+    elif name == "last_key":           # the only valid key is the last
+        mask[-1] = 1.0
+    return mask
+
+
 def _attention_case(lq, lk, dk, dv, mask_name, seed=0):
     rng = np.random.RandomState(seed)
-    mask = np.zeros(lk, np.float32)
-    if mask_name == "stm":             # empty bank: only the last frame
-        mask[-lq:] = 1.0
-    elif mask_name == "all":
-        mask[:] = 1.0
-    elif mask_name == "all_but_one":
-        mask[lk // 3] = 1.0
-    elif mask_name == "random":
-        mask = (rng.rand(lk) > 0.5).astype(np.float32)
+    mask = _mask(mask_name, lq, lk, rng)
     return [_dev(a) for a in (rng.randn(lq, dk), rng.randn(lk, dk),
                               rng.randn(lk, dv), mask)]
 
 
+def _batched_case(b, lq, lk, dk, dv, seed=0):
+    """q, k, v, dO drawn on the card, and item i's mask MASKS[i % 7]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, dout = (torch.randn(*s, generator=gen, device="cuda")
+                     for s in ((b, lq, dk), (b, lk, dk), (b, lk, dv),
+                               (b, lq, dv)))
+    rng = np.random.RandomState(seed)
+    names = [MASKS[i % len(MASKS)] for i in range(b)]
+    mask = _dev(np.stack([_mask(n, lq, lk, rng) for n in names]))
+    return q, k, v, mask, dout, names
+
+
+def _dq_launches(b, lq, lk):
+    """K5's launches for a call not handed the live-tile list: the list,
+    the kernel, and the sum of the splits where there are several."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return 2 + (ka.dq_splits(b, lq, lk, n_sm) > 1)
+
+
+SHAPES = [(2040, 22440, 128, 512), (200, 600, 128, 512), (37, 70, 64, 36)]
+
+
 @cuda
-@pytest.mark.parametrize("mask_name", ["stm", "all", "all_but_one", "none",
-                                       "random"])
-@pytest.mark.parametrize("shape", [(2040, 22440, 128, 512),
-                                   (200, 600, 128, 512), (37, 70, 64, 36)])
+@pytest.mark.parametrize("mask_name", MASKS)
+@pytest.mark.parametrize("shape", SHAPES)
 def test_attention_kernel(shape, mask_name):
     """K4 against its plain version: the bg path's shape (Lq 2040 queries
     at 544x960 / 16, an 11-slot bank) and ragged ones; rtol 1e-4, atol
-    1e-5 on out and LSE (f32 sums in another order)."""
+    1e-5 on out and LSE (f32 sums in another order, 3xTF32 products). One
+    call is two launches: the live-tile list, then K4."""
     require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, mask = _attention_case(*shape, mask_name)
     before = (ka.ATTENTION.calls, ka.ATTENTION.launches)
     out, lse = ka.masked_memory_attention(q, k, v, mask)
     assert (ka.ATTENTION.calls, ka.ATTENTION.launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 1, before[1] + 2)
     want_out, want_lse = ka.attention_plain(q, k, v, mask)
     torch.cuda.synchronize()
     for got, want in ((out, want_out), (lse, want_lse)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     if mask_name == "none":
         assert not out.any() and not lse.any()
+
+
+@cuda
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attention_kernel_batched(shape, b):
+    """K4 on a batch in one call (one launch of the list, one of K4),
+    item i with mask MASKS[i % 7], against the batched plain version;
+    rtol 1e-4, atol 1e-5; the item with no valid key gets exactly 0."""
+    require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask, _, names = _batched_case(b, *shape)
+    before = (ka.ATTENTION.calls, ka.ATTENTION.launches)
+    out, lse = ka.masked_memory_attention(q, k, v, mask)
+    assert (ka.ATTENTION.calls, ka.ATTENTION.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert out.shape == (b, shape[0], shape[3]) and lse.shape == (b,
+                                                                  shape[0])
+    want_out, want_lse = ka.attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    for got, want in ((out, want_out), (lse, want_lse)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    for i, name in enumerate(names):
+        if name == "none":
+            assert not out[i].any() and not lse[i].any()
+
+
+@cuda
+def test_live_key_tiles():
+    """The list K4 and K5 walk: per item, the 64-key tiles holding a key
+    > 0, in increasing order, and their count."""
+    require_cuda()
+    lq, lk = 2040, 22440
+    rng = np.random.RandomState(3)
+    masks = np.stack([_mask(n, lq, lk, rng) for n in MASKS]
+                     + [(rng.rand(lk) > 0.999).astype(np.float32)])
+    (tiles, n_live), launches = ka._live_key_tiles(_dev(masks))
+    assert launches == 1
+    tiles, n_live = tiles.cpu().numpy(), n_live.cpu().numpy()
+    n_tiles = -(-lk // 64)
+    assert tiles.shape == (len(masks), n_tiles)
+    for i, m in enumerate(masks):
+        padded = np.zeros(n_tiles * 64, np.float32)
+        padded[:lk] = m
+        want = np.flatnonzero((padded.reshape(n_tiles, 64) > 0).any(1))
+        assert n_live[i] == len(want)
+        np.testing.assert_array_equal(tiles[i, :len(want)], want)
 
 
 def _dead_keys_are_zero(mask, *grads):
@@ -166,16 +248,30 @@ def _dead_keys_are_zero(mask, *grads):
         assert not g[dead].any()
 
 
+def _hold_bwd(got, want, mask_name, dout, v, mask):
+    """dQ, dK, dV within rtol 1e-4, atol 1e-5 (f32 sums in another order,
+    3xTF32 products). With one valid key the softmax is constant: the
+    exact dQ and dK are 0, and both versions return the rounding noise of
+    dS = P (dP - delta), a difference of two sums of dv products that
+    agree to f32 rounding of their own size; that noise is held to 1e-5
+    of |dP|."""
+    noise = 1.0
+    if mask_name in ("all_but_one", "last_key"):
+        noise = max(1.0, float((dout @ v[mask > 0].T).abs().max()))
+    for g, w, atol in zip(got, want, (1e-5 * noise,) * 2 + (1e-5,)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=atol)
+    _dead_keys_are_zero(mask, *got[1:])
+    if mask_name == "none":
+        assert not any(g.any() for g in got)
+
+
 @cuda
-@pytest.mark.parametrize("mask_name", ["stm", "all", "all_but_one", "none",
-                                       "random"])
-@pytest.mark.parametrize("shape", [(2040, 22440, 128, 512),
-                                   (200, 600, 128, 512), (37, 70, 64, 36)])
+@pytest.mark.parametrize("mask_name", MASKS)
+@pytest.mark.parametrize("shape", SHAPES)
 def test_attention_bwd_kernels(shape, mask_name):
     """K5 (dQ) and K6 (dK, dV) against the plain backward, from the plain
     forward's out and LSE and a seeded dO: the bg path's shape and ragged
-    ones; rtol 1e-4, atol 1e-5 (f32 sums in another order; see below for
-    the one-valid-key case); masked keys' dK and dV exactly 0, and every
+    ones (see `_hold_bwd`); masked keys' dK and dV exactly 0, and every
     gradient exactly 0 with no valid key."""
     require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,39 +285,97 @@ def test_attention_bwd_kernels(shape, mask_name):
     dk, dv = ka.attention_bwd_dkv(q, k, v, mask, dout, lse, delta)
     assert [(c.calls, c.launches)
             for c in (ka.ATTENTION_BWD_DQ, ka.ATTENTION_BWD_DKV)] == [
-        (n + 1, m + 1) for n, m in before]
+        (before[0][0] + 1, before[0][1] + _dq_launches(1, *shape[:2])),
+        (before[1][0] + 1, before[1][1] + 1)]
     want = ka.attention_bwd_plain(q, k, v, mask, out, lse, dout)
     torch.cuda.synchronize()
-    # With one valid key the softmax is constant: the exact dQ and dK are
-    # 0, and both versions return the rounding noise of dS = P (dP -
-    # delta), a difference of two sums of dv products that agree to f32
-    # rounding of their own size; that noise is held to 1e-5 of |dP|.
+    _hold_bwd((dq, dk, dv), want, mask_name, dout, v, mask)
+
+
+@cuda
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attention_bwd_kernels_batched(shape, b):
+    """K5 and K6 on a batch in one call each, item i with mask MASKS[i %
+    7], against the batched plain backward, each item held as
+    `_hold_bwd` holds a single read."""
+    require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask, dout, names = _batched_case(b, *shape)
+    out, lse = ka.attention_plain(q, k, v, mask)
+    delta = (dout * out).sum(dim=-1)
+    before = [(c.calls, c.launches)
+              for c in (ka.ATTENTION_BWD_DQ, ka.ATTENTION_BWD_DKV)]
+    dq = ka.attention_bwd_dq(q, k, v, mask, dout, lse, delta)
+    dk, dv = ka.attention_bwd_dkv(q, k, v, mask, dout, lse, delta)
+    assert [(c.calls, c.launches)
+            for c in (ka.ATTENTION_BWD_DQ, ka.ATTENTION_BWD_DKV)] == [
+        (before[0][0] + 1, before[0][1] + _dq_launches(b, *shape[:2])),
+        (before[1][0] + 1, before[1][1] + 1)]
+    want = ka.attention_bwd_plain(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    for i, name in enumerate(names):
+        _hold_bwd((dq[i], dk[i], dv[i]), [w[i] for w in want], name,
+                  dout[i], v[i], mask[i])
+
+
+@cuda
+@pytest.mark.parametrize("mask_name", ["mid_tile", "last_key"])
+def test_attention_bwd_dq_more_splits_than_live_tiles(mask_name):
+    """One query tile over an 11-slot bank: K5 takes 264 key splits, and
+    the mask leaves one live tile, so all splits but one have an empty
+    share and write zeros into the sum."""
+    require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = (64, 22440, 128, 512)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ka.dq_splits(1, 64, 22440, n_sm) > 1
+    q, k, v, mask = _attention_case(*shape, mask_name)
+    out, lse = ka.attention_plain(q, k, v, mask)
+    dout = _dev(np.random.RandomState(1).randn(shape[0], shape[3]))
+    delta = (dout * out).sum(dim=1)
+    dq = ka.attention_bwd_dq(q, k, v, mask, dout, lse, delta)
+    want = ka.attention_bwd_dq_plain(q, k, v, mask, dout, lse, delta)
     noise = 1.0
-    if mask_name == "all_but_one":
+    if mask_name == "last_key":
         noise = max(1.0, float((dout @ v[mask > 0].T).abs().max()))
-    for got, w, atol in zip((dq, dk, dv), want, (1e-5 * noise,) * 2
-                            + (1e-5,)):
-        torch.testing.assert_close(got, w, rtol=1e-4, atol=atol)
-    _dead_keys_are_zero(mask, dk, dv)
-    if mask_name == "none":
-        assert not dq.any() and not dk.any() and not dv.any()
+    torch.testing.assert_close(dq, want, rtol=1e-4, atol=1e-5 * noise)
+
+
+@cuda
+@pytest.mark.parametrize("mask_name", ["all", "stm"])
+def test_attention_bwd_dq_is_deterministic(mask_name):
+    """K5 sums its key splits in a fixed order (no atomics): two calls on
+    the same inputs return the same bits."""
+    require_cuda()
+    q, k, v, mask = _attention_case(2040, 22440, 128, 512, mask_name)
+    out, lse = ka.attention_plain(q, k, v, mask)
+    dout = _dev(np.random.RandomState(1).randn(2040, 512))
+    delta = (dout * out).sum(dim=1)
+    first = ka.attention_bwd_dq(q, k, v, mask, dout, lse, delta)
+    second = ka.attention_bwd_dq(q, k, v, mask, dout, lse, delta)
+    assert torch.equal(first, second)
 
 
 @cuda
 def test_autograd_read_launches_the_kernels():
-    """MaskedMemoryAttention on the card: K4 forward, K5 and K6 backward,
-    one launch each, gradients as the plain backward's."""
+    """MaskedMemoryAttention on the card, on a batch of 3: one call each
+    of K4 (the live-tile list and K4), K5 (handed K4's list: the kernel
+    and the sum of its splits) and K6 (one launch), gradients as the
+    plain backward's."""
     require_cuda()
-    q, k, v, mask = _attention_case(64, 128, 128, 512, "random")
+    q, k, v, _, dout, _ = _batched_case(3, 64, 128, 128, 512)
+    mask = _dev(np.random.RandomState(2).rand(3, 128) > 0.5)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    dout = _dev(np.random.RandomState(2).randn(64, 512))
     before = [(c.calls, c.launches) for c in (
         ka.ATTENTION, ka.ATTENTION_BWD_DQ, ka.ATTENTION_BWD_DKV)]
     out = ka.MaskedMemoryAttention.apply(q, k, v, mask)
     grads = torch.autograd.grad(out, (q, k, v), dout)
     assert [(c.calls, c.launches) for c in (
         ka.ATTENTION, ka.ATTENTION_BWD_DQ, ka.ATTENTION_BWD_DKV)] == [
-        (n + 1, m + 1) for n, m in before]
+        (before[0][0] + 1, before[0][1] + 2),
+        (before[1][0] + 1, before[1][1] + _dq_launches(3, 64, 128) - 1),
+        (before[2][0] + 1, before[2][1] + 1)]
     with torch.no_grad():
         o, lse = ka.attention_plain(q, k, v, mask)
         want = ka.attention_bwd_plain(q, k, v, mask, o, lse, dout)
@@ -260,6 +414,9 @@ def test_wrappers_reject_bad_input():
     wide = _attention_case(64, 128, 132, 512, "all")
     with pytest.raises(ValueError):
         ka.MaskedMemoryAttention.apply(*wide)
+    qb, kb, vb, mb, _, _ = _batched_case(3, 64, 128, 128, 512)
+    with pytest.raises(ValueError):
+        ka.masked_memory_attention(qb[:2].contiguous(), kb, vb, mb)  # B
 
 
 @cuda
@@ -315,7 +472,7 @@ def test_bg_pipeline_card_matches_host():
     host = bg.run(cfg, frames, device="cpu")
     assert all(n > 0 for name, (_, n) in launched.items()
                if not name.startswith("attention_bwd")), launched
-    assert launched["attention"] == (2, 2), launched
+    assert launched["attention"] == (2, 4), launched  # list + K4 a call
     # inference runs no backward
     assert launched["attention_bwd_dq"] == launched["attention_bwd_dkv"] \
         == (0, 0), launched

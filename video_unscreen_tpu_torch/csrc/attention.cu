@@ -1,10 +1,17 @@
-// Masked memory attention, the STM memory read (K4), for Hopper.
+// Masked memory attention, the STM memory read (K4), and its backward (K5
+// dQ, K6 dK and dV), for Hopper.
 //
-// Replaces the Pallas TPU kernel `video_unscreen_tpu/ops/pallas/
-// attention.py:_attn_kernel` (entries `masked_memory_attention`,
-// `_fwd_call`): out = softmax(q k^T / sqrt(dk), keys masked by kv_mask) v,
-// by the online max/sum recurrence, and the log-sum-exp per query.
-// Semantics kept exactly:
+// Replace the Pallas TPU kernels of `video_unscreen_tpu/ops/pallas/
+// attention.py`: `_attn_kernel` (K4, entries `masked_memory_attention`,
+// `_fwd_call`), `_bwd_dq_kernel` (K5) and `_bwd_dkv_kernel` (K6), the flash
+// backward of `_mma_bwd`. Every array carries a leading batch axis B (the
+// JAX package vmaps the read, which makes the batch a grid axis of one
+// pallas_call; here it is blockIdx.z): q (B, Lq, dk), k (B, Lk, dk),
+// v (B, Lk, dv), kv_mask (B, Lk), dout (B, Lq, dv), lse and delta (B, Lq).
+//
+// K4: out = softmax(q k^T * scale, keys masked by kv_mask) v by the online
+// max/sum recurrence, and the log-sum-exp per query. Semantics kept
+// exactly:
 //   - a masked score is -1e30 (not -inf), so exp(s - m) is never NaN;
 //   - m_new = max(m, rowmax(s)); p = exp(s - m_new); a = exp(m - m_new);
 //     l = l * a + rowsum(p); acc = acc * a + p v; m = m_new;
@@ -12,49 +19,638 @@
 //     its output and its LSE are 0; otherwise out = acc / max(l, 1e-30)
 //     and lse = m + log(max(l, 1e-30));
 //   - scale = 1 / sqrtf(dk) in f32; expf/logf, no fast-math intrinsics.
-// A key past Lk is treated as a masked key with a zero value row, as the
-// TPU kernel's padding makes it; no load reads past an array's end.
+// The backward, with the forward's lse and delta = rowsum(dO o O) (a plain
+// reduction in the wrapper), for every (query, key) pair:
+//   P = expf(s - lse) with s = q.k * scale, or -1e30 at a masked key (so a
+//   masked key, and a query with no valid key, whose lse is 0, get P = 0);
+//   dP = dO . V (over all dv columns); dS = P (dP - delta);
+//   K5: dQ = (sum_keys dS K) * scale;
+//   K6: dK = (sum_queries dS Q) * scale and dV = sum_queries P dO.
+// A key past Lk is a masked key with a zero value row and a query past Lq
+// a zero row whose dS is 0, as the TPU kernels' padding makes them; no
+// load reads past an array's end.
 //
-// What bounds it: operations. Per query and key it does dk + dv
-// multiply-adds (2 * Lq * Lk * (dk + dv) flops); at the bg path's shape
-// (Lq 2040, Lk 22440, dk 128, dv 512) that is 58.6 GFLOP against 63 MB of
-// inputs and outputs, far above the card's f32 balance point (67 TFLOP/s
-// over 3.35 TB/s = 20 flop/byte).
+// The live-tile list (`live_tiles_kernel`, one block per batch item): the
+// indices, in increasing order, of the 64-key tiles that hold a key with
+// mask > 0, and their count. K4 and K5 walk that list instead of every
+// tile. This is exact: once a valid key has been seen, a fully masked tile
+// has p = expf(-1e30 - m) = 0 for every key and leaves (m, l, acc) as they
+// were; before that, the first valid tile's a = expf(-1e30 - m_new) = 0
+// wipes whatever the masked tiles added; with no valid key at all the list
+// is empty and the zero-valid rule applies. In the backward a fully masked
+// tile has P = dS = 0. On the bg path (an empty bank plus the previous
+// frame) the list holds 33 of 351 tiles.
 //
-// Design: a grid of (64-query tiles) x (128-column chunks of dv). The wide
-// value (dv = 512) is the trouble spot: a (64, 512) f32 accumulator fits
-// neither one thread block's registers nor leaves shared memory for the
-// tiles. Each block owns a (64, 128) slice of the output: its 256 threads
-// keep a 4 x 8 register tile of the accumulator each. It streams 64-key
-// tiles of K, its V chunk and the mask through shared memory, and keeps
-// its own running max and sum. The q k^T tile (20% of the flops) is
-// recomputed by the dv / 128 blocks of a query tile, about 60% more work
-// in all, for a grid of 128 blocks at the bg shape (one wave on 132 SMs)
-// and no cross-block reduction. The 16 threads that share a row group
-// compute that group's scores and hold its m and l in registers, so the
-// row max and sum are 16-lane shuffles and the rescale needs no shared
-// memory. Plain SIMT f32 FMAs; tensor cores (wgmma), TMA staging and
-// skipping fully masked key tiles (exact: such a tile leaves m, l and acc
-// as they are once a valid key has been seen) are later work.
+// What bounds them: operations. Per (query, key) pair K4 does dk + dv
+// multiply-adds, K5 2 dk + dv, K6 2 dk + 2 dv; at bg's shape (Lq 2040,
+// Lk 22440, dk 128, dv 512) over every key that is 58.6, 70.3 and 117
+// GFLOP against ~0.1 GB of bytes.
+//
+// Products: 3xTF32 on the tensor cores (the scheme of CUTLASS's
+// OpMultiplyAddFastF32). The path is f32 and one TF32 pass keeps ~11 bits,
+// which would break the 1e-5 parity, so each operand x is split into
+// big = tf32(x) (cvt.rna.tf32.f32) and small = tf32(x - big), and each
+// product accumulates small*big + big*small + big*big in f32. The
+// instruction is mma.sync.m16n8k8 (TF32), not wgmma: wgmma takes TF32
+// operands only K-major in shared memory, while P V and dS K read V and K
+// with the key (the reduction axis) as rows, MN-major, and the big/small
+// split would need both halves of every tile written to shared memory
+// (twice the bytes, which the 227 KB does not hold next to a double-
+// buffered ring at dv 512). mma.sync takes its operands from registers, so
+// the split happens on the fragment load. Tiles are staged with cp.async
+// (zero-filled past an array's end) into double-buffered rings: the next
+// tile loads while the current one is multiplied.
+//
+// K4 design: a grid of (64-query tiles) x (128-column chunks of dv) x B.
+// A (64, 512) f32 accumulator with a double-buffered (64, 512) V ring does
+// not fit one block (256 KB of V alone), so each block owns a (64, 128)
+// slice of the output and recomputes the q k^T tile (20% of the flops) for
+// its slice; at bg's shape that is 128 blocks, one wave on 132 SMs, where
+// one block per query tile would be 32. Eight warps: warp w takes query
+// rows 16 (w % 4) and, for the scores, keys 32 (w / 4) of the tile; for
+// the output, columns 64 (w / 4) of the chunk. The two warps of a row
+// group swap their partial row max and sum through shared memory.
+//
+// K5 design: a grid of (64-query tiles) x (key splits) x B. Each block
+// takes an equal share of its batch item's live-tile list (an empty share
+// writes zeros) and accumulates a (64, dk) dQ in registers; with one split
+// it writes dQ * scale, else its partial sum into a (splits, B, Lq, dk)
+// workspace that `dq_reduce_kernel` sums in fixed order and scales. No
+// atomics: two calls return the same bits. dS needs dP over all dv, so per
+// key tile the block streams dO and V in 64-column chunks through the ring
+// (a (64, 512) tile of each does not fit), keeps the (64 x 64) S and dP in
+// registers, writes dS to shared memory, and multiplies it into dQ.
+//
+// K6 (unchanged design, gained the batch axis): a grid of (64-key tiles) x
+// (1 + dv / 128) roles x B, each walking every 64-query tile with SIMT f32
+// FMAs. Role 0 forms dS (streaming the dv chunks of dO and V for dP) and
+// accumulates dK; role c >= 1 forms only P and accumulates the c-th
+// 128-column chunk of dV. A key tile whose mask is all zero writes its
+// zero rows and stops.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int BQ = 64;          // queries per block
 constexpr int BK = 64;          // keys per tile
 constexpr int DK_MAX = 128;     // widest key a block stages
-constexpr int DVC = 128;        // value columns per block
+constexpr int DVC = 128;        // value columns per K4 block (and K6 role)
+constexpr int DC = 64;          // dv columns per K5 chunk
 constexpr int THREADS = 256;
 constexpr int LDQ = DK_MAX + 4; // row pitch (floats) of the Q and K tiles
-constexpr int LDV = DVC + 4;    // row pitch of the V tile
-constexpr int LDP = BK + 4;     // row pitch of the probability tile
+constexpr int LDV = DVC + 8;    // row pitch of K4's V tile (read k-major)
+constexpr int LDC = DC + 4;     // row pitch of K5's dO and V chunks
+constexpr int LDP = BK + 4;     // row pitch of the P / dS tiles
 constexpr float NEG = -1e30f;
+static_assert(BQ == BK, "the tiles are square");
 
-constexpr size_t SMEM_FLOATS =
-    BQ * LDQ + BK * LDQ + BK * LDV + BQ * LDP + BK;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
+// Row pitches are 4 mod 32 floats where a fragment reads 8 rows x 4
+// columns and 8 mod 32 where it reads 4 rows x 8 columns, so the 32 lanes
+// of a warp hit 32 banks; K is read both ways (by S and by dS K), so its
+// second read is a 2-way conflict.
+
+constexpr size_t SMEM_FWD_FLOATS =
+    BQ * LDQ + 2 * BK * LDQ + 2 * BK * LDV + BQ * LDP + 2 * BK + 4 * BQ;
+constexpr size_t SMEM_FWD_BYTES = SMEM_FWD_FLOATS * sizeof(float);
+constexpr size_t SMEM_DQ_FLOATS = BQ * LDQ + 2 * BK * LDQ + 2 * BQ * LDC +
+                                  2 * BK * LDC + BQ * LDP + 2 * BK + 2 * BQ;
+constexpr size_t SMEM_DQ_BYTES = SMEM_DQ_FLOATS * sizeof(float);
+
+// ---------------------------------------------------------------------------
+// Asynchronous staging.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) where !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows [row0, row0 + rows) x columns [col0, col0 + width) of a
+// row-major (n_rows, ld) array into a (rows, pitch) shared tile, zero
+// outside [0, n_rows) x [0, n_cols). width, col0 and n_cols are multiples
+// of 4 (16-byte copies).
+__device__ __forceinline__ void stage_async(const float* __restrict__ src,
+                                            float* dst, int rows, int width,
+                                            int pitch, int row0, int col0,
+                                            int n_rows, int n_cols, int ld) {
+  const int vec_per_row = width / 4;
+  for (int i = threadIdx.x; i < rows * vec_per_row; i += blockDim.x) {
+    const int r = i / vec_per_row, c = (i % vec_per_row) * 4;
+    const int gr = row0 + r, gc = col0 + c;
+    const bool ok = gr < n_rows && gc < n_cols;
+    cp_async16(dst + r * pitch + c, ok ? src + (size_t)gr * ld + gc : src,
+               ok);
+  }
+}
+
+// The mask of keys [k0, k0 + BK), 0 past Lk.
+__device__ __forceinline__ void stage_mask_async(const float* __restrict__ m,
+                                                 float* dst, int k0,
+                                                 int Lk) {
+  for (int j = threadIdx.x; j < BK; j += blockDim.x) {
+    const bool ok = k0 + j < Lk;
+    cp_async4(dst + j, ok ? m + k0 + j : m, ok);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 tensor-core products (mma.sync.m16n8k8, f32 accumulate).
+//
+// Fragments (lane = 4 g + t): A (16 x 8, row-major) holds (g, t), (g + 8,
+// t), (g, t + 4), (g + 8, t + 4); B (8 x 8) holds (k t, n g) and (k t + 4,
+// n g); C (16 x 8) holds (g, 2 t), (g, 2 t + 1), (g + 8, 2 t), (g + 8,
+// 2 t + 1).
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment of rows r0.., columns k0.. of a row-major shared tile.
+__device__ __forceinline__ void load_a(const float* A, int lda, int r0,
+                                       int k0, int g, int t, uint32_t ab[4],
+                                       uint32_t as[4]) {
+  const float* p = A + (r0 + g) * lda + k0 + t;
+  split_tf32(p[0], ab[0], as[0]);
+  split_tf32(p[8 * lda], ab[1], as[1]);
+  split_tf32(p[4], ab[2], as[2]);
+  split_tf32(p[8 * lda + 4], ab[3], as[3]);
+}
+
+// B fragment (k0.., n0..) of B = T^T, T a row-major (n, k) shared tile.
+__device__ __forceinline__ void load_b_nk(const float* T, int ld, int n0,
+                                          int k0, int g, int t,
+                                          uint32_t bb[2], uint32_t bs[2]) {
+  const float* p = T + (n0 + g) * ld + k0 + t;
+  split_tf32(p[0], bb[0], bs[0]);
+  split_tf32(p[4], bb[1], bs[1]);
+}
+
+// B fragment (k0.., n0..) of a row-major (k, n) shared tile.
+__device__ __forceinline__ void load_b_kn(const float* B, int ld, int k0,
+                                          int n0, int g, int t,
+                                          uint32_t bb[2], uint32_t bs[2]) {
+  const float* p = B + (k0 + t) * ld + n0 + g;
+  split_tf32(p[0], bb[0], bs[0]);
+  split_tf32(p[4 * ld], bb[1], bs[1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero_frags(float f[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[j][e] = 0.f;
+}
+
+// c[j] += A B_j at f32 accuracy for one 8-deep step: A is rows wr.. and
+// columns k0.. of a row-major shared tile, B_j columns n0 + 8 j.. of B,
+// stored (n, k) row-major when NK (B = T^T) and (k, n) otherwise. Each
+// product is small*big + big*small + big*big; the three passes go over
+// the N independent accumulators in turn, so no mma waits on the one
+// before it.
+template <int N, bool NK>
+__device__ __forceinline__ void mma_step(float c[N][4], const float* A,
+                                         int lda, int wr, int k0,
+                                         const float* B, int ldb, int n0,
+                                         int g, int t) {
+  uint32_t ab[4], as[4], bb[N][2], bs[N][2];
+  load_a(A, lda, wr, k0, g, t, ab, as);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (NK)
+      load_b_nk(B, ldb, n0 + 8 * j, k0, g, t, bb[j], bs[j]);
+    else
+      load_b_kn(B, ldb, k0, n0 + 8 * j, g, t, bb[j], bs[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j], as, bb[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bs[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bb[j]);
+}
+
+// c = A B over `depth` (a multiple of 8) for one warp's 16 rows and N
+// 8-column fragments, into a fresh accumulator. The tensor cores' f32
+// accumulation does not round as the FMA units do, so a long chain of
+// mma into one accumulator drifts: every product runs over at most one
+// tile (64 keys, or 128 or 64 columns), and the caller adds it to its
+// running sum on the FMA units.
+template <int N, bool NK>
+__device__ __forceinline__ void warp_product(float c[N][4], const float* A,
+                                             int lda, int wr,
+                                             const float* B, int ldb,
+                                             int n0, int depth, int g,
+                                             int t) {
+  zero_frags<N>(c);
+  for (int k0 = 0; k0 < depth; k0 += 8)
+    mma_step<N, NK>(c, A, lda, wr, k0, B, ldb, n0, g, t);
+}
+
+// ---------------------------------------------------------------------------
+// The live-tile list.
+
+__global__ void __launch_bounds__(1024)
+live_tiles_kernel(const float* __restrict__ mask, int Lk, int n_tiles,
+                  int* __restrict__ tiles, int* __restrict__ n_live) {
+  __shared__ int warp_sums[32];
+  const float* m = mask + (size_t)blockIdx.x * Lk;
+  int* out = tiles + (size_t)blockIdx.x * n_tiles;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int base = 0;
+  for (int t0 = 0; t0 < n_tiles; t0 += blockDim.x) {
+    const int tile = t0 + threadIdx.x;
+    bool live = false;
+    if (tile < n_tiles) {
+      const int k0 = tile * BK;
+#pragma unroll 16
+      for (int j = 0; j < BK; ++j)
+        if (k0 + j < Lk) live |= m[k0 + j] > 0.f;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) warp_sums[warp] = __popc(bal);
+    __syncthreads();
+    if (warp == 0) {  // inclusive scan of the warps' counts
+      int x = lane < n_warps ? warp_sums[lane] : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, off);
+        if (lane >= off) x += y;
+      }
+      warp_sums[lane] = x;
+    }
+    __syncthreads();
+    if (live)
+      out[base + (warp ? warp_sums[warp - 1] : 0) +
+          __popc(bal & ((1u << lane) - 1u))] = tile;
+    base += warp_sums[n_warps - 1];
+    __syncthreads();  // the next round rewrites warp_sums
+  }
+  if (threadIdx.x == 0) n_live[blockIdx.x] = base;
+}
+
+// ---------------------------------------------------------------------------
+// K4.
+
+__global__ void __launch_bounds__(THREADS, 1)
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ mask,
+                const int* __restrict__ tiles,
+                const int* __restrict__ n_live, float* __restrict__ out,
+                float* __restrict__ lse, int Lq, int Lk, int dk, int dv,
+                float scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* Qs = smem;                  // [BQ][LDQ]
+  float* Ks = Qs + BQ * LDQ;         // [2][BK][LDQ]
+  float* Vs = Ks + 2 * BK * LDQ;     // [2][BK][LDV]
+  float* Ps = Vs + 2 * BK * LDV;     // [BQ][LDP]
+  float* Ms = Ps + BQ * LDP;         // [2][BK]
+  float* Rmax = Ms + 2 * BK;         // [2][BQ] row max of each key half
+  float* Rsum = Rmax + 2 * BQ;       // [2][BQ] row sum of each key half
+
+  const int b = blockIdx.z;
+  const int n_tiles = (Lk + BK - 1) / BK;
+  q += (size_t)b * Lq * dk;
+  k += (size_t)b * Lk * dk;
+  v += (size_t)b * Lk * dv;
+  mask += (size_t)b * Lk;
+  out += (size_t)b * Lq * dv;
+  lse += (size_t)b * Lq;
+  const int* list = tiles + (size_t)b * n_tiles;
+  const int n = n_live[b];
+
+  const int q0 = blockIdx.x * BQ, c0 = blockIdx.y * DVC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp & 3) * 16;   // the warp's 16 query rows
+  const int wh = warp >> 2;         // its half: keys 32 wh, columns 64 wh
+  const int dk8 = (dk + 7) & ~7;
+
+  auto load_tile = [&](int i) {
+    const int buf = i & 1, k0 = list[i] * BK;
+    stage_async(k, Ks + buf * BK * LDQ, BK, dk8, LDQ, k0, 0, Lk, dk, dk);
+    stage_async(v, Vs + buf * BK * LDV, BK, DVC, LDV, k0, c0, Lk, dv, dv);
+    stage_mask_async(mask, Ms + buf * BK, k0, Lk);
+  };
+
+  stage_async(q, Qs, BQ, dk8, LDQ, q0, 0, Lq, dk, dk);
+  if (n > 0) load_tile(0);
+  cp_async_commit();
+
+  // rows wr + g (h = 0) and wr + g + 8 (h = 1)
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float acc[8][4];
+  zero_frags<8>(acc);
+
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) load_tile(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Kb = Ks + (i & 1) * BK * LDQ;
+    const float* Vb = Vs + (i & 1) * BK * LDV;
+    const float* Mb = Ms + (i & 1) * BK;
+
+    float s[4][4];  // scores of rows wr.., keys 32 wh + 8 j..
+    warp_product<4, true>(s, Qs, LDQ, wr, Kb, LDQ, 32 * wh, dk8, g, t);
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 32 * wh + 8 * j + 2 * t + (e & 1);
+        s[j][e] = Mb[key] > 0.f ? s[j][e] * scale : NEG;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (t == 0) Rmax[wh * BQ + wr + g + 8 * h] = mx[h];
+    }
+    __syncthreads();
+
+    float m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wr + g + 8 * h;
+      m_new[h] = fmaxf(m[h], fmaxf(Rmax[row], Rmax[BQ + row]));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = expf(s[j][2 * h] - m_new[h]);
+        const float p1 = expf(s[j][2 * h + 1] - m_new[h]);
+        *reinterpret_cast<float2*>(Ps + (wr + g + 8 * h) * LDP + 32 * wh +
+                                   8 * j + 2 * t) = make_float2(p0, p1);
+        sum[h] += p0 + p1;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      if (t == 0) Rsum[wh * BQ + wr + g + 8 * h] = sum[h];
+    }
+    __syncthreads();
+
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wr + g + 8 * h;
+      alpha[h] = expf(m[h] - m_new[h]);
+      l[h] = l[h] * alpha[h] + (Rsum[row] + Rsum[BQ + row]);
+      m[h] = m_new[h];
+    }
+    // pv = P V: rows wr.., columns 64 wh + 8 j of the chunk
+    float pv[8][4];
+    warp_product<8, false>(pv, Ps, LDP, wr, Vb, LDV, 64 * wh, BK, g, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = fmaf(acc[j][e], alpha[e >> 1], pv[j][e]);
+    __syncthreads();  // the next tile's loads overwrite this buffer and Ps
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
+    if (row >= Lq) continue;
+    const float l_fin = fmaxf(l[h], 1e-30f);
+    const bool any_valid = m[h] > NEG * 0.5f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + 64 * wh + 8 * j + 2 * t;
+      if (col < dv)  // dv is a multiple of 4: col + 1 < dv too
+        *reinterpret_cast<float2*>(out + (size_t)row * dv + col) =
+            any_valid ? make_float2(acc[j][2 * h] / l_fin,
+                                    acc[j][2 * h + 1] / l_fin)
+                      : make_float2(0.f, 0.f);
+    }
+    if (blockIdx.y == 0 && wh == 0 && t == 0)
+      lse[row] = any_valid ? m[h] + logf(l_fin) : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5.
+
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ mask,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   const int* __restrict__ tiles,
+                   const int* __restrict__ n_live, float* __restrict__ dq,
+                   float* __restrict__ work, int B, int Lq, int Lk, int dk,
+                   int dv, float scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* Qs = smem;                  // [BQ][LDQ]
+  float* Ks = Qs + BQ * LDQ;         // [2][BK][LDQ]
+  float* Os = Ks + 2 * BK * LDQ;     // [2][BQ][LDC] a dv chunk of dO
+  float* Vs = Os + 2 * BQ * LDC;     // [2][BK][LDC] a dv chunk of V
+  float* Ss = Vs + 2 * BK * LDC;     // [BQ][LDP] dS
+  float* Ms = Ss + BQ * LDP;         // [2][BK]
+  float* Ls = Ms + 2 * BK;           // [BQ] lse
+  float* Ds = Ls + BQ;               // [BQ] delta
+
+  const int b = blockIdx.z, split = blockIdx.y, n_split = gridDim.y;
+  const int n_tiles = (Lk + BK - 1) / BK;
+  q += (size_t)b * Lq * dk;
+  k += (size_t)b * Lk * dk;
+  v += (size_t)b * Lk * dv;
+  mask += (size_t)b * Lk;
+  dout += (size_t)b * Lq * dv;
+  lse += (size_t)b * Lq;
+  delta += (size_t)b * Lq;
+  const int* list = tiles + (size_t)b * n_tiles;
+  const int n = n_live[b];
+  const int i0 = (int)((long long)n * split / n_split);
+  const int i1 = (int)((long long)n * (split + 1) / n_split);
+
+  const int q0 = blockIdx.x * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp & 3) * 16;   // the warp's 16 query rows
+  const int wh = warp >> 2;         // its half: keys 32 wh, dk columns 64 wh
+  const int dk8 = (dk + 7) & ~7;
+  const int nc = (dv + DC - 1) / DC;
+  const int n_steps = (i1 - i0) * nc;  // (tile, dv chunk) steps
+
+  // step -> tile i0 + step / nc (K tile buffer (step / nc) & 1), chunk
+  // step % nc (ring slot step & 1); a tile's K and mask come with its
+  // first chunk
+  auto load_step = [&](int step) {
+    const int it = step / nc, c = step % nc, slot = step & 1;
+    const int k0 = list[i0 + it] * BK;
+    if (c == 0) {
+      // every column: dS K reads all 128 (zeros past dk)
+      stage_async(k, Ks + (it & 1) * BK * LDQ, BK, DK_MAX, LDQ, k0, 0, Lk,
+                  dk, dk);
+      stage_mask_async(mask, Ms + (it & 1) * BK, k0, Lk);
+    }
+    stage_async(dout, Os + slot * BQ * LDC, BQ, DC, LDC, q0, c * DC, Lq, dv,
+                dv);
+    stage_async(v, Vs + slot * BK * LDC, BK, DC, LDC, k0, c * DC, Lk, dv,
+                dv);
+  };
+
+  stage_async(q, Qs, BQ, dk8, LDQ, q0, 0, Lq, dk, dk);
+  for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
+    Ls[i] = q0 + i < Lq ? lse[q0 + i] : 0.f;
+    Ds[i] = q0 + i < Lq ? delta[q0 + i] : 0.f;
+  }
+  if (n_steps > 0) load_step(0);
+  cp_async_commit();
+
+  float acc[8][4];  // dQ rows wr.., columns 64 wh + 8 j
+  zero_frags<8>(acc);
+  float s[4][4], dp[4][4];
+
+  for (int step = 0; step < n_steps; ++step) {
+    const int it = step / nc, c = step % nc, slot = step & 1;
+    if (step + 1 < n_steps) load_step(step + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* Kb = Ks + (it & 1) * BK * LDQ;
+
+    if (c == 0) {
+      warp_product<4, true>(s, Qs, LDQ, wr, Kb, LDQ, 32 * wh, dk8, g, t);
+      zero_frags<4>(dp);
+    }
+    // dP += dO_c V_c^T over the chunk's 64 columns
+    const float* Ob = Os + slot * BQ * LDC;
+    const float* Vb = Vs + slot * BK * LDC;
+    float dpc[4][4];
+    warp_product<4, true>(dpc, Ob, LDC, wr, Vb, LDC, 32 * wh, DC, g, t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] += dpc[j][e];
+
+    if (c == nc - 1) {
+      const float* Mb = Ms + (it & 1) * BK;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wr + g + 8 * h;
+          const bool live = q0 + row < Lq;
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = 32 * wh + 8 * j + 2 * t + e;
+            const float sv = Mb[key] > 0.f ? s[j][2 * h + e] * scale : NEG;
+            const float p = expf(sv - Ls[row]);
+            ds[e] = live ? p * (dp[j][2 * h + e] - Ds[row]) : 0.f;
+          }
+          *reinterpret_cast<float2*>(Ss + row * LDP + 32 * wh + 8 * j +
+                                     2 * t) = make_float2(ds[0], ds[1]);
+        }
+      __syncthreads();
+      // dQ += dS K: rows wr.., columns 64 wh + 8 j, over the tile's keys
+      float dqt[8][4];
+      warp_product<8, false>(dqt, Ss, LDP, wr, Kb, LDQ, 64 * wh, BK, g, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += dqt[j][e];
+    }
+    __syncthreads();  // the next steps' loads overwrite this slot, Ss, Ks
+  }
+  cp_async_wait<0>();
+
+  // one split: dQ * scale; else this split's partial sum
+  float* dst = n_split == 1
+                   ? dq + (size_t)b * Lq * dk
+                   : work + ((size_t)split * B + b) * Lq * dk;
+  const float f = n_split == 1 ? scale : 1.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wr + g + 8 * h;
+    if (row >= Lq) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * wh + 8 * j + 2 * t;
+      if (col < dk)  // dk is a multiple of 4: col + 1 < dk too
+        *reinterpret_cast<float2*>(dst + (size_t)row * dk + col) =
+            make_float2(acc[j][2 * h] * f, acc[j][2 * h + 1] * f);
+    }
+  }
+}
+
+// dq[i] = scale * sum over splits s (in order) of work[s][i].
+__global__ void dq_reduce_kernel(const float* __restrict__ work,
+                                 float* __restrict__ dq, size_t n,
+                                 int n_split, float scale) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float sum = 0.f;
+    for (int s = 0; s < n_split; ++s) sum += work[s * n + i];
+    dq[i] = sum * scale;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6 (SIMT f32).
+//
+// Shared memory: four (64, 132) f32 tiles (K, Q, and the dO and V
+// chunks), the (64, 68) dS tile and three 64-float vectors: 153,344 bytes.
+
+constexpr size_t SMEM_DKV_FLOATS = 4 * BQ * LDQ + BQ * LDP + 3 * BQ;
+constexpr size_t SMEM_DKV_BYTES = SMEM_DKV_FLOATS * sizeof(float);
 
 // Stage rows [row0, row0 + rows) x columns [col0, col0 + width) of a
 // row-major (n_rows, ld) array into a (rows, pitch) shared tile, zero
@@ -73,206 +669,9 @@ __device__ void stage(const float* __restrict__ src, float* dst, int rows,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ mask,
-                float* __restrict__ out, float* __restrict__ lse, int Lq,
-                int Lk, int dk, int dv, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Qs = smem;                 // [BQ][LDQ]
-  float* Ks = Qs + BQ * LDQ;        // [BK][LDQ]
-  float* Vs = Ks + BK * LDQ;        // [BK][LDV]
-  float* Ps = Vs + BK * LDV;        // [BQ][LDP]
-  float* Ms = Ps + BQ * LDP;        // [BK]
-
-  const int q0 = blockIdx.x * BQ;
-  const int c0 = blockIdx.y * DVC;
-  const int tq = threadIdx.x >> 4;  // row group: rows 4 tq .. 4 tq + 3
-  const int tl = threadIdx.x & 15;  // lane in the row group
-  const int r0 = tq * 4;
-  const int dk4 = (dk + 3) & ~3;    // dk is a multiple of 4 (host check)
-
-  stage(q, Qs, BQ, dk4, LDQ, q0, 0, Lq, dk, dk);
-
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = NEG;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Lk; k0 += BK) {
-    stage(k, Ks, BK, dk4, LDQ, k0, 0, Lk, dk, dk);
-    stage(v, Vs, BK, DVC, LDV, k0, c0, Lk, dv, dv);
-    for (int j = threadIdx.x; j < BK; j += blockDim.x)
-      Ms[j] = (k0 + j < Lk) ? mask[k0 + j] : 0.f;
-    __syncthreads();
-
-    // scores of rows r0..r0+3 against keys tl + 16 b
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-    for (int d = 0; d < dk4; d += 4) {
-      float4 qa[4], kb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        qa[a] = *reinterpret_cast<const float4*>(Qs + (r0 + a) * LDQ + d);
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        kb[b] = *reinterpret_cast<const float4*>(Ks + (tl + 16 * b) * LDQ + d);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          s[a][b] = fmaf(qa[a].x, kb[b].x, s[a][b]);
-          s[a][b] = fmaf(qa[a].y, kb[b].y, s[a][b]);
-          s[a][b] = fmaf(qa[a].z, kb[b].z, s[a][b]);
-          s[a][b] = fmaf(qa[a].w, kb[b].w, s[a][b]);
-        }
-    }
-
-    // online softmax: the 16 lanes of a row group hold the row's 64 keys
-    float alpha[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mx = NEG;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        s[a][b] = Ms[tl + 16 * b] > 0.f ? s[a][b] * scale : NEG;
-        mx = fmaxf(mx, s[a][b]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[a], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float p = expf(s[a][b] - m_new);
-        Ps[(r0 + a) * LDP + tl + 16 * b] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      alpha[a] = expf(m[a] - m_new);
-      l[a] = l[a] * alpha[a] + sum;
-      m[a] = m_new;
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V for columns 4 tl .. +3 and 64 + 4 tl .. +3
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[a][c] *= alpha[a];
-    for (int j = 0; j < BK; j += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        pa[a] = *reinterpret_cast<const float4*>(Ps + (r0 + a) * LDP + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float4 v0 =
-            *reinterpret_cast<const float4*>(Vs + (j + jj) * LDV + 4 * tl);
-        const float4 v1 = *reinterpret_cast<const float4*>(
-            Vs + (j + jj) * LDV + 64 + 4 * tl);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float p = jj == 0 ? pa[a].x
-                          : jj == 1 ? pa[a].y
-                          : jj == 2 ? pa[a].z
-                                    : pa[a].w;
-          acc[a][0] = fmaf(p, v0.x, acc[a][0]);
-          acc[a][1] = fmaf(p, v0.y, acc[a][1]);
-          acc[a][2] = fmaf(p, v0.z, acc[a][2]);
-          acc[a][3] = fmaf(p, v0.w, acc[a][3]);
-          acc[a][4] = fmaf(p, v1.x, acc[a][4]);
-          acc[a][5] = fmaf(p, v1.y, acc[a][5]);
-          acc[a][6] = fmaf(p, v1.z, acc[a][6]);
-          acc[a][7] = fmaf(p, v1.w, acc[a][7]);
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites Ks, Vs, Ps and Ms
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + r0 + a;
-    if (row >= Lq) continue;
-    const float l_fin = fmaxf(l[a], 1e-30f);
-    const bool any_valid = m[a] > NEG * 0.5f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = c0 + (c < 4 ? 4 * tl + c : 64 + 4 * tl + c - 4);
-      if (col < dv)
-        out[(size_t)row * dv + col] = any_valid ? acc[a][c] / l_fin : 0.f;
-    }
-    if (blockIdx.y == 0 && tl == 0)
-      lse[row] = any_valid ? m[a] + logf(l_fin) : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The backward (K5 dQ, K6 dK and dV).
-//
-// Replace the Pallas TPU kernels `video_unscreen_tpu/ops/pallas/
-// attention.py:_bwd_dq_kernel` (K5) and `:_bwd_dkv_kernel` (K6), the flash
-// backward of `_mma_bwd`. With the forward's lse and delta = rowsum(dO o O)
-// (a plain reduction in the wrapper), for every (query, key) pair:
-//   P = expf(s - lse) with s = q.k * scale, or -1e30 at a masked key (so a
-//   masked key, and a query with no valid key, whose lse is 0, get P = 0);
-//   dP = dO . V (over all dv columns); dS = P (dP - delta);
-//   K5: dQ = (sum_keys dS K) * scale;
-//   K6: dK = (sum_queries dS Q) * scale and dV = sum_queries P dO.
-// The forward's conventions hold: scale = 1 / sqrtf(dk) in f32, expf, no
-// fast-math; a query past Lq and a key past Lk are zero rows whose P and
-// dS are set to 0; no load reads past an array's end.
-//
-// What bounds them: operations. K5 does dk + dv + dk multiply-adds per
-// (query, key) pair (2 Lq Lk (2 dk + dv) flops), K6 2 dk + 2 dv
-// (2 Lq Lk (2 dk + 2 dv)); at bg's shape over every key that is 1.05 and
-// 1.75 ms of f32 work at 67 TFLOP/s against 0.1 ms of bytes at 3.35 TB/s.
-//
-// Design. The wide value is again the trap: dS needs dP summed over all
-// dv = 512 columns, so a block that forms dS cannot own a 128-column
-// slice of dv as K4's blocks do. Both kernels keep a (64 x 64) dP tile in
-// registers (4 x 4 a thread) and stream dO and V through shared memory in
-// 128-column chunks to fill it, then write dS (or P) to a shared tile and
-// multiply it into a (64 x 128) register accumulator (4 x 8 a thread), as
-// K4 multiplies P into its value chunk.
-//  - K5: one block per 64-query tile walks every 64-key tile. At bg's
-//    shape that is 32 blocks for 132 SMs: splitting the key range across
-//    blocks (with a second pass or atomics for dQ) is later work.
-//  - K6: a grid of (64-key tiles) x (1 + dv / 128) roles, each walking
-//    every 64-query tile. Role 0 forms dS (streaming the dv chunks of dO
-//    and V for dP) and accumulates dK; role c >= 1 forms only P and
-//    accumulates the c-th 128-column chunk of dV. P is recomputed by every
-//    role (about 40% more work than the least), which keeps each block's
-//    accumulator in registers and needs no cross-block reduction; role 0
-//    does three times the work of a dV role.
-//  - A key tile whose mask is all zero has P = dS = 0 for every query:
-//    K5 skips it (adding an exact 0 changes nothing) and K6 writes its
-//    zero rows and stops. This is exact for finite inputs; at bg's shape
-//    with the STM mask it skips 10 of every 11 key tiles.
-// Shared memory: four (64, 132) f32 tiles (Q, K, and the dO and V chunks),
-// the (64, 68) dS tile and three 64-float vectors: 153,344 bytes, one block
-// per SM. Plain SIMT f32 FMAs; wgmma, TMA and a split of K5's key range
-// are later work.
-
-constexpr size_t SMEM_BWD_FLOATS = 4 * BQ * LDQ + BQ * LDP + 3 * BQ;
-constexpr size_t SMEM_BWD_BYTES = SMEM_BWD_FLOATS * sizeof(float);
-static_assert(BQ == BK, "the backward's tiles are square");
-
 // acc[a][c] += sum_j T[r0 + a][j] X[j][col(c)] over a 64-wide shared tile
 // T (pitch LDP) and the rows of X (pitch LDQ); col(c) is 4 tl + c for
-// c < 4 and 64 + 4 tl + c - 4 otherwise, as in the forward.
+// c < 4 and 64 + 4 tl + c - 4 otherwise.
 __device__ __forceinline__ void tile_mma(const float* T, const float* X,
                                          int r0, int tl, float acc[4][8]) {
   for (int j = 0; j < BK; j += 4) {
@@ -307,7 +706,7 @@ __device__ __forceinline__ void tile_mma(const float* T, const float* X,
 
 // out[a][b] += sum_d A[r0 + a][d] B[tl + 16 b][d] for d < width, over two
 // shared tiles of pitch LDQ (the 4 x 4 register tile of a 64 x 64 product
-// of rows, as the forward's scores).
+// of rows).
 __device__ __forceinline__ void rows_dot(const float* A, const float* B,
                                          int width, int r0, int tl,
                                          float out[4][4]) {
@@ -355,88 +754,6 @@ __device__ __forceinline__ void dp_tile(const float* __restrict__ a_src,
 }
 
 __global__ void __launch_bounds__(THREADS)
-attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const float* __restrict__ mask,
-                   const float* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dq,
-                   int Lq, int Lk, int dk, int dv, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Qs = smem;                 // [BQ][LDQ]
-  float* Ks = Qs + BQ * LDQ;        // [BK][LDQ]
-  float* Os = Ks + BK * LDQ;        // [BQ][LDQ] a dv chunk of dO
-  float* Vs = Os + BQ * LDQ;        // [BK][LDQ] a dv chunk of V
-  float* Ss = Vs + BK * LDQ;        // [BQ][LDP] dS
-  float* Ms = Ss + BQ * LDP;        // [BK]
-  float* Ls = Ms + BK;              // [BQ] lse
-  float* Ds = Ls + BQ;              // [BQ] delta
-
-  const int q0 = blockIdx.x * BQ;
-  const int tq = threadIdx.x >> 4, tl = threadIdx.x & 15, r0 = tq * 4;
-
-  stage(q, Qs, BQ, dk, LDQ, q0, 0, Lq, dk, dk);
-  for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-    Ls[i] = q0 + i < Lq ? lse[q0 + i] : 0.f;
-    Ds[i] = q0 + i < Lq ? delta[q0 + i] : 0.f;
-  }
-
-  float acc[4][8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
-
-  for (int k0 = 0; k0 < Lk; k0 += BK) {
-    float mv = 0.f;
-    if (threadIdx.x < BK && k0 + (int)threadIdx.x < Lk)
-      mv = mask[k0 + threadIdx.x];
-    if (threadIdx.x < BK) Ms[threadIdx.x] = mv;
-    // a tile with no valid key has dS = 0: skip it (exact)
-    if (!__syncthreads_or(mv > 0.f)) continue;
-    stage(k, Ks, BK, dk, LDQ, k0, 0, Lk, dk, dk);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-    rows_dot(Qs, Ks, dk, r0, tl, s);
-    float dp[4][4];
-    dp_tile(dout, q0, Lq, v, k0, Lk, dv, Os, Vs, r0, tl, dp);
-
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = r0 + a;
-      const bool live = q0 + r < Lq;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = tl + 16 * b;
-        const float sv = Ms[j] > 0.f ? s[a][b] * scale : NEG;
-        const float p = expf(sv - Ls[r]);
-        Ss[r * LDP + j] = live ? p * (dp[a][b] - Ds[r]) : 0.f;
-      }
-    }
-    __syncthreads();
-    tile_mma(Ss, Ks, r0, tl, acc);
-    __syncthreads();  // the next tile overwrites Ks, Ss and Ms
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + r0 + a;
-    if (row >= Lq) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = c < 4 ? 4 * tl + c : 64 + 4 * tl + c - 4;
-      if (col < dk) dq[(size_t)row * dk + col] = acc[a][c] * scale;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
 attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ mask,
@@ -455,6 +772,17 @@ attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Ms = Ts + BK * LDP;        // [BK]
   float* Ls = Ms + BK;              // [BQ] lse
   float* Ds = Ls + BQ;              // [BQ] delta
+
+  const size_t item = blockIdx.z;
+  q += item * Lq * dk;
+  k += item * Lk * dk;
+  v += item * Lk * dv;
+  mask += item * Lk;
+  dout += item * Lq * dv;
+  lse += item * Lq;
+  delta += item * Lq;
+  grad_k += item * Lk * dk;
+  grad_v += item * Lk * dv;
 
   const int k0 = blockIdx.x * BK;
   const int role = blockIdx.y;      // 0: dK; c >= 1: dV columns c0..
@@ -539,75 +867,105 @@ attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // The shapes the entries refuse (the wrappers refuse them first).
-bool bad_shape(int Lq, int Lk, int dk, int dv) {
-  return Lq <= 0 || Lk <= 0 || dk <= 0 || dk > DK_MAX || dk % 4 != 0 ||
-         dv <= 0 || dv % 4 != 0;
+bool bad_shape(int B, int Lq, int Lk, int dk, int dv) {
+  return B <= 0 || B > 65535 || Lq <= 0 || Lk <= 0 || dk <= 0 ||
+         dk > DK_MAX || dk % 4 != 0 || dv <= 0 || dv % 4 != 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// K4: out (Lq, dv) and lse (Lq,) of the masked attention of q (Lq, dk)
-// over k (Lk, dk), v (Lk, dv) and kv_mask (Lk,) (a key is valid where the
-// mask is > 0). All arrays row-major float32, 16-byte aligned; dk a
-// multiple of 4 and at most 128, dv a multiple of 4. Sets *launches.
-int vut_attention(const float* q, const float* k, const float* v,
-                  const float* kv_mask, float* out, float* lse, int Lq,
-                  int Lk, int dk, int dv, void* stream, int* launches) {
+// The live-tile list of kv_mask (B, Lk): tiles (B, ceil(Lk / 64)) int32
+// gets, per batch item, the indices of the 64-key tiles holding a key
+// > 0, in increasing order, and n_live (B,) their count. Sets *launches.
+int vut_attention_tiles(const float* kv_mask, int* tiles, int* n_live,
+                        int B, int Lk, void* stream, int* launches) {
   *launches = 0;
-  if (bad_shape(Lq, Lk, dk, dv)) return cudaErrorInvalidValue;
+  if (B <= 0 || Lk <= 0) return cudaErrorInvalidValue;
+  live_tiles_kernel<<<B, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+      kv_mask, Lk, (Lk + BK - 1) / BK, tiles, n_live);
+  *launches = 1;
+  return cudaGetLastError();
+}
+
+// K4: out (B, Lq, dv) and lse (B, Lq) of the masked attention of q
+// (B, Lq, dk) over k (B, Lk, dk), v (B, Lk, dv) and kv_mask (B, Lk) (a key
+// is valid where the mask is > 0), walking the live-tile list (tiles,
+// n_live) of vut_attention_tiles. All arrays row-major float32, 16-byte
+// aligned; dk a multiple of 4 and at most 128, dv a multiple of 4. Sets
+// *launches.
+int vut_attention(const float* q, const float* k, const float* v,
+                  const float* kv_mask, const int* tiles, const int* n_live,
+                  float* out, float* lse, int B, int Lq, int Lk, int dk,
+                  int dv, void* stream, int* launches) {
+  *launches = 0;
+  if (bad_shape(B, Lq, Lk, dk, dv)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
+      static_cast<int>(SMEM_FWD_BYTES));
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(dk));
-  const dim3 grid((Lq + BQ - 1) / BQ, (dv + DVC - 1) / DVC);
-  attn_fwd_kernel<<<grid, THREADS, SMEM_BYTES,
+  const dim3 grid((Lq + BQ - 1) / BQ, (dv + DVC - 1) / DVC, B);
+  attn_fwd_kernel<<<grid, THREADS, SMEM_FWD_BYTES,
                     static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, kv_mask, out, lse, Lq, Lk, dk, dv, scale);
+      q, k, v, kv_mask, tiles, n_live, out, lse, Lq, Lk, dk, dv, scale);
   *launches = 1;
   return cudaGetLastError();
 }
 
-// K5: dq (Lq, dk) of the masked attention, from dout (Lq, dv), the
-// forward's lse (Lq,) and delta = rowsum(dout * out) (Lq,); the other
-// arguments as for vut_attention. Sets *launches.
+// K5: dq (B, Lq, dk) of the masked attention, from dout (B, Lq, dv), the
+// forward's lse (B, Lq) and delta = rowsum(dout * out) (B, Lq), over
+// `splits` shares of the live-tile list; with splits > 1, work is a
+// (splits, B, Lq, dk) float32 scratch and a second launch sums it. The
+// other arguments as for vut_attention. Sets *launches.
 int vut_attention_bwd_dq(const float* q, const float* k, const float* v,
                          const float* kv_mask, const float* dout,
-                         const float* lse, const float* delta, float* dq,
-                         int Lq, int Lk, int dk, int dv, void* stream,
-                         int* launches) {
+                         const float* lse, const float* delta,
+                         const int* tiles, const int* n_live, float* dq,
+                         float* work, int B, int Lq, int Lk, int dk, int dv,
+                         int splits, void* stream, int* launches) {
   *launches = 0;
-  if (bad_shape(Lq, Lk, dk, dv)) return cudaErrorInvalidValue;
+  if (bad_shape(B, Lq, Lk, dk, dv) || splits <= 0 || splits > 65535 ||
+      (splits > 1 && work == nullptr))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       attn_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BWD_BYTES));
+      static_cast<int>(SMEM_DQ_BYTES));
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(dk));
-  attn_bwd_dq_kernel<<<(Lq + BQ - 1) / BQ, THREADS, SMEM_BWD_BYTES,
-                       static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, kv_mask, dout, lse, delta, dq, Lq, Lk, dk, dv, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((Lq + BQ - 1) / BQ, splits, B);
+  attn_bwd_dq_kernel<<<grid, THREADS, SMEM_DQ_BYTES, st>>>(
+      q, k, v, kv_mask, dout, lse, delta, tiles, n_live, dq, work, B, Lq, Lk,
+      dk, dv, scale);
   *launches = 1;
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t n = (size_t)B * Lq * dk;
+  const int blocks = (int)((n + 4 * 256 - 1) / (4 * 256));
+  dq_reduce_kernel<<<blocks, 256, 0, st>>>(work, dq, n, splits, scale);
+  *launches = 2;
   return cudaGetLastError();
 }
 
-// K6: grad_k (Lk, dk) and grad_v (Lk, dv) of the masked attention, one
-// launch; the arguments as for vut_attention_bwd_dq. Sets *launches.
+// K6: grad_k (B, Lk, dk) and grad_v (B, Lk, dv) of the masked attention,
+// one launch; the arguments as for vut_attention_bwd_dq. Sets *launches.
 int vut_attention_bwd_dkv(const float* q, const float* k, const float* v,
                           const float* kv_mask, const float* dout,
                           const float* lse, const float* delta,
-                          float* grad_k, float* grad_v, int Lq, int Lk,
-                          int dk, int dv, void* stream, int* launches) {
+                          float* grad_k, float* grad_v, int B, int Lq,
+                          int Lk, int dk, int dv, void* stream,
+                          int* launches) {
   *launches = 0;
-  if (bad_shape(Lq, Lk, dk, dv)) return cudaErrorInvalidValue;
+  if (bad_shape(B, Lq, Lk, dk, dv)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       attn_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BWD_BYTES));
+      static_cast<int>(SMEM_DKV_BYTES));
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(dk));
-  const dim3 grid((Lk + BK - 1) / BK, 1 + (dv + DVC - 1) / DVC);
-  attn_bwd_dkv_kernel<<<grid, THREADS, SMEM_BWD_BYTES,
+  const dim3 grid((Lk + BK - 1) / BK, 1 + (dv + DVC - 1) / DVC, B);
+  attn_bwd_dkv_kernel<<<grid, THREADS, SMEM_DKV_BYTES,
                         static_cast<cudaStream_t>(stream)>>>(
       q, k, v, kv_mask, dout, lse, delta, grad_k, grad_v, Lq, Lk, dk, dv,
       scale);

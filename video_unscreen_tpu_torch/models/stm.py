@@ -9,9 +9,10 @@ Convolutions are NCHW. The memory keys and values keep the JAX package's
 (B, T, Hm, Wm, C) layout: row-major, that is the (Lk, C) matrix the
 attention kernel reads, so `memorize` returns NHWC and the bank needs no
 transpose. `memory_read` goes through `MaskedMemoryAttention`
-(`ops/kernels/attention.py`): on a CUDA tensor its forward is kernel K4
-and its backward kernels K5 and K6, on a CPU tensor their plain versions;
-there is no other branch; under `torch.no_grad` only K4 runs. In train
+(`ops/kernels/attention.py`), one call for the whole batch as the JAX
+package vmaps the read: on a CUDA tensor its forward is kernel K4 and its
+backward kernels K5 and K6, on a CPU tensor their plain versions; there is
+no other branch; under `torch.no_grad` only K4 runs. In train
 mode (`nn.Module.train()`, the JAX package's `train=True`) the BatchNorms
 update their statistics as flax's do (`batchnorm.FlaxBatchNorm2d`).
 Submodule names follow flax's creation order (`convs.N` for `Conv_N`,
@@ -119,10 +120,8 @@ def memory_read(mem_k: torch.Tensor, mem_v: torch.Tensor,
     mv = mem_v.reshape(b, t * hm * wm, cv)
     qk = q_k.reshape(b, hm * wm, ck)
     mask = valid.to(torch.float32).repeat_interleave(hm * wm, dim=1)
-    mem = torch.stack([
-        MaskedMemoryAttention.apply(qk[i].contiguous(), mk[i].contiguous(),
-                                    mv[i].contiguous(), mask[i].contiguous())
-        for i in range(b)])
+    mem = MaskedMemoryAttention.apply(qk.contiguous(), mk.contiguous(),
+                                      mv.contiguous(), mask.contiguous())
     return torch.cat([mem.reshape(b, hm, wm, cv), q_v], dim=-1)
 
 

@@ -4,31 +4,40 @@ backward): wrappers, plain versions and the autograd function.
 Replace the Pallas TPU kernels of `video_unscreen_tpu/ops/pallas/
 attention.py`: `_attn_kernel` (K4, forward), `_bwd_dq_kernel` (K5) and
 `_bwd_dkv_kernel` (K6); the CUDA source of all three is
-`csrc/attention.cu`. For q (Lq, dk), k (Lk, dk), v (Lk, dv)
-and kv_mask (Lk,) (a key is valid where the mask is > 0) the forward
-returns:
+`csrc/attention.cu`. The read is batched as the JAX package vmaps it: for
+q (B, Lq, dk), k (B, Lk, dk), v (B, Lk, dv) and kv_mask (B, Lk) (a key is
+valid where the mask is > 0) the forward returns:
 
-- `out` (Lq, dv): softmax(q k^T / sqrt(dk)) v over the valid keys, 0 for a
-  query with no valid key;
-- `lse` (Lq,): the log-sum-exp of the valid scores, 0 for such a query.
+- `out` (B, Lq, dv): softmax(q k^T / sqrt(dk)) v over the valid keys, 0
+  for a query with no valid key;
+- `lse` (B, Lq): the log-sum-exp of the valid scores, 0 for such a query.
 
-Masked scores are -1e30, not -inf, as in the TPU kernel. The backward
+A 2-D input (no batch axis) is read as B = 1 and gets 2-D results. Masked
+scores are -1e30, not -inf, as in the TPU kernel. The backward
 (`_mma_bwd` of the JAX package) recomputes P = exp(s - lse) from the saved
 LSE, so a masked key (s = -1e30) and a query with no valid key (lse 0,
 every s -1e30) get P = 0 and pass no gradient.
 
-`MaskedMemoryAttention` is the differentiable read: K4 forward, then
-delta = rowsum(dO * O) (a plain reduction, as in the JAX package), K5 and
-K6. Every wrapper runs its plain version for a CPU tensor and launches its
-kernel for a CUDA tensor or raises; the shapes the kernels refuse (dk >
-128, dk or dv not a multiple of 4, an empty q or k) are refused on the
-card, never sent to the plain version.
+On the card K4 and K5 walk a list of the 64-key tiles that hold a valid
+key (`_live_key_tiles`, one small launch, counted as the call's). K5
+splits its key range across blocks (`dq_splits`) and, with more than one
+split, sums the splits in a second launch. So one K4 call is 2 launches
+and one K5 call 2 or 3; in `MaskedMemoryAttention` K5 reuses K4's list
+(1 or 2).
+
+`MaskedMemoryAttention` is the differentiable read: K4 forward (it keeps
+the list for K5), then delta = rowsum(dO * O) (a plain reduction, as in
+the JAX package), K5 and K6, one call each for the whole batch. Every
+wrapper runs its plain version for a CPU tensor and launches its kernel
+for a CUDA tensor or raises; the shapes the kernels refuse (dk > 128, dk
+or dv not a multiple of 4, an empty q or k) are refused on the card,
+never sent to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +50,9 @@ ATTENTION_BWD_DQ = LaunchCount("attention_bwd_dq")
 ATTENTION_BWD_DKV = LaunchCount("attention_bwd_dkv")
 
 _NEG = -1e30
+TILE = 64   # keys per tile and queries per block in csrc/attention.cu
+
+Tiles = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _scale(dk: int) -> float:
@@ -50,46 +62,48 @@ def _scale(dk: int) -> float:
 
 def _masked_scores(q: torch.Tensor, k: torch.Tensor,
                    kv_mask: torch.Tensor) -> torch.Tensor:
-    """(Lq, Lk) scores q k^T * scale, -1e30 at the masked keys."""
-    s = (q @ k.T) * _scale(q.shape[1])
-    return torch.where(kv_mask[None, :] > 0, s, _NEG)
+    """(..., Lq, Lk) scores q k^T * scale, -1e30 at the masked keys."""
+    s = (q @ k.transpose(-1, -2)) * _scale(q.shape[-1])
+    return torch.where(kv_mask[..., None, :] > 0, s, _NEG)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dense (Lq, Lk) score matrix, the masked softmax and the same
-    zero-valid rule."""
+    """The dense (..., Lq, Lk) score matrix, the masked softmax and the
+    same zero-valid rule."""
     s = _masked_scores(q, k, kv_mask)
-    m = s.max(dim=1, keepdim=True).values
+    m = s.max(dim=-1, keepdim=True).values
     p = torch.exp(s - m)
-    l_fin = p.sum(dim=1, keepdim=True).clamp_min(1e-30)
+    l_fin = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     any_valid = m > _NEG * 0.5
     out = torch.where(any_valid, (p @ v) / l_fin, 0.0)
     lse = torch.where(any_valid, m + torch.log(l_fin), 0.0)
-    return out, lse[:, 0]
+    return out, lse[..., 0]
 
 
 def _bwd_p_ds(q, k, v, kv_mask, dout, lse, delta):
-    """P = exp(s - lse) and dS = P * (dO V^T - delta), both (Lq, Lk)."""
-    p = torch.exp(_masked_scores(q, k, kv_mask) - lse[:, None])
-    ds = p * (dout @ v.T - delta[:, None])
+    """P = exp(s - lse) and dS = P * (dO V^T - delta), both (..., Lq,
+    Lk)."""
+    p = torch.exp(_masked_scores(q, k, kv_mask) - lse[..., None])
+    ds = p * (dout @ v.transpose(-1, -2) - delta[..., None])
     return p, ds
 
 
 def attention_bwd_dq_plain(q, k, v, kv_mask, dout, lse, delta
                            ) -> torch.Tensor:
-    """K5's function: dQ = dS K * scale (Lq, dk)."""
+    """K5's function: dQ = dS K * scale (..., Lq, dk)."""
     _, ds = _bwd_p_ds(q, k, v, kv_mask, dout, lse, delta)
-    return (ds @ k) * _scale(q.shape[1])
+    return (ds @ k) * _scale(q.shape[-1])
 
 
 def attention_bwd_dkv_plain(q, k, v, kv_mask, dout, lse, delta
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6's function: dK = dS^T Q * scale (Lk, dk) and dV = P^T dO
-    (Lk, dv)."""
+    """K6's function: dK = dS^T Q * scale (..., Lk, dk) and dV = P^T dO
+    (..., Lk, dv)."""
     p, ds = _bwd_p_ds(q, k, v, kv_mask, dout, lse, delta)
-    return (ds.T @ q) * _scale(q.shape[1]), p.T @ dout
+    return ((ds.transpose(-1, -2) @ q) * _scale(q.shape[-1]),
+            p.transpose(-1, -2) @ dout)
 
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,9 +115,18 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     autograd): delta = rowsum(dO * O), P = exp(s - lse), dP = dO V^T,
     dS = P * (dP - delta), dQ = dS K scale, dK = dS^T Q scale, dV = P^T dO.
     """
-    delta = (dout * out).sum(dim=1)
+    delta = (dout * out).sum(dim=-1)
     args = (q, k, v, kv_mask, dout, lse, delta)
     return (attention_bwd_dq_plain(*args), *attention_bwd_dkv_plain(*args))
+
+
+def dq_splits(batch: int, lq: int, lk: int, n_sm: int) -> int:
+    """K5's key splits: as many as keep the (64-query tile, split, item)
+    blocks within two waves of the card's `n_sm` SMs (K5 runs one block
+    per SM), so that no third wave runs a sliver of blocks; at least one,
+    at most one split per 64-key tile."""
+    blocks = batch * -(-lq // TILE)
+    return max(1, min(-(-lk // TILE), 2 * n_sm // blocks))
 
 
 def _check(t: torch.Tensor, name: str, dim: int) -> None:
@@ -120,32 +143,43 @@ def _check(t: torch.Tensor, name: str, dim: int) -> None:
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_mask: torch.Tensor, **per_query: torch.Tensor
-                  ) -> Tuple[int, int, int, int]:
-    """(Lq, Lk, dk, dv) of CUDA inputs the kernels take, else raise.
-    `per_query` are the backward's dout (Lq, dv), lse and delta (Lq,)."""
-    for t, name, dim in ((q, "q", 2), (k, "k", 2), (v, "v", 2),
-                         (kv_mask, "kv_mask", 1)):
+                  ) -> Tuple[int, int, int, int, int]:
+    """(B, Lq, Lk, dk, dv) of batched CUDA inputs the kernels take, else
+    raise. `per_query` are the backward's dout (B, Lq, dv), lse and delta
+    (B, Lq)."""
+    for t, name, dim in ((q, "q", 3), (k, "k", 3), (v, "v", 3),
+                         (kv_mask, "kv_mask", 2)):
         _check(t, name, dim)
-    (lq, dk), (lk, dv) = q.shape, v.shape
-    if k.shape != (lk, dk) or kv_mask.shape != (lk,):
+    (b, lq, dk), (_, lk, dv) = q.shape, v.shape
+    if (k.shape != (b, lk, dk) or v.shape[0] != b
+            or kv_mask.shape != (b, lk)):
         raise ValueError(f"attention: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} mask "
                          f"{tuple(kv_mask.shape)} do not agree")
     for name, t in per_query.items():
-        want = (lq, dv) if name == "dout" else (lq,)
+        want = (b, lq, dv) if name == "dout" else (b, lq)
         _check(t, name, len(want))
         if t.shape != want:
             raise ValueError(f"attention: {name} {tuple(t.shape)}, want "
                              f"{want}")
-    if dk > 128 or dk % 4 or dv % 4 or lq == 0 or lk == 0:
+    if (dk > 128 or dk % 4 or dv % 4 or lq == 0 or lk == 0 or b == 0
+            or b > 65535):
         raise ValueError(f"attention: needs dk <= 128, dk and dv multiples "
-                         f"of 4 and non-empty q and k, got Lq {lq} Lk {lk} "
-                         f"dk {dk} dv {dv}")
-    return lq, lk, dk, dv
+                         f"of 4, non-empty q and k and 1 <= B <= 65535, got "
+                         f"B {b} Lq {lq} Lk {lk} dk {dk} dv {dv}")
+    return b, lq, lk, dk, dv
 
 
-def _launch(entry: str, counter: LaunchCount, what: str, *args) -> None:
-    """Call a C entry on the current stream of the first tensor's card."""
+def _batched(*ts: torch.Tensor) -> Tuple[bool, list]:
+    """(whether q had no batch axis, the tensors with a leading axis of 1
+    added where q had none)."""
+    flat = ts[0].dim() == 2
+    return flat, [t.unsqueeze(0) if flat else t for t in ts]
+
+
+def _launch(entry: str, what: str, *args) -> int:
+    """Call a C entry on the current stream of the first tensor's card;
+    returns the device launches it made."""
     lib = build.library()
     launches = ctypes.c_int(0)
     with torch.cuda.device(args[0].device):
@@ -154,70 +188,133 @@ def _launch(entry: str, counter: LaunchCount, what: str, *args) -> None:
             *[a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args], stream, ctypes.addressof(launches))
     build.check(err, what)
-    counter.add(launches)
+    return launches.value
+
+
+def _count(counter: LaunchCount, launches: int) -> None:
+    counter.calls += 1
+    counter.launches += launches
+
+
+def _live_key_tiles(kv_mask: torch.Tensor) -> Tuple[Tiles, int]:
+    """((tiles (B, ceil(Lk / 64)) int32, n_live (B,) int32), launches) of a
+    batched CUDA mask: per item, the indices of the 64-key tiles holding a
+    key > 0 in increasing order, and their count; made on the card with
+    no host sync."""
+    b, lk = kv_mask.shape
+    tiles = torch.empty((b, -(-lk // TILE)), dtype=torch.int32,
+                        device=kv_mask.device)
+    n_live = torch.empty(b, dtype=torch.int32, device=kv_mask.device)
+    n = _launch("vut_attention_tiles", "attention live-tile kernel", kv_mask,
+                tiles, n_live, b, lk)
+    return (tiles, n_live), n
+
+
+def _forward(q, k, v, kv_mask):
+    """K4 on batched CUDA inputs: (out, lse, the live-tile list)."""
+    b, lq, lk, dk, dv = _check_inputs(q, k, v, kv_mask)
+    tiles, n = _live_key_tiles(kv_mask)
+    out = torch.empty((b, lq, dv), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, lq), dtype=torch.float32, device=q.device)
+    n += _launch("vut_attention", "attention kernel", q, k, v, kv_mask,
+                 *tiles, out, lse, b, lq, lk, dk, dv)
+    _count(ATTENTION, n)
+    return out, lse, tiles
 
 
 def masked_memory_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, kv_mask: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4: (out (Lq, dv), lse (Lq,)) of the masked attention."""
+    """K4: (out (B, Lq, dv), lse (B, Lq)) of the masked attention."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_mask)
-    lq, lk, dk, dv = _check_inputs(q, k, v, kv_mask)
-    out = torch.empty((lq, dv), dtype=torch.float32, device=q.device)
-    lse = torch.empty(lq, dtype=torch.float32, device=q.device)
-    _launch("vut_attention", ATTENTION, "attention kernel", q, k, v, kv_mask,
-            out, lse, lq, lk, dk, dv)
-    return out, lse
+    flat, (q, k, v, kv_mask) = _batched(q, k, v, kv_mask)
+    out, lse, _ = _forward(q, k, v, kv_mask)
+    return (out[0], lse[0]) if flat else (out, lse)
+
+
+def _bwd_dq(q, k, v, kv_mask, dout, lse, delta,
+            tiles: Optional[Tiles] = None) -> torch.Tensor:
+    """K5 on batched CUDA inputs, walking `tiles` (K4's list) if given."""
+    b, lq, lk, dk, dv = _check_inputs(q, k, v, kv_mask, dout=dout, lse=lse,
+                                      delta=delta)
+    n = 0
+    if tiles is None:
+        tiles, n = _live_key_tiles(kv_mask)
+    splits = dq_splits(b, lq, lk, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    dq = torch.empty((b, lq, dk), dtype=torch.float32, device=q.device)
+    work = (torch.empty((splits, b, lq, dk), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    n += _launch("vut_attention_bwd_dq", "attention dQ kernel", q, k, v,
+                 kv_mask, dout, lse, delta, *tiles, dq, work, b, lq, lk, dk,
+                 dv, splits)
+    _count(ATTENTION_BWD_DQ, n)
+    return dq
 
 
 def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_mask: torch.Tensor, dout: torch.Tensor,
                      lse: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """K5: dq (Lq, dk) from the forward's lse and delta = rowsum(dO * O)."""
+    """K5: dq (B, Lq, dk) from the forward's lse and delta = rowsum(dO *
+    O); deterministic (no atomics)."""
     if q.device.type == "cpu":
         return attention_bwd_dq_plain(q, k, v, kv_mask, dout, lse, delta)
-    lq, lk, dk, dv = _check_inputs(q, k, v, kv_mask, dout=dout, lse=lse,
-                                   delta=delta)
-    dq = torch.empty((lq, dk), dtype=torch.float32, device=q.device)
-    _launch("vut_attention_bwd_dq", ATTENTION_BWD_DQ, "attention dQ kernel",
-            q, k, v, kv_mask, dout, lse, delta, dq, lq, lk, dk, dv)
-    return dq
+    flat, args = _batched(q, k, v, kv_mask, dout, lse, delta)
+    dq = _bwd_dq(*args)
+    return dq[0] if flat else dq
+
+
+def _bwd_dkv(q, k, v, kv_mask, dout, lse, delta):
+    b, lq, lk, dk, dv = _check_inputs(q, k, v, kv_mask, dout=dout, lse=lse,
+                                      delta=delta)
+    dk_out = torch.empty((b, lk, dk), dtype=torch.float32, device=q.device)
+    dv_out = torch.empty((b, lk, dv), dtype=torch.float32, device=q.device)
+    _count(ATTENTION_BWD_DKV, _launch(
+        "vut_attention_bwd_dkv", "attention dK/dV kernel", q, k, v, kv_mask,
+        dout, lse, delta, dk_out, dv_out, b, lq, lk, dk, dv))
+    return dk_out, dv_out
 
 
 def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       kv_mask: torch.Tensor, dout: torch.Tensor,
                       lse: torch.Tensor, delta: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6: (dk (Lk, dk), dv (Lk, dv)); a masked key gets exactly 0."""
+    """K6: (dk (B, Lk, dk), dv (B, Lk, dv)); a masked key gets exactly
+    0."""
     if q.device.type == "cpu":
         return attention_bwd_dkv_plain(q, k, v, kv_mask, dout, lse, delta)
-    lq, lk, dk, dv = _check_inputs(q, k, v, kv_mask, dout=dout, lse=lse,
-                                   delta=delta)
-    dk_out = torch.empty((lk, dk), dtype=torch.float32, device=q.device)
-    dv_out = torch.empty((lk, dv), dtype=torch.float32, device=q.device)
-    _launch("vut_attention_bwd_dkv", ATTENTION_BWD_DKV,
-            "attention dK/dV kernel", q, k, v, kv_mask, dout, lse, delta,
-            dk_out, dv_out, lq, lk, dk, dv)
-    return dk_out, dv_out
+    flat, args = _batched(q, k, v, kv_mask, dout, lse, delta)
+    dk_out, dv_out = _bwd_dkv(*args)
+    return (dk_out[0], dv_out[0]) if flat else (dk_out, dv_out)
 
 
 class MaskedMemoryAttention(torch.autograd.Function):
     """out = masked attention of (q, k, v, kv_mask), differentiable in q,
-    k and v (the mask gets no gradient): K4 forward, K5 and K6 backward
-    (their plain versions for CPU tensors)."""
+    k and v (the mask gets no gradient): K4 forward, K5 and K6 backward,
+    one call each for the whole batch (their plain versions for CPU
+    tensors). Takes the batched or the 2-D shapes of the wrappers."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask):
-        out, lse = masked_memory_attention(q, k, v, kv_mask)
-        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
-        return out
+        ctx.flat = False
+        if q.device.type == "cpu":
+            out, lse = attention_plain(q, k, v, kv_mask)
+            ctx.save_for_backward(q, k, v, kv_mask, out, lse, None, None)
+            return out
+        ctx.flat, (q, k, v, kv_mask) = _batched(q, k, v, kv_mask)
+        out, lse, tiles = _forward(q, k, v, kv_mask)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse, *tiles)
+        return out[0] if ctx.flat else out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, kv_mask, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        delta = (dout * out).sum(dim=1)
-        dq = attention_bwd_dq(q, k, v, kv_mask, dout, lse, delta)
-        dk, dv = attention_bwd_dkv(q, k, v, kv_mask, dout, lse, delta)
-        return dq, dk, dv, None
+        q, k, v, kv_mask, out, lse, tiles, n_live = ctx.saved_tensors
+        dout = dout.contiguous().reshape(out.shape)
+        delta = (dout * out).sum(dim=-1)
+        args = (q, k, v, kv_mask, dout, lse, delta)
+        if q.device.type == "cpu":
+            return (attention_bwd_dq_plain(*args),
+                    *attention_bwd_dkv_plain(*args), None)
+        grads = (_bwd_dq(*args, tiles=(tiles, n_live)), *_bwd_dkv(*args))
+        return (*(g[0] if ctx.flat else g for g in grads), None)

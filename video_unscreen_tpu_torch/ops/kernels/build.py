@@ -7,6 +7,8 @@ happens at first use, into `video_unscreen_tpu_torch/_build/` (listed in
 `.gitignore`), named by a hash of the sources and flags, so a source edit
 rebuilds and an unchanged tree reuses the library. Nothing here runs at
 import time: the CPU tests import every module without `nvcc` or a card.
+`python -m video_unscreen_tpu_torch.ops.kernels.build` builds and prints
+what `ptxas -v` says of each kernel.
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ _SIGNATURES = {
     "vut_morph": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P),
     "vut_trimap": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P),
     "vut_flood": (_P, _P, _P, _P, _I, _I, _P, _P),
-    "vut_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "vut_attention_bwd_dq": (_P,) * 8 + (_I,) * 4 + (_P, _P),
-    "vut_attention_bwd_dkv": (_P,) * 9 + (_I,) * 4 + (_P, _P),
+    "vut_attention_tiles": (_P, _P, _P, _I, _I, _P, _P),
+    "vut_attention": (_P,) * 8 + (_I,) * 5 + (_P, _P),
+    "vut_attention_bwd_dq": (_P,) * 11 + (_I,) * 6 + (_P, _P),
+    "vut_attention_bwd_dkv": (_P,) * 9 + (_I,) * 5 + (_P, _P),
 }
 
 _lib = None
@@ -102,8 +105,33 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def ptxas_report() -> str:
+    """What `ptxas -v` says of each kernel (registers, shared memory,
+    spills): each source compiled alone with the library's flags."""
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    report = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sorted(CSRC.glob("*.cu")):
+            proc = subprocess.run(
+                [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+                 str(Path(tmp) / (src.stem + ".o")), str(src)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n"
+                                   f"{proc.stderr}")
+            report.append(f"== {src.name}\n{proc.stderr.strip()}")
+    return "\n".join(report)
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err:
         msg = library().vut_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+if __name__ == "__main__":
+    # python -m video_unscreen_tpu_torch.ops.kernels.build: build the
+    # library and print each kernel's registers and shared memory
+    print(build())
+    print(ptxas_report())
