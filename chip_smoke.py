@@ -12,16 +12,19 @@ Phases, each printed with its wall seconds:
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: K1 trimap, K2
      morph and K3 flood bit-exact (green's 544x960 and 272x480, bg's
-     1080x1920 with the 4x4 ellipse), K4 attention (the STM memory read,
-     Lq 2040 x Lk 22440, dk 128, dv 512, and one training read, Lq 64 x
-     Lk 128) to rtol 1e-4 / atol 1e-5, with SDPA timed beside it as its
-     yardstick, and K5 (dQ) and K6 (dK, dV), the read's backward, from a
-     seeded dO at the training shape and at bg's shape with the STM mask,
-     every key valid and no key valid: rtol 1e-4 / atol 1e-5, masked
-     keys' dK and dV exactly 0, K5 deterministic, with the plain versions
-     and SDPA's backward timed beside them; then the read as a train step
+     1080x1920 with the 4x4 ellipse; K3 also on a checkerboard, a snake
+     across every tile edge, the full and the empty mask, with its
+     launches a call), K4 attention (the STM memory read, Lq 2040 x Lk
+     22440, dk 128, dv 512, and one training read, Lq 64 x Lk 128) to
+     rtol 1e-4 / atol 1e-5, with SDPA timed beside it as its yardstick,
+     and K5 (dQ) and K6 (dK, dV), the read's backward, from a seeded dO
+     at the training shape and at bg's shape with the STM mask, every key
+     valid and no key valid: rtol 1e-4 / atol 1e-5, masked keys' dK and
+     dV exactly 0, K5 and K6 deterministic, with the plain versions and
+     SDPA's backward timed beside them; then the read as a train step
      makes it (8 items, one call each of K4, K5, K6, against SDPA on the
-     same batch) and 3-item batches of ragged reads over every mask kind;
+     same batch), the `--sizes 256` training read (8 items, Lq 256 x Lk
+     512) and 3-item batches of ragged reads over every mask kind;
   4. run `FusedGreenPipeline.run` on 8 seeded synthetic 1080p green-screen
      frames with every launch count reset just before, check that each
      kernel launched, the outputs (IoU with the synthetic ground truth
@@ -159,9 +162,11 @@ def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
 def attn_bounds(kind, n_b, n_q, n_k, n_valid, dk, dv):
     """bound() of K4 ("fwd"), K5 ("dq") or K6 ("dkv") on n_b items of
     n_q queries over n_k keys of which n_valid are valid, at the f32 rate
-    and at the 3xTF32 tensor-core rate: q, the valid keys' k and v and
-    the mask read once (and for the backward dO, lse and delta), the
-    outputs written once."""
+    and at the 3xTF32 tensor-core rate (and, for K6 only as a diagnostic,
+    at its own split between the two, "fma_tc"): q, the valid keys' k and
+    v and the mask read once (and for the backward dO, lse and delta), the
+    outputs written once. The card's bound is the 3xTF32 one: it does
+    f32-accurate products at that rate."""
     per_pair = {"fwd": dk + dv, "dq": 2 * dk + dv, "dkv": 2 * dk + 2 * dv}
     flops = 2 * n_b * n_q * n_valid * per_pair[kind]
     if kind == "fwd":
@@ -169,8 +174,15 @@ def attn_bounds(kind, n_b, n_q, n_k, n_valid, dk, dv):
     else:
         n_io = (n_q * (dk + dv + 2) + n_valid * (dk + dv) + n_k
                 + (n_q * dk if kind == "dq" else n_k * (dk + dv)))
-    return {"f32": bound(4 * n_b * n_io, flops),
-            "3xtf32": bound(4 * n_b * n_io, flops, TF32X3_OPS_PER_S)}
+    out = {"f32": bound(4 * n_b * n_io, flops),
+           "3xtf32": bound(4 * n_b * n_io, flops, TF32X3_OPS_PER_S)}
+    if kind == "dkv":
+        # K6 as built: S and dV (dk + dv multiply-adds a pair) on the FMA
+        # units, dP and dK (the other dk + dv) on the tensor cores at
+        # 3xTF32; the pipes run at once, so the slower half bounds this
+        # design (a looser bound than the card's, kept beside it)
+        out["fma_tc"] = bound(4 * n_b * n_io, flops / 2)
+    return out
 
 
 def as_bh(t):
@@ -258,6 +270,8 @@ def kernel_phase(device):
     import numpy as np
     import torch
     from video_unscreen_tpu_torch.ops.kernels import connected as kcc
+    from video_unscreen_tpu_torch.ops.kernels.cc_masks import (HARD_MASKS,
+                                                             hard_mask)
     from video_unscreen_tpu_torch.ops.kernels import morph as km
     from video_unscreen_tpu_torch.ops.morphology import ellipse_offsets
 
@@ -318,12 +332,15 @@ def kernel_phase(device):
     cases = [(soft_mask(hh, ww, SEED + 1) > 120).astype(np.float32) * 255,
              (rng.rand(hh, ww) < 0.45).astype(np.float32) * 255,
              (rng.rand(hh, ww) < 0.6).astype(np.float32) * 255]
+    cases += [hard_mask(n, hh, ww) for n in HARD_MASKS]
     err = 0.0
     for i, c in enumerate(cases):
         m = torch.from_numpy(c).to(device)
+        before = kcc.FLOOD.launches
         err = max(err, held(f"flood case {i}",
                             kcc.connected_components_compact(m),
                             kcc.cc_plain(m)))
+        launches = kcc.FLOOD.launches - before
     m = torch.from_numpy(cases[0]).to(device)
     ms = cuda_ms(lambda: kcc.connected_components_compact(m), 200)
     plain = cuda_ms(lambda: kcc.cc_plain(m), 2, rounds=3)
@@ -333,7 +350,9 @@ def kernel_phase(device):
         replaces="video_unscreen_tpu/ops/pallas/flood.py:102",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
     print(f"  K3 flood 272x480: {ms:.4f} ms (plain {plain:.4f} ms, bound "
-          f"{b:.4f} ms)", flush=True)
+          f"{b:.4f} ms), {launches} launches a call; bit-exact on "
+          f"{len(cases)} masks (3 seeded, {', '.join(HARD_MASKS)})",
+          flush=True)
     return rows
 
 
@@ -345,6 +364,8 @@ def bg_kernel_phase(device, rows):
     import torch.nn.functional as F
     from video_unscreen_tpu_torch.ops.kernels import attention as ka
     from video_unscreen_tpu_torch.ops.kernels import connected as kcc
+    from video_unscreen_tpu_torch.ops.kernels.cc_masks import (HARD_MASKS,
+                                                             hard_mask)
     from video_unscreen_tpu_torch.ops.kernels import morph as km
     from video_unscreen_tpu_torch.ops.morphology import ellipse_offsets
 
@@ -369,18 +390,24 @@ def bg_kernel_phase(device, rows):
     rng = np.random.RandomState(SEED + 3)
     cases = [(soft_mask(h, w, SEED + 4) > 120).astype(np.float32) * 255,
              (rng.rand(h, w) < 0.45).astype(np.float32) * 255]
+    cases += [hard_mask(n, h, w) for n in HARD_MASKS]
     for i, c in enumerate(cases):
         m = torch.from_numpy(c).to(device)
+        before = kcc.FLOOD.launches
         for g, t in zip(kcc.connected_components_compact(m), kcc.cc_plain(m)):
             check(torch.equal(g, t), f"flood 1080p case {i} differs")
+        launches = kcc.FLOOD.launches - before
     m = torch.from_numpy(cases[0]).to(device)
     ms = cuda_ms(lambda: kcc.connected_components_compact(m), 50)
     plain = cuda_ms(lambda: kcc.cc_plain(m), 1, rounds=3)
     b, by = bound(h * w * 12, h * w * 2)
     rows["flood"]["bg_1080x1920"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
                                          bound_by=by)
+    rows["flood"]["launches_per_call"] = launches
     print(f"  K3 flood 1080x1920: {ms:.4f} ms (plain {plain:.4f} ms, bound "
-          f"{b:.4f} ms)", flush=True)
+          f"{b:.4f} ms), {launches} launches a call; bit-exact on "
+          f"{len(cases)} masks (2 seeded, {', '.join(HARD_MASKS)})",
+          flush=True)
 
     # K4: the STM memory read; the modular bg path passes two frames, so
     # the bank is empty and only the last slot's keys are valid
@@ -488,9 +515,14 @@ def attention_bwd_phase(device, rows):
     first = ka.attention_bwd_dq(*args["all"])
     check(torch.equal(first, ka.attention_bwd_dq(*args["all"])),
           "attention dQ: two calls differ")
+    first = ka.attention_bwd_dkv(*args["all"])
+    check(all(torch.equal(a, b) for a, b in zip(
+        first, ka.attention_bwd_dkv(*args["all"]))),
+          "attention dK/dV: two calls differ")
 
     times = {}
-    for name, reps in (("train", 200), ("stm", 50), ("all", 5)):
+    for name, reps in (("train", 200), ("stm", 50), ("all", 5),
+                       ("none", 200)):
         a = args[name]
         times[name] = (cuda_ms(lambda: ka.attention_bwd_dq(*a), reps),
                        cuda_ms(lambda: ka.attention_bwd_dkv(*a), reps))
@@ -505,8 +537,6 @@ def attention_bwd_phase(device, rows):
     for i, (key, line) in enumerate((("attention_bwd_dq", "75"),
                                      ("attention_bwd_dkv", "106"))):
         kind = "dq" if i == 0 else "dkv"
-        # K5 runs on the tensor cores (3xTF32), K6 on the FMA units (f32)
-        rate = "3xtf32" if i == 0 else "f32"
         b_t = attn_bounds(kind, 1, tq, tk, tk, dk, dv)
         b_s = attn_bounds(kind, 1, lq, lk, n_valid, dk, dv)
         b_a = attn_bounds(kind, 1, lq, lk, lk, dk, dv)
@@ -520,14 +550,21 @@ def attention_bwd_phase(device, rows):
                              bound_3xtf32_ms=b_t["3xtf32"][0],
                              library_ms=lib["train"]),
             bg_shape=dict(ms=times["stm"][i], plain_ms=plain["stm"][i],
-                          bound_ms=b_s[rate][0], bound_by=b_s[rate][1],
+                          bound_ms=b_s["3xtf32"][0],
+                          bound_by=b_s["3xtf32"][1],
                           bound_f32_ms=b_s["f32"][0],
                           bound_3xtf32_ms=b_s["3xtf32"][0],
                           library_ms=lib["stm"],
                           all_valid_ms=times["all"][i],
                           all_valid_bound_f32_ms=b_a["f32"][0],
                           all_valid_bound_3xtf32_ms=b_a["3xtf32"][0],
-                          all_valid_library_ms=lib["all"]))
+                          all_valid_bound_ms=b_a["3xtf32"][0],
+                          all_valid_library_ms=lib["all"],
+                          no_valid_ms=times["none"][i]))
+        if kind == "dkv":
+            rows[key]["bg_shape"].update(
+                bound_fma_tc_ms=b_s["fma_tc"][0],
+                all_valid_bound_fma_tc_ms=b_a["fma_tc"][0])
         print(f"  K{5 + i} attention backward {kind}: training shape (Lq "
               f"{tq}, Lk {tk}): {times['train'][i]:.4f} ms (plain "
               f"{plain['train'][i]:.4f} ms, SDPA backward {lib['train']:.4f} "
@@ -538,8 +575,11 @@ def attention_bwd_phase(device, rows):
               f"bound {b_s['3xtf32'][0]:.4f} / {b_s['f32'][0]:.4f} ms over "
               f"the valid keys); all keys valid: {times['all'][i]:.4f} ms "
               f"(SDPA backward {lib['all']:.4f} ms, bound "
-              f"{b_a['3xtf32'][0]:.4f} / {b_a['f32'][0]:.4f} ms); max |diff| "
-              f"{err:.3g} (relative {rel:.3g})", flush=True)
+              f"{b_a['3xtf32'][0]:.4f} / {b_a['f32'][0]:.4f} ms"
+              + (f"; {b_a['fma_tc'][0]:.4f} ms at this kernel's FMA/tensor-"
+                 f"core split" if kind == "dkv" else "") + "); no valid "
+              f"key: {times['none'][i]:.4f} ms; max |diff| {err:.3g} "
+              f"(relative {rel:.3g})", flush=True)
 
 
 def train_read_phase(device, rows):
@@ -599,7 +639,44 @@ def train_read_phase(device, rows):
             errs += [held_bwd(f"ragged read {shape} {names[i]}",
                               [g[i] for g in gr], [w[i] for w in wr],
                               mr[i], dr[i], vr[i]) for i in range(3)]
+    # the `--sizes 256` training read: 256x256 clips of 3 frames, so Lq
+    # 256 over Lk 512, every key valid
+    sq = (256 // 16) ** 2
+    sk = (TRAIN_CLIP - 1) * sq
+    q2, k2, v2, do2 = read(b, sq, sk, dk, dv)
+    m2 = torch.ones(b, sk, device=device)
+    wo2, wl2 = ka.attention_plain(q2, k2, v2, m2)
+    a2 = (q2, k2, v2, m2, do2, wl2, (do2 * wo2).sum(dim=-1))
+    got2 = (ka.attention_bwd_dq(*a2), *ka.attention_bwd_dkv(*a2))
+    want2 = ka.attention_bwd_plain(q2, k2, v2, m2, wo2, wl2, do2)
+    errs += [held_bwd(f"--sizes 256 read item {i}", [g[i] for g in got2],
+                      [w[i] for w in want2], m2[i], do2[i], v2[i])
+             for i in range(b)]
+    for a_ in (a, a2):
+        check(all(torch.equal(x, y) for x, y in zip(
+            ka.attention_bwd_dkv(*a_), ka.attention_bwd_dkv(*a_))),
+              "attention dK/dV on a training batch: two calls differ")
     err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+
+    sdpa2 = sdpa_bwd_ms(q2, k2, v2, m2, do2, 50)
+    for key, kind, fn, plain_fn in (
+            ("attention_bwd_dq", "dq", ka.attention_bwd_dq,
+             ka.attention_bwd_dq_plain),
+            ("attention_bwd_dkv", "dkv", ka.attention_bwd_dkv,
+             ka.attention_bwd_dkv_plain)):
+        ms = cuda_ms(lambda: fn(*a2), 100)
+        plain = cuda_ms(lambda: plain_fn(*a2), 20)
+        bd = attn_bounds(kind, b, sq, sk, sk, dk, dv)
+        rows[key]["sizes256"] = dict(
+            ms=ms, plain_ms=plain, bound_ms=bd["3xtf32"][0],
+            bound_f32_ms=bd["f32"][0], bound_3xtf32_ms=bd["3xtf32"][0],
+            library_ms=sdpa2)
+        if kind == "dkv":
+            rows[key]["sizes256"]["bound_fma_tc_ms"] = bd["fma_tc"][0]
+        print(f"  {key} on the --sizes 256 training read ({b} x Lq {sq}, Lk "
+              f"{sk}), one call: {ms:.4f} ms (plain {plain:.4f} ms, SDPA "
+              f"backward {sdpa2:.4f} ms, bound {bd['3xtf32'][0]:.5f} ms at "
+              f"3xTF32 / {bd['f32'][0]:.5f} ms at f32)", flush=True)
 
     sdpa_bwd = sdpa_bwd_ms(q, k, v, mask, do, 50)  # dQ, dK and dV
     times = {
@@ -612,14 +689,15 @@ def train_read_phase(device, rows):
         "attention_bwd_dkv": (cuda_ms(lambda: ka.attention_bwd_dkv(*a), 200),
                               cuda_ms(lambda: ka.attention_bwd_dkv_plain(*a),
                                       50), sdpa_bwd)}
-    for key, kind, rate in (("attention", "fwd", "3xtf32"),
-                            ("attention_bwd_dq", "dq", "3xtf32"),
-                            ("attention_bwd_dkv", "dkv", "f32")):
+    for key, kind in (("attention", "fwd"), ("attention_bwd_dq", "dq"),
+                      ("attention_bwd_dkv", "dkv")):
         ms, plain, lib = times[key]
         bd = attn_bounds(kind, b, tq, tk, tk, dk, dv)
-        row = dict(ms=ms, plain_ms=plain, bound_ms=bd[rate][0],
-                   bound_by=bd[rate][1], bound_f32_ms=bd["f32"][0],
+        row = dict(ms=ms, plain_ms=plain, bound_ms=bd["3xtf32"][0],
+                   bound_by=bd["3xtf32"][1], bound_f32_ms=bd["f32"][0],
                    bound_3xtf32_ms=bd["3xtf32"][0], library_ms=lib)
+        if kind == "dkv":
+            row["bound_fma_tc_ms"] = bd["fma_tc"][0]
         if key == "attention":   # the bg read stays K4's main number
             rows[key]["train_batch"] = row
         else:
@@ -680,7 +758,8 @@ def train_phases(stm_weights):
           f"(calls, launches) per step {per_step}", flush=True)
     check(all(np.isfinite(losses)), f"stm train losses {losses}")
     # one call per step for the whole batch: K4 is the live-tile list and
-    # K4, K5 (handed K4's list) the kernel and the sum of its key splits
+    # K4, K5 (handed K4's list) the kernel and the sum of its key splits,
+    # K6 one launch
     tq = (TRAIN_HW // 16) ** 2
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     want = {"attention": (1, 2),

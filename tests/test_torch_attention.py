@@ -204,3 +204,62 @@ def test_3xtf32_products_hold_the_card_check(case):
           f"3 passes {worst[3]}; 1 pass {worst[1]}")
     for what, (_, ratio) in zip(("out", "lse", "dQ"), worst[3]):
         assert ratio <= 1.0, (case, what, worst[3])
+
+
+def _k6_tc(q, k, v, mask, dout, lse, delta, passes):
+    """K6's dK and dV as `csrc/attention.cu:attn_bwd_dkv_kernel` forms
+    them: S and dV = P^T dO in f32 on the FMA units (plain f32 products
+    here), and on the tensor cores, per 64-query tile, dP^T as the f32 sum
+    over 128-column chunks of V_c dO_c^T (each chunk's product a fresh
+    accumulator) and the tile's dK = dS^T Q, a fresh accumulator added to
+    the running sum in f32."""
+    scale = ka._scale(q.shape[1])
+    grad_k = torch.zeros(k.shape)
+    s = torch.where(mask[:, None] > 0, (k @ q.T) * scale, -1e30)
+    pt = torch.exp(s - lse[None])
+    for q0 in range(0, q.shape[0], 64):
+        qt, dot = q[q0:q0 + 64], dout[q0:q0 + 64]
+        dpt = torch.zeros(k.shape[0], qt.shape[0])
+        for c0 in range(0, v.shape[1], 128):
+            dpt = dpt + _mm(v[:, c0:c0 + 128], dot[:, c0:c0 + 128].T,
+                            passes)
+        dst = pt[:, q0:q0 + 64] * (dpt - delta[None, q0:q0 + 64])
+        grad_k = grad_k + _mm(dst, qt, passes)
+    return grad_k * scale, pt @ dout
+
+
+@pytest.mark.parametrize("case", ["train", "bg_stm", "bg_all"])
+def test_3xtf32_k6_products_hold_the_card_check(case):
+    """K6's tensor-core products (dP^T = V dO^T in 128-column chunks and
+    dS^T Q per 64-query tile, each into a fresh accumulator): with the
+    3xTF32 split dK and dV hold the card's check |d| <= 1e-5 + 1e-4 |t|
+    against the f32 plain version, at the shapes of
+    `test_3xtf32_products_hold_the_card_check`; masked keys' rows are
+    exactly 0. The error of one TF32 pass is printed (`-s`)."""
+    lq, slots = {"train": (64, 2), "bg_stm": (240, 11),
+                 "bg_all": (240, 11)}[case]
+    lk = lq * slots
+    rng = np.random.RandomState(10)
+    q, k, v, dout = (tt(rng.randn(*s).astype(np.float32)) for s in (
+        (lq, DK), (lk, DK), (lk, DV), (lq, DV)))
+    mask = torch.ones(lk)
+    if case == "bg_stm":
+        mask[:-lq] = 0.0
+    out, lse = ka.attention_plain(q, k, v, mask)
+    delta = (dout * out).sum(dim=1)
+    want = ka.attention_bwd_dkv_plain(q, k, v, mask, dout, lse, delta)
+    worst = {}
+    for passes in (3, 1):
+        got = _k6_tc(q, k, v, mask, dout, lse, delta, passes)
+        worst[passes] = [
+            (float((g - w).abs().max()),
+             float(((g - w).abs() / (1e-5 + 1e-4 * w.abs())).max()))
+            for g, w in zip(got, want)]
+        if passes == 3:
+            dead = mask <= 0
+            assert not got[0][dead].any() and not got[1][dead].any()
+    print(f"\nK6 3xTF32 vs 1xTF32 at {case} (Lq {lq}, Lk {lk}): (max |d|, "
+          f"max |d| / (1e-5 + 1e-4 |t|)) for dK, dV: 3 passes {worst[3]}; "
+          f"1 pass {worst[1]}")
+    for what, (_, ratio) in zip(("dK", "dV"), worst[3]):
+        assert ratio <= 1.0, (case, what, worst[3])

@@ -227,3 +227,34 @@ def test_dq_splits(b, lq, lk, n_sm, want):
     blocks = b * -(-lq // 64)
     assert n == 1 or blocks * n <= 2 * n_sm
     assert n == -(-lk // 64) or blocks * (n + 1) > 2 * n_sm
+
+
+@pytest.mark.parametrize("b,lk,dv,n_sm,want", [
+    (1, 22440, 512, 132, (660, 1, 3)),  # bg: 42 key blocks in the last
+                                        # wave, 3 blocks each -> 126
+    (8, 128, 512, 132, (4, 4, 4)),      # training: 32 blocks x 4 -> 128
+    (8, 512, 512, 132, (16, 1, 1)),     # --sizes 256: 128 blocks
+    (1, 600, 512, 132, (19, 4, 4)),     # 19 key blocks: the 4 dv chunks
+    (3, 600, 512, 132, (19, 2, 2)),     # 57 blocks x 2 -> 114
+    (1, 70, 36, 132, (3, 1, 1)),        # one dv chunk: no group to share
+    (1, 128, 384, 132, (4, 2, 2)),      # 3 dv chunks: groups of 1 and 2
+    (1, 4500, 512, 132, (132, 1, 4)),   # 141 blocks: 9 over a wave -> 4
+    (1, 8448, 512, 132, (264, 1, 1)),   # exactly two waves: no tail
+    (2, 22440, 512, 132, (702, 1, 1)),  # a batch over a wave: no split
+])
+def test_dkv_grid(b, lk, dv, n_sm, want):
+    """K6's grid: small reads share each 32-key block among a power of
+    two of blocks (at most one per 128-column dV chunk) within one wave;
+    a single read over a wave shares only its last wave's key blocks, as
+    many blocks each as fill that wave; every key block is covered."""
+    tail0, g_head, g_tail = got = ka.dkv_grid(b, lk, dv, n_sm)
+    n_kb, chunks = -(-lk // 32), -(-dv // 128)
+    assert got == want
+    assert 0 <= tail0 <= n_kb
+    assert 1 <= g_head <= chunks and 1 <= g_tail <= chunks
+    blocks = b * (tail0 * g_head + (n_kb - tail0) * g_tail)
+    if b * n_kb > n_sm:
+        # the split adds no wave
+        assert -(-blocks // n_sm) == -(-(b * n_kb) // n_sm)
+    else:
+        assert blocks <= n_sm

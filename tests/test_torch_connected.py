@@ -1,7 +1,8 @@
 """Connected components and object removal of the port against the JAX
 package: labels bit-exact against `connected_components`, dense ids
 bit-exact against the Pallas `connected_components_compact` (interpret
-mode off-TPU), keep-masks of `remove_invalid_objects_ds` bit-exact. The
+mode off-TPU), keep-masks of `remove_invalid_objects_ds` bit-exact, also
+on the masks that break label schemes (`ops/kernels/cc_masks.py`). The
 masks converge within the JAX flood's 64 sweeps."""
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +14,7 @@ from video_unscreen_tpu.ops.pallas.flood import \
     connected_components_compact as pallas_cc
 from video_unscreen_tpu_torch.ops import connected as tcc
 from video_unscreen_tpu_torch.ops.kernels import connected as kcc
+from video_unscreen_tpu_torch.ops.kernels.cc_masks import hard_mask
 
 
 def _random_mask(h, w, seed, p):
@@ -65,6 +67,32 @@ def test_empty_and_full():
         lbl, cid = kcc.connected_components_compact(tt(m))
         assert int(cid.max()) == (0 if m.max() == 0 else 1)
         assert int(lbl.max()) == (0 if m.max() == 0 else m.size)
+
+
+@pytest.mark.parametrize("name,h,w", [
+    ("checkerboard", 40, 70),   # only diagonal contacts
+    ("snake", 90, 140),         # one pixel wide, crosses every tile edge
+    ("random", 1, 1000), ("random", 1000, 1), ("random", 33, 70),
+    ("full", 40, 70), ("empty", 40, 70),
+])
+def test_hard_masks_match_jax(name, h, w):
+    """cc_plain, the K3 wrapper (its plain version on the CPU) and the
+    port's `connected_components` against the JAX labels and the Pallas
+    kernel's dense ids, on the hard masks and odd shapes."""
+    if name == "random":
+        m = _random_mask(h, w, h + w, 0.5)
+    else:
+        m = hard_mask(name, h, w)
+    want_lbl = jcc.connected_components(jnp.asarray(m))
+    _, want_cid = pallas_cc(jnp.asarray(m))
+    for got in (kcc.cc_plain(tt(m)), kcc.connected_components_compact(tt(m))):
+        assert_equal(got[0], want_lbl, "labels")
+        assert_equal(got[1], want_cid, "compact")
+    assert_equal(tcc.connected_components(tt(m)), want_lbl, "labels")
+    n = int(np.asarray(want_cid).max())
+    want_n = {"checkerboard": (h * w + 1) // 2, "snake": 1, "full": 1,
+              "empty": 0}.get(name, n)
+    assert n == want_n
 
 
 @pytest.mark.parametrize("h,w,center", [(96, 128, (0.5, 0.5)),

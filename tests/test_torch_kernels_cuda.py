@@ -17,12 +17,17 @@ from torch_port_util import (assert_equal, blob_mask, cuda, require_cuda,
                              soft_mask)
 from video_unscreen_tpu_torch.ops.kernels import attention as ka
 from video_unscreen_tpu_torch.ops.kernels import connected as kcc
+from video_unscreen_tpu_torch.ops.kernels.cc_masks import HARD_MASKS, hard_mask
 from video_unscreen_tpu_torch.ops.kernels import morph as km
 from video_unscreen_tpu_torch.ops.morphology import ellipse_offsets
 
 
 def _dev(a):
     return torch.from_numpy(np.array(a, np.float32)).cuda()
+
+
+# K3's launches a call: local merge, edge merge, compress and rank, finish
+FLOOD_LAUNCHES = 4
 
 
 def _chain_launches(k, iters):
@@ -77,7 +82,7 @@ def test_flood_kernel(seed, p, shape):
     before = kcc.FLOOD.launches
     for g, w in zip(kcc.connected_components_compact(m), kcc.cc_plain(m)):
         assert_equal(g, w)
-    assert kcc.FLOOD.launches == before + 7
+    assert kcc.FLOOD.launches == before + FLOOD_LAUNCHES
 
 
 @cuda
@@ -106,8 +111,8 @@ def test_morph_kernel_even_se_full_res(dil):
 @cuda
 @pytest.mark.parametrize("case", ["blobs", "random"])
 def test_flood_kernel_full_res(case):
-    """Object removal's labeling at bg mode's full 1080x1920 (2,025 count
-    blocks feed the one-block scan)."""
+    """Object removal's labeling at bg mode's full 1080x1920 (2,025
+    blocks of the rank pass chain their look-back scan)."""
     require_cuda()
     if case == "blobs":
         m = _dev(blob_mask(1080, 1920, seed=2, speckle=0.01))
@@ -117,7 +122,22 @@ def test_flood_kernel_full_res(case):
     before = kcc.FLOOD.launches
     for g, w in zip(kcc.connected_components_compact(m), kcc.cc_plain(m)):
         assert_equal(g, w)
-    assert kcc.FLOOD.launches == before + 7
+    assert kcc.FLOOD.launches == before + FLOOD_LAUNCHES
+
+
+@cuda
+@pytest.mark.parametrize("case", HARD_MASKS)
+def test_flood_kernel_hard_masks_full_res(case):
+    """The masks that break label schemes, at 1080x1920: a checkerboard
+    (only diagonal contacts: every pixel its own component), a one-pixel
+    snake that crosses every 32-pixel tile edge, the full and the empty
+    mask."""
+    require_cuda()
+    m = _dev(hard_mask(case, 1080, 1920))
+    before = kcc.FLOOD.launches
+    for g, w in zip(kcc.connected_components_compact(m), kcc.cc_plain(m)):
+        assert_equal(g, w)
+    assert kcc.FLOOD.launches == before + FLOOD_LAUNCHES
 
 
 MASKS = ["stm", "all", "all_but_one", "none", "random", "mid_tile",
@@ -358,6 +378,27 @@ def test_attention_bwd_dq_is_deterministic(mask_name):
 
 
 @cuda
+@pytest.mark.parametrize("b,lq,lk", [(1, 2040, 22440), (8, 256, 512),
+                                     (8, 64, 128), (1, 2040, 600)])
+def test_attention_bwd_dkv_is_deterministic(b, lq, lk):
+    """K6 with every key valid: two calls on the same inputs return the
+    same bits (no atomics), at bg's shape, the `--sizes 256` training
+    read, the default training batch (4 column groups) and a small read
+    (4 column groups)."""
+    require_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, dout = (torch.randn(*s, generator=gen, device="cuda")
+                     for s in ((b, lq, 128), (b, lk, 128), (b, lk, 512),
+                               (b, lq, 512)))
+    mask = torch.ones(b, lk, device="cuda")
+    out, lse = ka.attention_plain(q, k, v, mask)
+    delta = (dout * out).sum(dim=-1)
+    first = ka.attention_bwd_dkv(q, k, v, mask, dout, lse, delta)
+    second = ka.attention_bwd_dkv(q, k, v, mask, dout, lse, delta)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+@cuda
 def test_autograd_read_launches_the_kernels():
     """MaskedMemoryAttention on the card, on a batch of 3: one call each
     of K4 (the live-tile list and K4), K5 (handed K4's list: the kernel
@@ -409,11 +450,23 @@ def test_wrappers_reject_bad_input():
             fn(q, k, v, mask, dout[:, 4:].contiguous(), lse, delta)  # dout
         with pytest.raises(ValueError):
             fn(q, k, v, mask, dout, lse[1:], delta)            # lse not (Lq,)
+    # K6 holds dV in registers: dv <= 512
+    wide_v = torch.cat([v, v[:, :4]], dim=1)
+    with pytest.raises(ValueError):
+        ka.attention_bwd_dkv(q, k, wide_v, mask, torch.cat(
+            [dout, dout[:, :4]], dim=1), lse, delta)
     # the autograd read refuses what K4 refuses (dk > 128), on the card,
     # and never sends it to the plain version
     wide = _attention_case(64, 128, 132, 512, "all")
     with pytest.raises(ValueError):
         ka.MaskedMemoryAttention.apply(*wide)
+    # and what K6 refuses (dv > 512) when it will need K6, at the forward
+    # call; without gradients the read takes the wide V
+    wide_v = _attention_case(64, 128, 128, 516, "all")
+    with pytest.raises(ValueError):
+        ka.MaskedMemoryAttention.apply(
+            *(t.clone().requires_grad_() for t in wide_v[:3]), wide_v[3])
+    assert ka.MaskedMemoryAttention.apply(*wide_v).shape == (64, 516)
     qb, kb, vb, mb, _, _ = _batched_case(3, 64, 128, 128, 512)
     with pytest.raises(ValueError):
         ka.masked_memory_attention(qb[:2].contiguous(), kb, vb, mb)  # B

@@ -42,9 +42,9 @@
 // frame) the list holds 33 of 351 tiles.
 //
 // What bounds them: operations. Per (query, key) pair K4 does dk + dv
-// multiply-adds, K5 2 dk + dv, K6 2 dk + 2 dv; at bg's shape (Lq 2040,
-// Lk 22440, dk 128, dv 512) over every key that is 58.6, 70.3 and 117
-// GFLOP against ~0.1 GB of bytes.
+// multiply-adds, K5 2 dk + dv, K6 2 dk + 2 dv (half of them, S and dV, on
+// the FMA units); at bg's shape (Lq 2040, Lk 22440, dk 128, dv 512) over
+// every key that is 58.6, 70.3 and 117 GFLOP against ~0.1 GB of bytes.
 //
 // Products: 3xTF32 on the tensor cores (the scheme of CUTLASS's
 // OpMultiplyAddFastF32). The path is f32 and one TF32 pass keeps ~11 bits,
@@ -81,12 +81,38 @@
 // (a (64, 512) tile of each does not fit), keeps the (64 x 64) S and dP in
 // registers, writes dS to shared memory, and multiplies it into dQ.
 //
-// K6 (unchanged design, gained the batch axis): a grid of (64-key tiles) x
-// (1 + dv / 128) roles x B, each walking every 64-query tile with SIMT f32
-// FMAs. Role 0 forms dS (streaming the dv chunks of dO and V for dP) and
-// accumulates dK; role c >= 1 forms only P and accumulates the c-th
-// 128-column chunk of dV. A key tile whose mask is all zero writes its
-// zero rows and stops.
+// K6 design: one block per 32 keys and batch item, 16 warps in two roles
+// (a grid of blocks listed by `dkv_grid` in the wrapper). Each block keeps
+// its 32 keys' K and V rows in shared memory, so S, P and dP are formed
+// once per (key, query) pair. Per 64-query tile the 8 FMA warps form S
+// and P = expf(s - lse) (to shared memory) while the 8 tensor-core warps
+// start dP; then, per 128-column chunk of dO, the tensor-core warps
+// accumulate dP^T += V_c dO_c^T in registers while the FMA warps
+// accumulate dV_c += P^T dO_c (dV (32, 512) lives in the FMA warps'
+// registers, 64 floats a thread); after the last chunk the
+// tensor-core warps form dS = P (dP - delta) (to shared memory) and
+// dK += dS^T Q (dK (32, 128) in their registers), then queue the next
+// tile's Q while the FMA warps finish the chunk. The roles run
+// concurrently on the SM's tensor and FMA pipes, with one block barrier a
+// chunk: the dO chunks stream through a cp.async double buffer (the next
+// chunk loads while the current one is multiplied). dP and dK are 3xTF32
+// (warp w takes keys 16 (w % 2) and queries 16 (w / 2) of dP, columns
+// 32 (w / 2) of dK). S and dV run on the FMA units in the order of a plain
+// f32 product (each score summed over dk in order, each dV entry over the
+// queries in order), because the plain f32 version is itself inexact
+// where dV is a long sum that cancels: with one valid key P is 1 for every
+// query and dV[key] is the sum of dO's Lq rows, which in f32 is ~1.6e-4
+// off the exact value at bg's 2040 queries, at entries near 0 where the
+// check allows 1e-5 (`tools/check_torch_dkv_precision.py`). Only the same
+// order meets it there; the same sum from exact 64-query partials misses
+// it. A block whose 32 keys are all masked writes zero rows and stops.
+// Where blocks would leave SMs idle, 2-4 blocks share a key block: each
+// takes a share of its dV chunks, and group 0 also forms dP, dS and dK.
+// Small reads share every key block; a single read over more than a wave
+// shares the key blocks of its last, partial wave. The order of every sum
+// stays that of one block, so no second pass and no atomics. dv is at
+// most 512 (the STM's 512; a wider V would not fit the registers and
+// shared memory).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -644,116 +670,83 @@ __global__ void dq_reduce_kernel(const float* __restrict__ work,
 }
 
 // ---------------------------------------------------------------------------
-// K6 (SIMT f32).
+// K6.
 //
-// Shared memory: four (64, 132) f32 tiles (K, Q, and the dO and V
-// chunks), the (64, 68) dS tile and three 64-float vectors: 153,344 bytes.
+// Shared memory: the block's resident K (32, 132) and V (32, 516) rows, the
+// tile's Q (64, 132), two dO chunks (64, 132) of the ring, the (64, 40) P
+// and dS tiles (query-major), the tile's lse and delta and the key mask:
+// 205,440 bytes.
 
-constexpr size_t SMEM_DKV_FLOATS = 4 * BQ * LDQ + BQ * LDP + 3 * BQ;
+constexpr int THREADS6 = 512;            // 8 tensor-core + 8 FMA warps
+constexpr int BKV = 32;                  // keys per K6 block
+constexpr int DVC6 = 128;                // dv columns per dO chunk
+constexpr int NC6 = 4;                   // chunks K6 holds: dv <= 512
+constexpr int LDV6 = NC6 * DVC6 + 4;     // row pitch of the resident V
+constexpr int LDO6 = DVC6 + 4;           // row pitch of a dO chunk
+constexpr int LDT6 = BKV + 8;            // row pitch of the P and dS tiles
+constexpr size_t SMEM_DKV_FLOATS = BQ * LDQ + 2 * BQ * LDO6 + BKV * LDV6 +
+                                   BKV * LDQ + 2 * BQ * LDT6 + 2 * BQ + BKV;
 constexpr size_t SMEM_DKV_BYTES = SMEM_DKV_FLOATS * sizeof(float);
 
-// Stage rows [row0, row0 + rows) x columns [col0, col0 + width) of a
-// row-major (n_rows, ld) array into a (rows, pitch) shared tile, zero
-// outside the array. width and col0 are multiples of 4 (float4 loads).
-__device__ void stage(const float* __restrict__ src, float* dst, int rows,
-                      int width, int pitch, int row0, int col0, int n_rows,
-                      int n_cols, int ld) {
-  const int vec_per_row = width / 4;
-  for (int i = threadIdx.x; i < rows * vec_per_row; i += blockDim.x) {
-    const int r = i / vec_per_row, c = (i % vec_per_row) * 4;
-    const int gr = row0 + r, gc = col0 + c;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gr < n_rows && gc < n_cols)
-      val = *reinterpret_cast<const float4*>(src + (size_t)gr * ld + gc);
-    *reinterpret_cast<float4*>(dst + r * pitch + c) = val;
+// A timing diagnostic (tools/time_torch_dkv_parts.py) builds K6 with parts
+// of its work switched off, one bit of VUT_DKV_SKIP each: 1 the dV
+// products, 2 dP, 4 the S loop, 8 dK. Its outputs are then wrong. The
+// library is built without it: nothing is skipped.
+#ifndef VUT_DKV_SKIP
+#define VUT_DKV_SKIP 0
+#endif
+
+// c = A B as warp_product<N, false> forms it, for an A stored transposed:
+// A(r, k) at T[k * ldt + r] (the query-major dS tile read as dS^T).
+template <int N>
+__device__ __forceinline__ void warp_product_at(float c[N][4], const float* T,
+                                                int ldt, int r0,
+                                                const float* B, int ldb,
+                                                int n0, int depth, int g,
+                                                int t) {
+  zero_frags<N>(c);
+#pragma unroll
+  for (int k0 = 0; k0 < depth; k0 += 8) {
+    uint32_t ab[4], as[4], bb[N][2], bs[N][2];
+    const float* p = T + (k0 + t) * ldt + r0 + g;
+    split_tf32(p[0], ab[0], as[0]);
+    split_tf32(p[8], ab[1], as[1]);
+    split_tf32(p[4 * ldt], ab[2], as[2]);
+    split_tf32(p[4 * ldt + 8], ab[3], as[3]);
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      load_b_kn(B, ldb, k0, n0 + 8 * j, g, t, bb[j], bs[j]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma_tf32(c[j], as, bb[j]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bs[j]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma_tf32(c[j], ab, bb[j]);
   }
 }
 
-// acc[a][c] += sum_j T[r0 + a][j] X[j][col(c)] over a 64-wide shared tile
-// T (pitch LDP) and the rows of X (pitch LDQ); col(c) is 4 tl + c for
-// c < 4 and 64 + 4 tl + c - 4 otherwise.
-__device__ __forceinline__ void tile_mma(const float* T, const float* X,
-                                         int r0, int tl, float acc[4][8]) {
-  for (int j = 0; j < BK; j += 4) {
-    float4 ta[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      ta[a] = *reinterpret_cast<const float4*>(T + (r0 + a) * LDP + j);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const float4 x0 =
-          *reinterpret_cast<const float4*>(X + (j + jj) * LDQ + 4 * tl);
-      const float4 x1 =
-          *reinterpret_cast<const float4*>(X + (j + jj) * LDQ + 64 + 4 * tl);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float t = jj == 0 ? ta[a].x
-                        : jj == 1 ? ta[a].y
-                        : jj == 2 ? ta[a].z
-                                  : ta[a].w;
-        acc[a][0] = fmaf(t, x0.x, acc[a][0]);
-        acc[a][1] = fmaf(t, x0.y, acc[a][1]);
-        acc[a][2] = fmaf(t, x0.z, acc[a][2]);
-        acc[a][3] = fmaf(t, x0.w, acc[a][3]);
-        acc[a][4] = fmaf(t, x1.x, acc[a][4]);
-        acc[a][5] = fmaf(t, x1.y, acc[a][5]);
-        acc[a][6] = fmaf(t, x1.z, acc[a][6]);
-        acc[a][7] = fmaf(t, x1.w, acc[a][7]);
-      }
-    }
-  }
+// Barrier 1 among the 256 threads of the tensor-core warps only, barrier
+// 2 among those of the FMA warps.
+__device__ __forceinline__ void mma_warps_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void fma_warps_sync() {
+  asm volatile("bar.sync 2, 256;\n" ::: "memory");
 }
 
-// out[a][b] += sum_d A[r0 + a][d] B[tl + 16 b][d] for d < width, over two
-// shared tiles of pitch LDQ (the 4 x 4 register tile of a 64 x 64 product
-// of rows).
-__device__ __forceinline__ void rows_dot(const float* A, const float* B,
-                                         int width, int r0, int tl,
-                                         float out[4][4]) {
-  for (int d = 0; d < width; d += 4) {
-    float4 aa[4], bb[4];
+// warp_product<N, NK> over a fixed depth, unrolled.
+template <int N, bool NK, int DEPTH>
+__device__ __forceinline__ void warp_product_n(float c[N][4], const float* A,
+                                               int lda, int wr,
+                                               const float* B, int ldb,
+                                               int n0, int g, int t) {
+  zero_frags<N>(c);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-      aa[a] = *reinterpret_cast<const float4*>(A + (r0 + a) * LDQ + d);
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      bb[b] = *reinterpret_cast<const float4*>(B + (tl + 16 * b) * LDQ + d);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        out[a][b] = fmaf(aa[a].x, bb[b].x, out[a][b]);
-        out[a][b] = fmaf(aa[a].y, bb[b].y, out[a][b]);
-        out[a][b] = fmaf(aa[a].z, bb[b].z, out[a][b]);
-        out[a][b] = fmaf(aa[a].w, bb[b].w, out[a][b]);
-      }
-  }
+  for (int k0 = 0; k0 < DEPTH; k0 += 8)
+    mma_step<N, NK>(c, A, lda, wr, k0, B, ldb, n0, g, t);
 }
 
-// dP tile: rows of A_src (tile at a0, n_a rows) against rows of B_src
-// (tile at b0, n_b rows), both (., dv), streamed through As and Bs in
-// 128-column chunks.
-__device__ __forceinline__ void dp_tile(const float* __restrict__ a_src,
-                                        int a0, int n_a,
-                                        const float* __restrict__ b_src,
-                                        int b0, int n_b, int dv, float* As,
-                                        float* Bs, int r0, int tl,
-                                        float dp[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) dp[a][b] = 0.f;
-  for (int c0 = 0; c0 < dv; c0 += DVC) {
-    const int cw = min(DVC, dv - c0);
-    stage(a_src, As, BQ, cw, LDQ, a0, c0, n_a, dv, dv);
-    stage(b_src, Bs, BK, cw, LDQ, b0, c0, n_b, dv, dv);
-    __syncthreads();
-    rows_dot(As, Bs, cw, r0, tl, dp);
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS6, 1)
 attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ mask,
@@ -761,106 +754,263 @@ attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     float* __restrict__ grad_k, float* __restrict__ grad_v,
-                    int Lq, int Lk, int dk, int dv, float scale) {
+                    int Lq, int Lk, int dk, int dv, int tail0, int g_head,
+                    int g_tail, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* Ks = smem;                 // [BK][LDQ]
-  float* Qs = Ks + BK * LDQ;        // [BQ][LDQ]
-  float* Os = Qs + BQ * LDQ;        // [BQ][LDQ] a dv chunk of dO
-  float* Vs = Os + BQ * LDQ;        // [BK][LDQ] a dv chunk of V (role 0)
-  float* Ts = Vs + BK * LDQ;        // [BK][LDP] dS^T (role 0) or P^T
-  float* Ms = Ts + BK * LDP;        // [BK]
-  float* Ls = Ms + BK;              // [BQ] lse
-  float* Ds = Ls + BQ;              // [BQ] delta
+  float* Qs = smem;                  // [BQ][LDQ]
+  float* Os = Qs + BQ * LDQ;         // [2][BQ][LDO6] a dv chunk of dO
+  float* Vs = Os + 2 * BQ * LDO6;    // [BKV][LDV6]
+  float* Ks = Vs + BKV * LDV6;       // [BKV][LDQ]
+  float* Ps = Ks + BKV * LDQ;        // [BQ][LDT6] P (query-major)
+  float* Ss = Ps + BQ * LDT6;        // [BQ][LDT6] dS (query-major)
+  float* Ls = Ss + BQ * LDT6;        // [BQ] lse
+  float* Ds = Ls + BQ;               // [BQ] delta
+  float* Ms = Ds + BQ;               // [BKV]
 
-  const size_t item = blockIdx.z;
-  q += item * Lq * dk;
-  k += item * Lk * dk;
-  v += item * Lk * dv;
-  mask += item * Lk;
-  dout += item * Lq * dv;
-  lse += item * Lq;
-  delta += item * Lq;
-  grad_k += item * Lk * dk;
-  grad_v += item * Lk * dv;
+  // key blocks [0, tail0) take g_head blocks each, the rest g_tail
+  const int b = blockIdx.z, x = blockIdx.x, head = tail0 * g_head;
+  const int n_group = x < head ? g_head : g_tail;
+  const int kb = x < head ? x / g_head : tail0 + (x - head) / g_tail;
+  const int group = x < head ? x % g_head : (x - head) % g_tail;
+  q += (size_t)b * Lq * dk;
+  k += (size_t)b * Lk * dk;
+  v += (size_t)b * Lk * dv;
+  mask += (size_t)b * Lk;
+  dout += (size_t)b * Lq * dv;
+  lse += (size_t)b * Lq;
+  delta += (size_t)b * Lq;
+  grad_k += (size_t)b * Lk * dk;
+  grad_v += (size_t)b * Lk * dv;
 
-  const int k0 = blockIdx.x * BK;
-  const int role = blockIdx.y;      // 0: dK; c >= 1: dV columns c0..
-  const int c0 = (role - 1) * DVC;
-  const int cw = role ? min(DVC, dv - c0) : 0;
-  const int tq = threadIdx.x >> 4, tl = threadIdx.x & 15, r0 = tq * 4;
+  const int k0 = kb * BKV;
+  const int nc = (dv + DVC6 - 1) / DVC6;
+  // this group's dV chunks [v0, v1); group 0 also forms dP over every
+  // chunk, dS and dK, so it streams all of them
+  const int v0 = nc * group / n_group, v1 = nc * (group + 1) / n_group;
+  const bool first = group == 0;
+  const int cb = first ? 0 : v0, ce = first ? nc : v1;
 
   float mv = 0.f;
-  if (threadIdx.x < BK && k0 + (int)threadIdx.x < Lk)
+  if (threadIdx.x < BKV && k0 + (int)threadIdx.x < Lk)
     mv = mask[k0 + threadIdx.x];
-  if (threadIdx.x < BK) Ms[threadIdx.x] = mv;
+  if (threadIdx.x < BKV) Ms[threadIdx.x] = mv;
   if (!__syncthreads_or(mv > 0.f)) {
-    // no valid key in the tile: its rows of dK (or of the dV chunk) are 0
-    const int width = role ? cw : dk, ld = role ? dv : dk;
-    const int col0 = role ? c0 : 0;
-    float* dst = role ? grad_v : grad_k;
-    for (int i = threadIdx.x; i < BK * width; i += blockDim.x) {
-      const int r = k0 + i / width;
-      if (r < Lk) dst[(size_t)r * ld + col0 + i % width] = 0.f;
+    // no valid key in the block: zero rows of dV's chunks (and of dK)
+    const int c0 = v0 * DVC6, w = min(dv, v1 * DVC6) - c0;
+    for (int i = threadIdx.x; i < BKV * w; i += blockDim.x) {
+      const int r = k0 + i / w;
+      if (r < Lk) grad_v[(size_t)r * dv + c0 + i % w] = 0.f;
+    }
+    for (int i = threadIdx.x; first && i < BKV * dk; i += blockDim.x) {
+      const int r = k0 + i / dk;
+      if (r < Lk) grad_k[(size_t)r * dk + i % dk] = 0.f;
     }
     return;
   }
-  stage(k, Ks, BK, dk, LDQ, k0, 0, Lk, dk, dk);
 
-  float acc[4][8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_ch = ce - cb;
+  const int n_qt = (Lq + BQ - 1) / BQ;
+  const int n_steps = n_qt * n_ch;
 
-  for (int q0 = 0; q0 < Lq; q0 += BQ) {
-    stage(q, Qs, BQ, dk, LDQ, q0, 0, Lq, dk, dk);
-    if (role) stage(dout, Os, BQ, cw, LDQ, q0, c0, Lq, dv, dv);
-    for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-      Ls[i] = q0 + i < Lq ? lse[q0 + i] : 0.f;
-      Ds[i] = q0 + i < Lq ? delta[q0 + i] : 0.f;
-    }
+  // step s -> query tile s / n_ch, dO chunk cb + s % n_ch (ring slot
+  // s & 1). Every thread stages.
+  auto load_step = [&](int s) {
+    stage_async(dout, Os + (s & 1) * BQ * LDO6, BQ, DVC6, LDO6,
+                s / n_ch * BQ, (cb + s % n_ch) * DVC6, Lq, dv, dv);
+  };
+  // the start of step s: wait for its chunk (and, at a tile's first step,
+  // the tile's Q), then (every thread past the barrier, so done with step
+  // s - 1) queue step s + 1 into the slot step s - 1 used
+  auto begin_step = [&](int s) {
+    cp_async_wait<0>();
     __syncthreads();
-
-    // rows r0..r0+3 are keys, columns tl + 16 b queries
-    float s[4][4];
+    if (s + 1 < n_steps) load_step(s + 1);
+    cp_async_commit();
+  };
+  // Q, lse and delta of tile t (every column: dS^T Q reads all 128, zeros
+  // past dk), staged by the 256 tensor-core threads at the end of tile
+  // t - 1, once its dK is done with Q (by all 512 for tile 0)
+  auto stage_q = [&](int t, int u, int n_u) {
+    const int q0 = t * BQ;
+    for (int i = u; i < BQ * DK_MAX / 4; i += n_u) {
+      const int r = i / (DK_MAX / 4), c = (i % (DK_MAX / 4)) * 4;
+      const bool ok = q0 + r < Lq && c < dk;
+      cp_async16(Qs + r * LDQ + c, ok ? q + (size_t)(q0 + r) * dk + c : q,
+                 ok);
+    }
+    for (int j = u; j < BQ; j += n_u) {
+      const bool ok = q0 + j < Lq;
+      cp_async4(Ls + j, ok ? lse + q0 + j : lse, ok);
+      cp_async4(Ds + j, ok ? delta + q0 + j : delta, ok);
+    }
+    cp_async_commit();
+  };
+  // Where a block streams one chunk a tile, S, dS and the next tile's Q
+  // share a step: the tensor-core warps then wait at a block barrier for S.
+  const bool s_barrier = n_ch == 1;
+  // At a tile's first step the FMA warps form S = Q K^T, each score summed
+  // over dk in order as a plain f32 product sums it (thread u: keys
+  // u % 16 + 16 a, queries u / 16 + 16 i), then P = expf(s - lse) into
+  // Ps, while the tensor-core warps start dP.
+  auto scores = [&](int it) {
+    const int u = threadIdx.x - 256, sk = u & 15, sq = u >> 4;
+    float sc[2][4] = {};
+#pragma unroll 2
+    for (int d = 0; d < (VUT_DKV_SKIP & 4 ? 0 : dk); d += 4) {
+      float4 kr[2];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < 2; ++a)
+        kr[a] = *reinterpret_cast<const float4*>(Ks + (sk + 16 * a) * LDQ +
+                                                 d);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-    rows_dot(Ks, Qs, dk, r0, tl, s);
-    float dp[4][4];
-    if (role == 0) dp_tile(v, k0, Lk, dout, q0, Lq, dv, Vs, Os, r0, tl, dp);
-
+      for (int i = 0; i < 4; ++i) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(Qs + (sq + 16 * i) * LDQ + d);
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = r0 + a;
-      const bool valid = Ms[r] > 0.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = tl + 16 * b;
-        const float sv = valid ? s[a][b] * scale : NEG;
-        const float p = expf(sv - Ls[j]);
-        const float t = role == 0 ? p * (dp[a][b] - Ds[j]) : p;
-        Ts[r * LDP + j] = q0 + j < Lq ? t : 0.f;
+        for (int a = 0; a < 2; ++a) {
+          sc[a][i] = fmaf(kr[a].x, x.x, sc[a][i]);
+          sc[a][i] = fmaf(kr[a].y, x.y, sc[a][i]);
+          sc[a][i] = fmaf(kr[a].z, x.z, sc[a][i]);
+          sc[a][i] = fmaf(kr[a].w, x.w, sc[a][i]);
+        }
       }
     }
-    __syncthreads();
-    tile_mma(Ts, role == 0 ? Qs : Os, r0, tl, acc);
-    __syncthreads();  // the next query tile overwrites Qs, Os, Ts, Ls, Ds
-  }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = sk + 16 * a, col = sq + 16 * i;
+        const float sv = Ms[key] > 0.f ? sc[a][i] * scale : NEG;
+        Ps[col * LDT6 + key] = it * BQ + col < Lq ? expf(sv - Ls[col]) : 0.f;
+      }
+    if (s_barrier)
+      __syncthreads();
+    else
+      fma_warps_sync();  // P whole before dV reads it
+  };
 
+  stage_async(k, Ks, BKV, (dk + 7) & ~7, LDQ, k0, 0, Lk, dk, dk);
+  stage_async(v, Vs, BKV, nc * DVC6, LDV6, k0, 0, Lk, dv, dv);
+  load_step(0);
+  stage_q(0, threadIdx.x, THREADS6);
+
+  if (warp < 8) {
+    // tensor-core warps: dP^T += V_c dO_c^T per chunk, then dS = P (dP -
+    // delta) and dK += dS^T Q per tile (3xTF32). Warp w takes keys
+    // 16 (w % 2) and queries 16 (w / 2) of dP, columns 32 (w / 2) of dK.
+    const int g = lane >> 2, t_ = lane & 3;
+    const int wr = (warp & 1) * 16, wc = warp >> 1;
+    float acc_k[4][4], dp[2][4];
+    zero_frags<4>(acc_k);
+    for (int it = 0; it < n_qt; ++it) {
+      for (int c = cb; c < ce; ++c) {
+        const int s = it * n_ch + c - cb;
+        begin_step(s);
+        if (c == cb) {
+          zero_frags<2>(dp);
+          if (s_barrier) __syncthreads();  // S done
+        }
+        if (!(VUT_DKV_SKIP & 2) && first) {
+          const float* Ob = Os + (s & 1) * BQ * LDO6;
+          const int cw8 = min(DVC6, ((dv + 7) & ~7) - c * DVC6);
+          float dpc[2][4];
+          if (cw8 == DVC6)
+            warp_product_n<2, true, DVC6>(dpc, Vs + c * DVC6, LDV6, wr, Ob,
+                                          LDO6, 16 * wc, g, t_);
+          else
+            warp_product<2, true>(dpc, Vs + c * DVC6, LDV6, wr, Ob, LDO6,
+                                  16 * wc, cw8, g, t_);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = k0 + r0 + a;
-    if (row >= Lk) continue;
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = c < 4 ? 4 * tl + c : 64 + 4 * tl + c - 4;
-      if (role == 0) {
-        if (col < dk) grad_k[(size_t)row * dk + col] = acc[a][c] * scale;
-      } else if (col < cw) {
-        grad_v[(size_t)row * dv + c0 + col] = acc[a][c];
+            for (int e = 0; e < 4; ++e) dp[j][e] += dpc[j][e];
+        }
+        if (first && c == nc - 1) {
+          // dS = P (dP - delta), then dK += dS^T Q over the tile
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 16 * wc + 8 * j + 2 * t_ + (e & 1);
+              const int at = col * LDT6 + wr + g + 8 * (e >> 1);
+              Ss[at] = Ps[at] * (dp[j][e] - Ds[col]);
+            }
+          mma_warps_sync();
+          float kt[4][4];
+          if (!(VUT_DKV_SKIP & 8))
+            warp_product_at<4>(kt, Ss, LDT6, wr, Qs, LDQ, 32 * wc, BQ, g, t_);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc_k[j][e] += kt[j][e];
+          mma_warps_sync();  // every dK product is done with Q
+        }
+        // the next tile's Q loads while the FMA warps finish this chunk
+        if (c == ce - 1 && it + 1 < n_qt) stage_q(it + 1, threadIdx.x, 256);
+      }
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = k0 + wr + g + 8 * h;
+      if (!first || row >= Lk) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = 32 * wc + 8 * j + 2 * t_;
+        if (col < dk)  // dk is a multiple of 4: col + 1 < dk too
+          *reinterpret_cast<float2*>(grad_k + (size_t)row * dk + col) =
+              make_float2(acc_k[j][2 * h] * scale,
+                          acc_k[j][2 * h + 1] * scale);
+      }
+    }
+  } else {
+    // FMA warps: per chunk dV_c += P^T dO_c query by query in order (a
+    // plain f32 product's order); thread f takes keys 4 vk + a, columns
+    // c DVC6 + 4 vc + e
+    const int f = threadIdx.x - 256, vk = f & 7, vc = f >> 3;
+    float acc_v[NC6][4][4];
+#pragma unroll
+    for (int c = 0; c < NC6; ++c) zero_frags<4>(acc_v[c]);
+    for (int it = 0; it < n_qt; ++it) {
+#pragma unroll
+      for (int c = 0; c < NC6; ++c) {
+        if (c < cb || c >= ce) continue;
+        const int s = it * n_ch + c - cb;
+        begin_step(s);
+        if (c == cb) scores(it);
+        if (!(VUT_DKV_SKIP & 1) && c >= v0 && c < v1) {
+          const float* Ob = Os + (s & 1) * BQ * LDO6;
+#pragma unroll 8
+          for (int j = 0; j < BQ; ++j) {
+            const float4 pj =
+                *reinterpret_cast<const float4*>(Ps + j * LDT6 + 4 * vk);
+            const float4 oj =
+                *reinterpret_cast<const float4*>(Ob + j * LDO6 + 4 * vc);
+            const float pa[4] = {pj.x, pj.y, pj.z, pj.w};
+            const float ob[4] = {oj.x, oj.y, oj.z, oj.w};
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc_v[c][a][e] = fmaf(pa[a], ob[e], acc_v[c][a][e]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int row = k0 + 4 * vk + a;
+      if (row >= Lk) continue;
+#pragma unroll
+      for (int c = 0; c < NC6; ++c) {
+        const int col = c * DVC6 + 4 * vc;
+        if (c >= v0 && c < v1 && col < dv)  // dv is a multiple of 4
+          *reinterpret_cast<float4*>(grad_v + (size_t)row * dv + col) =
+              make_float4(acc_v[c][a][0], acc_v[c][a][1], acc_v[c][a][2],
+                          acc_v[c][a][3]);
       }
     }
   }
@@ -950,25 +1100,33 @@ int vut_attention_bwd_dq(const float* q, const float* k, const float* v,
 }
 
 // K6: grad_k (B, Lk, dk) and grad_v (B, Lk, dv) of the masked attention,
-// one launch; the arguments as for vut_attention_bwd_dq. Sets *launches.
+// dv at most 512, one launch. Each 32-key block's dV chunks are shared by
+// g_head blocks for key blocks [0, tail0) and by g_tail blocks for the
+// rest (group 0 also forms dP, dS and dK); each count at most one block
+// per 128-column chunk of dv. The other arguments as for
+// vut_attention_bwd_dq. Sets *launches.
 int vut_attention_bwd_dkv(const float* q, const float* k, const float* v,
                           const float* kv_mask, const float* dout,
                           const float* lse, const float* delta,
                           float* grad_k, float* grad_v, int B, int Lq,
-                          int Lk, int dk, int dv, void* stream,
-                          int* launches) {
+                          int Lk, int dk, int dv, int tail0, int g_head,
+                          int g_tail, void* stream, int* launches) {
   *launches = 0;
-  if (bad_shape(B, Lq, Lk, dk, dv)) return cudaErrorInvalidValue;
+  const int n_kb = (Lk + BKV - 1) / BKV, nc = (dv + DVC6 - 1) / DVC6;
+  if (bad_shape(B, Lq, Lk, dk, dv) || dv > NC6 * DVC6 || tail0 < 0 ||
+      tail0 > n_kb || g_head <= 0 || g_head > nc || g_tail <= 0 ||
+      g_tail > nc)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       attn_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(SMEM_DKV_BYTES));
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(dk));
-  const dim3 grid((Lk + BK - 1) / BK, 1 + (dv + DVC - 1) / DVC, B);
-  attn_bwd_dkv_kernel<<<grid, THREADS, SMEM_DKV_BYTES,
+  const dim3 grid(tail0 * g_head + (n_kb - tail0) * g_tail, 1, B);
+  attn_bwd_dkv_kernel<<<grid, THREADS6, SMEM_DKV_BYTES,
                         static_cast<cudaStream_t>(stream)>>>(
       q, k, v, kv_mask, dout, lse, delta, grad_k, grad_v, Lq, Lk, dk, dv,
-      scale);
+      tail0, g_head, g_tail, scale);
   *launches = 1;
   return cudaGetLastError();
 }

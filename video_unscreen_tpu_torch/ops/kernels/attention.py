@@ -21,9 +21,13 @@ every s -1e30) get P = 0 and pass no gradient.
 On the card K4 and K5 walk a list of the 64-key tiles that hold a valid
 key (`_live_key_tiles`, one small launch, counted as the call's). K5
 splits its key range across blocks (`dq_splits`) and, with more than one
-split, sums the splits in a second launch. So one K4 call is 2 launches
-and one K5 call 2 or 3; in `MaskedMemoryAttention` K5 reuses K4's list
-(1 or 2).
+split, sums the splits in a second launch. K6 runs one block per 32 keys,
+and up to 4 blocks share a key block's dV columns where the blocks would
+leave SMs idle (`dkv_grid`). So one K4 call is 2 launches,
+one K5 call 2 or 3 and one K6 call 1; in `MaskedMemoryAttention` K5
+reuses K4's list (1 or 2). K6 takes dv <= 512 (the STM's value width)
+and raises on a wider V; so does `MaskedMemoryAttention` on the card when
+q, k or v needs a gradient, at the forward call.
 
 `MaskedMemoryAttention` is the differentiable read: K4 forward (it keeps
 the list for K5), then delta = rowsum(dO * O) (a plain reduction, as in
@@ -127,6 +131,36 @@ def dq_splits(batch: int, lq: int, lk: int, n_sm: int) -> int:
     at most one split per 64-key tile."""
     blocks = batch * -(-lq // TILE)
     return max(1, min(-(-lk // TILE), 2 * n_sm // blocks))
+
+
+KEY_BLOCK = 32    # keys per K6 block in csrc/attention.cu
+DV_CHUNK = 128    # dv columns per chunk of K6's dO ring
+DV_MAX_DKV = 512  # the widest dv K6 takes
+
+
+def dkv_grid(batch: int, lk: int, dv: int, n_sm: int
+             ) -> Tuple[int, int, int]:
+    """K6's grid, (tail0, g_head, g_tail): key blocks [0, tail0) of 32
+    keys are shared by g_head blocks each and the rest by g_tail (a block
+    takes a share of the key block's 128-column dV chunks; at most one
+    block per chunk). K6 runs one block per SM of the card's `n_sm`:
+    - where the (key block, item) blocks fill at most half a wave, every
+      key block gets the most groups, a power of two, that stay within
+      one wave;
+    - a single read (batch 1) over more than a wave gives the key blocks
+      of its last, partial wave as many groups as fill that wave;
+    - otherwise one block per key block."""
+    n_kb, chunks = -(-lk // KEY_BLOCK), -(-dv // DV_CHUNK)
+    blocks = batch * n_kb
+    if 2 * blocks <= n_sm:
+        groups = 1
+        while 2 * groups <= chunks and 2 * groups * blocks <= n_sm:
+            groups *= 2
+        return n_kb, groups, groups
+    tail = blocks % n_sm
+    if batch == 1 and blocks > n_sm and tail:
+        return n_kb - tail, 1, max(1, min(chunks, n_sm // tail))
+    return n_kb, 1, 1
 
 
 def _check(t: torch.Tensor, name: str, dim: int) -> None:
@@ -266,13 +300,19 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _bwd_dkv(q, k, v, kv_mask, dout, lse, delta):
+    """K6 on batched CUDA inputs."""
     b, lq, lk, dk, dv = _check_inputs(q, k, v, kv_mask, dout=dout, lse=lse,
                                       delta=delta)
+    if dv > DV_MAX_DKV:
+        raise ValueError(f"attention dK/dV: needs dv <= {DV_MAX_DKV}, got "
+                         f"{dv}")
+    grid = dkv_grid(b, lk, dv, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
     dk_out = torch.empty((b, lk, dk), dtype=torch.float32, device=q.device)
     dv_out = torch.empty((b, lk, dv), dtype=torch.float32, device=q.device)
     _count(ATTENTION_BWD_DKV, _launch(
         "vut_attention_bwd_dkv", "attention dK/dV kernel", q, k, v, kv_mask,
-        dout, lse, delta, dk_out, dv_out, b, lq, lk, dk, dv))
+        dout, lse, delta, dk_out, dv_out, b, lq, lk, dk, dv, *grid))
     return dk_out, dv_out
 
 
@@ -302,6 +342,11 @@ class MaskedMemoryAttention(torch.autograd.Function):
             out, lse = attention_plain(q, k, v, kv_mask)
             ctx.save_for_backward(q, k, v, kv_mask, out, lse, None, None)
             return out
+        if v.shape[-1] > DV_MAX_DKV and any(ctx.needs_input_grad[:3]):
+            # refused at the call, not at the first backward pass
+            raise ValueError(f"attention: a differentiable read on the card "
+                             f"needs dv <= {DV_MAX_DKV} (K6), got "
+                             f"{v.shape[-1]}")
         ctx.flat, (q, k, v, kv_mask) = _batched(q, k, v, kv_mask)
         out, lse, tiles = _forward(q, k, v, kv_mask)
         ctx.save_for_backward(q, k, v, kv_mask, out, lse, *tiles)

@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -34,10 +35,11 @@ _SIGNATURES = {
     "vut_morph": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P),
     "vut_trimap": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P),
     "vut_flood": (_P, _P, _P, _P, _I, _I, _P, _P),
+    "vut_flood_phases": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "vut_attention_tiles": (_P, _P, _P, _I, _I, _P, _P),
     "vut_attention": (_P,) * 8 + (_I,) * 5 + (_P, _P),
     "vut_attention_bwd_dq": (_P,) * 11 + (_I,) * 6 + (_P, _P),
-    "vut_attention_bwd_dkv": (_P,) * 9 + (_I,) * 5 + (_P, _P),
+    "vut_attention_bwd_dkv": (_P,) * 9 + (_I,) * 8 + (_P, _P),
 }
 
 _lib = None
@@ -56,18 +58,21 @@ def _nvcc() -> str:
         "video_unscreen_tpu_torch/csrc need the CUDA toolkit to build")
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(defines: Tuple[str, ...] = ()) -> Path:
+    """Where the library for the current sources (and `defines`) lives,
+    built or not."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
     for src in sorted(CSRC.glob("*.cu")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libvut_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile `csrc/*.cu` unless the library for these sources exists."""
-    out = library_path()
+def build(defines: Tuple[str, ...] = ()) -> Path:
+    """Compile `csrc/*.cu` unless the library for these sources exists.
+    `defines` (`-DNAME=VALUE` flags) build a variant for a diagnostic, under
+    its own name; the library the wrappers load has none."""
+    out = library_path(defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -77,8 +82,9 @@ def build() -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, *sources],
+            capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
@@ -101,6 +107,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.vut_error_string.argtypes = [ctypes.c_int]
         lib.vut_error_string.restype = ctypes.c_char_p
+        lib.vut_flood_phase_names.argtypes = []
+        lib.vut_flood_phase_names.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 

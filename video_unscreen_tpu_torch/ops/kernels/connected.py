@@ -17,7 +17,7 @@ with it on every mask the JAX flood labels within its cap.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -63,6 +63,25 @@ def cc_plain(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return lbl, _rank_roots(seg, lbl)
 
 
+def _outputs(mask: torch.Tensor):
+    """(labels, compact, scratch) for a CUDA mask the kernel takes, else
+    raise."""
+    if (mask.dtype != torch.float32 or mask.dim() != 2
+            or not mask.is_contiguous()):
+        raise ValueError(
+            f"connected_components_compact: needs a contiguous 2-D float32 "
+            f"tensor, got {mask.dtype} {tuple(mask.shape)} "
+            f"contiguous={mask.is_contiguous()}")
+    h, w = mask.shape
+    labels = torch.empty((h, w), dtype=torch.int32, device=mask.device)
+    compact = torch.empty_like(labels)
+    # csrc/flood.cu: the look-back's 8-byte status word per 1024 pixels,
+    # then its ticket
+    scratch = torch.empty(2 * -(-h * w // 1024) + 2, dtype=torch.int32,
+                          device=mask.device)
+    return labels, compact, scratch
+
+
 def connected_components_compact(
         mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (labels, compact) int32 maps of `mask > 0` for an (H, W) mask."""
@@ -71,24 +90,34 @@ def connected_components_compact(
     if mask.device.type != "cuda":
         raise ValueError(f"connected_components_compact: needs a CPU or "
                          f"CUDA tensor, got {mask.device}")
-    if (mask.dtype != torch.float32 or mask.dim() != 2
-            or not mask.is_contiguous()):
-        raise ValueError(
-            f"connected_components_compact: needs a contiguous 2-D float32 "
-            f"tensor, got {mask.dtype} {tuple(mask.shape)} "
-            f"contiguous={mask.is_contiguous()}")
-    lib = build.library()
-    h, w = mask.shape
-    labels = torch.empty((h, w), dtype=torch.int32, device=mask.device)
-    compact = torch.empty_like(labels)
-    counts = torch.empty(-(-h * w // 1024), dtype=torch.int32,
-                         device=mask.device)
+    labels, compact, scratch = _outputs(mask)
     launches = ctypes.c_int(0)
     with torch.cuda.device(mask.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vut_flood(mask.data_ptr(), labels.data_ptr(),
-                            compact.data_ptr(), counts.data_ptr(), h, w,
-                            stream, ctypes.addressof(launches))
+        err = build.library().vut_flood(
+            mask.data_ptr(), labels.data_ptr(), compact.data_ptr(),
+            scratch.data_ptr(), *mask.shape, stream,
+            ctypes.addressof(launches))
     build.check(err, "flood kernel")
     FLOOD.add(launches)
     return labels, compact
+
+
+def phase_ms(mask: torch.Tensor, reps: int) -> Dict[str, float]:
+    """Measurement: K3's mean device ms per phase over `reps` calls on a
+    CUDA mask, from CUDA events between its launches (queued behind a
+    sleep kernel); not counted in FLOOD."""
+    labels, compact, scratch = _outputs(mask)
+    lib = build.library()
+    names = lib.vut_flood_phase_names().decode().split(",")
+    out = (ctypes.c_float * len(names))()
+    launches = ctypes.c_int(0)
+    with torch.cuda.device(mask.device):
+        torch.cuda._sleep(int(reps * len(names) * 5e4))
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.vut_flood_phases(
+            mask.data_ptr(), labels.data_ptr(), compact.data_ptr(),
+            scratch.data_ptr(), *mask.shape, reps, stream,
+            ctypes.addressof(out), ctypes.addressof(launches))
+    build.check(err, "flood phase timing")
+    return dict(zip(names, out))
