@@ -10,11 +10,16 @@ Phases, each printed with its wall seconds:
      (weights/matting_unet.msgpack); bg mode also needs weights/stm.msgpack
      (a missing weights file fails the run);
   3. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes, and time both with CUDA events: K1 trimap, K2
-     morph and K3 flood bit-exact (green's 544x960 and 272x480, bg's
-     1080x1920 with the 4x4 ellipse; K3 also on a checkerboard, a snake
-     across every tile edge, the full and the empty mask, with its
-     launches a call), K4 attention (the STM memory read, Lq 2040 x Lk
+     main paths' shapes, and time both with CUDA events: K1 trimap and K2
+     morph bit-exact at every call the paths make (`MORPH_CALLS` of
+     `ops/kernels/morph_cases.py`: 544x960,
+     540x960 and 1080x1920; the cross, the 4x4 ellipse; 1 to 40
+     iterations), K2 in both directions, on a soft mask, all 255, all 0,
+     hot corners, edge lines, a checkerboard and a batch of 3, one launch
+     a call, timed beside the same chain as F.max_pool2d calls (held
+     bit-exact first); K3 flood bit-exact (green's 272x480, bg's
+     1080x1920; also on a checkerboard, a snake across every tile edge,
+     the full and the empty mask, with its launches a call), K4 attention (the STM memory read, Lq 2040 x Lk
      22440, dk 128, dv 512, and one training read, Lq 64 x Lk 128) to
      rtol 1e-4 / atol 1e-5, with SDPA timed beside it as its yardstick,
      and K5 (dQ) and K6 (dK, dV), the read's backward, from a seeded dO
@@ -49,7 +54,8 @@ Phases, each printed with its wall seconds:
      BatchNorm statistics as `tests/test_torch_train_stm.py` holds the
      port to the JAX step.
 
-Then it prints one JSON line of per-kernel numbers, the card's name and
+Each path's K1 and K2 calls must be one launch each. Then it prints one
+JSON line of per-kernel numbers, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without CUDA, or without the package
 beside this file, it exits non-zero before printing any result.
@@ -265,20 +271,152 @@ def held_bwd(what, got, want, mask, dout, v):
     return max(e[0] for e in errs), max(e[1] for e in exact)
 
 
+def pool_chain(x, se, iters, dilate):
+    """The same chain as F.max_pool2d calls: the library yardstick, which
+    the port never calls. A step of the 5-point cross is the max of a 1x3
+    and a 3x1 pool at stride 1 (their -inf padding is dilation's border;
+    both hold the anchor); the 4x4 ellipse (a cross around (-1, -1) and
+    the anchor) pads two rows and columns of -inf above and left, pools,
+    and takes the max with the anchor; erosion is -max_pool2d(-x). Returns
+    (result, PyTorch calls)."""
+    import torch
+    import torch.nn.functional as F
+    y = (x if dilate else -x)[None]
+    h, w = x.shape[-2:]
+    calls = 0 if dilate else 2
+    for _ in range(iters):
+        if se == "ellipse4":
+            p = F.pad(y, (2, 0, 2, 0), value=float("-inf"))
+            row = F.max_pool2d(p, (1, 3), stride=1)[..., 1:h + 1, :]
+            col = F.max_pool2d(p, (3, 1), stride=1)[..., :, 1:w + 1]
+            y = torch.maximum(torch.maximum(y, row), col)
+            calls += 5
+        else:
+            y = torch.maximum(F.max_pool2d(y, (1, 3), stride=1,
+                                           padding=(0, 1)),
+                              F.max_pool2d(y, (3, 1), stride=1,
+                                           padding=(1, 0)))
+            calls += 3
+    return (y[0] if dilate else -y[0]), calls
+
+
+def pool_trimap(x, se, iters):
+    """K1's select over the two pool chains; (result, PyTorch calls)."""
+    import torch
+    dil, n_d = pool_chain(x, se, iters, True)
+    ero, n_e = pool_chain(x, se, iters, False)
+    tri = torch.where(ero > 127.0, 255.0, torch.full_like(x, 128.0))
+    return torch.where(dil < 128.0, 0.0, tri), n_d + n_e + 5
+
+
+def morph_phase(device):
+    """K1 and K2 at every call the paths make: bit-exact against the plain
+    versions (K2 in both directions) on a soft mask, the hard masks and a
+    batch of 3, one launch a call; then timed beside the plain version and
+    the max_pool2d chain (itself held bit-exact first). Returns the rows
+    of K1 and K2."""
+    import torch
+    from video_unscreen_tpu_torch.ops.kernels import morph as km
+    from video_unscreen_tpu_torch.ops.kernels.morph_cases import (
+        MORPH_CALLS, MORPH_HARD_MASKS, morph_hard_mask, se_offsets)
+
+    def run(kernel, x, offs, iters, dil):
+        if kernel == "trimap":
+            return km.trimap(x, offs, iters), km.trimap_plain(x, offs, iters)
+        return (km.morph(x, offs, iters, dil),
+                km.morph_plain(x, offs, iters, dil))
+
+    rows = {k: dict(source="video_unscreen_tpu_torch/csrc/morph.cu",
+                    replaces=f"video_unscreen_tpu/ops/pallas/morph.py:{ln}",
+                    max_abs_err=0.0, by_call=[])
+            for k, ln in (("trimap", 80), ("morph", 89))}
+    n_checked = 0
+    for i, (kernel, caller, (h, w), se, iters) in enumerate(MORPH_CALLS):
+        offs = se_offsets(se)
+        counter = km.TRIMAP if kernel == "trimap" else km.MORPH
+        soft = torch.from_numpy(soft_mask(h, w, SEED + 10 + i)).to(device)
+        hard = [torch.from_numpy(morph_hard_mask(n, h, w)).to(device)
+                for n in MORPH_HARD_MASKS]
+        batch = torch.stack([soft, hard[3], hard[4]])  # edges, checkerboard
+        before = (counter.calls, counter.launches)
+        for x in [soft, *hard, batch]:
+            for dil in ((True,) if kernel == "trimap" else (True, False)):
+                got, want = run(kernel, x, offs, iters, dil)
+                check(got.shape == want.shape and torch.equal(got, want),
+                      f"{kernel} {caller} {tuple(x.shape)} dilate={dil}: "
+                      f"differs from plain by "
+                      f"{float((got - want).abs().max())}")
+                n_checked += 1
+        calls = counter.calls - before[0]
+        launches = (counter.launches - before[1]) / calls
+        check(launches == 1, f"{kernel} {caller}: {launches} launches a "
+              f"call, want 1")
+        # the yardstick, held to the plain version before it is timed
+        if kernel == "trimap":
+            lib_fn = lambda: pool_trimap(soft, se, iters)
+            want = km.trimap_plain(soft, offs, iters)
+        else:
+            lib_fn = lambda: pool_chain(soft, se, iters, True)
+            want = km.morph_plain(soft, offs, iters, True)
+        got, n_lib = lib_fn()
+        check(torch.equal(got, want), f"max_pool2d chain {caller}: differs "
+              f"from plain by {float((got - want).abs().max())}")
+        if kernel == "trimap":
+            fn = lambda: km.trimap(soft, offs, iters)
+            plain_fn = lambda: km.trimap_plain(soft, offs, iters)
+        else:
+            fn = lambda: km.morph(soft, offs, iters, True)
+            plain_fn = lambda: km.morph_plain(soft, offs, iters, True)
+        ms = cuda_ms(fn, 200)
+        plain = cuda_ms(plain_fn, 2 if iters > 10 else 5, rounds=3)
+        lib = cuda_ms(lambda: lib_fn()[0], 5 if iters > 10 else 20,
+                      rounds=3)
+        n_nb = len([o for o in offs if o != (0, 0)])
+        chains = 2 if kernel == "trimap" else 1
+        b, by = bound(2 * h * w * 4,
+                      h * w * (chains * iters * n_nb + 2 * (chains - 1)))
+        entry = dict(caller=caller, shape=[h, w], se=se, iters=iters,
+                     launches_per_call=launches, ms=ms, plain_ms=plain,
+                     bound_ms=b, bound_by=by, pool_chain_ms=lib,
+                     pool_chain_calls=n_lib)
+        rows[kernel]["by_call"].append(entry)
+        print(f"  K{1 if kernel == 'trimap' else 2} {kernel} {h}x{w} {se} "
+              f"iters={iters} ({caller}): {ms:.4f} ms, {launches:g} launch a "
+              f"call (plain {plain:.4f} ms, max_pool2d chain of {n_lib} "
+              f"calls {lib:.4f} ms, bound {b:.5f} ms by {by})", flush=True)
+    # chains longer than the paths run, untimed: K1 at 20 iterations (6
+    # rows a thread) and 60 (a K2 head of 20, then the fused launch), K2 at
+    # 60 (two launches)
+    soft = torch.from_numpy(soft_mask(544, 960, SEED)).to(device)
+    offs = se_offsets("ellipse3")
+    for kernel, iters in (("trimap", 20), ("trimap", 60), ("morph", 60)):
+        for dil in ((True,) if kernel == "trimap" else (True, False)):
+            got, want = run(kernel, soft, offs, iters, dil)
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"{kernel} iters={iters} dilate={dil}: differs from "
+                  f"plain by {float((got - want).abs().max())}")
+            n_checked += 1
+    for k in rows:  # the main numbers: green's trimap and its it2 chain
+        main = rows[k]["by_call"][0]
+        rows[k].update(ms=main["ms"], plain_ms=main["plain_ms"],
+                       bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                       pool_chain_ms=main["pool_chain_ms"],
+                       pool_chain_calls=main["pool_chain_calls"])
+    print(f"  K1, K2: bit-exact in {n_checked} checks (the soft mask, "
+          f"{', '.join(MORPH_HARD_MASKS)} and a batch of 3 at each call; "
+          f"K1 iters 20 and 60, K2 iters 60 on the soft mask)", flush=True)
+    return rows
+
+
 def kernel_phase(device):
-    """Each kernel against its plain version on the card; returns rows."""
+    """K3 against its plain version on the card; returns rows."""
     import numpy as np
     import torch
     from video_unscreen_tpu_torch.ops.kernels import connected as kcc
     from video_unscreen_tpu_torch.ops.kernels.cc_masks import (HARD_MASKS,
                                                              hard_mask)
-    from video_unscreen_tpu_torch.ops.kernels import morph as km
-    from video_unscreen_tpu_torch.ops.morphology import ellipse_offsets
 
     h, w = 544, 960
-    offs = ellipse_offsets(3)
-    n_nb = len([o for o in offs if o != (0, 0)])
-    mask = torch.from_numpy(soft_mask(h, w, SEED)).to(device)
     rows = {}
 
     def held(name, got, want):
@@ -288,43 +426,6 @@ def kernel_phase(device):
                   for g, t in zip(got, want))
         check(err == 0.0, f"{name}: kernel differs from plain by {err}")
         return err
-
-    # K1: trimap, k=3, iters=5 (one per frame)
-    err = held("trimap", [km.trimap(mask, offs, 5)],
-               [km.trimap_plain(mask, offs, 5)])
-    err = max(err, held("trimap iters=20",
-                        [km.trimap(mask, offs, 20)],
-                        [km.trimap_plain(mask, offs, 20)]))
-    ms = cuda_ms(lambda: km.trimap(mask, offs, 5), 200)
-    plain = cuda_ms(lambda: km.trimap_plain(mask, offs, 5), 5)
-    b, by = bound(2 * h * w * 4, h * w * (2 * 5 * n_nb + 2))
-    rows["trimap"] = dict(
-        source="video_unscreen_tpu_torch/csrc/morph.cu",
-        replaces="video_unscreen_tpu/ops/pallas/morph.py:80",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
-    print(f"  K1 trimap 544x960 k=3 iters=5: {ms:.4f} ms (plain "
-          f"{plain:.4f} ms, bound {b:.4f} ms)", flush=True)
-
-    # K2: morph, k=3, iters=2 (color filter and seed cleanup), and the
-    # band widen's longest chain (iters=40, three launches)
-    err = 0.0
-    for iters in (2, 10, 40):
-        for dil in (True, False):
-            err = max(err, held(f"morph iters={iters} dilate={dil}",
-                                [km.morph(mask, offs, iters, dil)],
-                                [km.morph_plain(mask, offs, iters, dil)]))
-    ms = cuda_ms(lambda: km.morph(mask, offs, 2, True), 200)
-    plain = cuda_ms(lambda: km.morph_plain(mask, offs, 2, True), 5)
-    ms40 = cuda_ms(lambda: km.morph(mask, offs, 40, True), 50)
-    plain40 = cuda_ms(lambda: km.morph_plain(mask, offs, 40, True), 2)
-    b, by = bound(2 * h * w * 4, h * w * 2 * n_nb)
-    rows["morph"] = dict(
-        source="video_unscreen_tpu_torch/csrc/morph.cu",
-        replaces="video_unscreen_tpu/ops/pallas/morph.py:89",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
-    print(f"  K2 morph 544x960 k=3 iters=2: {ms:.4f} ms (plain "
-          f"{plain:.4f} ms, bound {b:.4f} ms); iters=40: {ms40:.4f} ms "
-          f"(plain {plain40:.4f} ms)", flush=True)
 
     # K3: flood at 272x480 (object removal labels at work/2)
     hh, ww = h // 2, w // 2
@@ -357,35 +458,16 @@ def kernel_phase(device):
 
 
 def bg_kernel_phase(device, rows):
-    """K2 and K3 at bg mode's full-resolution shapes, and K4, against their
-    plain versions; adds to `rows`."""
+    """K3 at bg mode's full-resolution shape, and K4, against their plain
+    versions; adds to `rows`."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from video_unscreen_tpu_torch.ops.kernels import attention as ka
     from video_unscreen_tpu_torch.ops.kernels import connected as kcc
     from video_unscreen_tpu_torch.ops.kernels.cc_masks import (HARD_MASKS,
                                                              hard_mask)
-    from video_unscreen_tpu_torch.ops.kernels import morph as km
-    from video_unscreen_tpu_torch.ops.morphology import ellipse_offsets
 
     h, w = FRAME_HW
-    # K2: bg's dilate(., 4, 2) at 1080x1920 (the even 4x4 ellipse)
-    offs = ellipse_offsets(4)
-    mask = torch.from_numpy(soft_mask(h, w, SEED + 2)).to(device)
-    for dil in (True, False):
-        got = km.morph(mask, offs, 2, dil)
-        err = float((got - km.morph_plain(mask, offs, 2, dil)).abs().max())
-        check(err == 0.0, f"morph k=4 1080p dilate={dil}: differs by {err}")
-    ms = cuda_ms(lambda: km.morph(mask, offs, 2, True), 100)
-    plain = cuda_ms(lambda: km.morph_plain(mask, offs, 2, True), 3)
-    n_nb = len([o for o in offs if o != (0, 0)])
-    b, by = bound(2 * h * w * 4, h * w * 2 * n_nb)
-    rows["morph"]["bg_1080x1920_k4_iters2"] = dict(
-        ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
-    print(f"  K2 morph 1080x1920 k=4 iters=2: {ms:.4f} ms (plain "
-          f"{plain:.4f} ms, bound {b:.4f} ms)", flush=True)
-
     # K3: object removal's labels at 1080x1920
     rng = np.random.RandomState(SEED + 3)
     cases = [(soft_mask(h, w, SEED + 4) > 120).astype(np.float32) * 255,
@@ -958,7 +1040,8 @@ def main():
     phase(f"weights ({weights.relative_to(ROOT)})", t0)
 
     t0 = time.perf_counter()
-    rows = kernel_phase(device)
+    rows = morph_phase(device)
+    rows.update(kernel_phase(device))
     bg_kernel_phase(device, rows)
     attention_bwd_phase(device, rows)
     train_read_phase(device, rows)
@@ -1013,6 +1096,14 @@ def main():
 
     counts["bg"] = bg_phases(frames, gts, stm_weights, weights)
     counts["train"] = train_phases(stm_weights)
+
+    for path, c in counts.items():
+        for k in ("trimap", "morph"):
+            check(c[k][0] == c[k][1], f"{path} path: {k} (calls, launches) "
+                  f"{c[k]}, want one launch a call")
+    print("  K1, K2 (calls, launches) per path: " + "; ".join(
+        f"{path} trimap {c['trimap']}, morph {c['morph']}"
+        for path, c in counts.items()), flush=True)
 
     out = []
     for k in counts["green"]:

@@ -19,6 +19,8 @@ from video_unscreen_tpu_torch.ops.kernels import attention as ka
 from video_unscreen_tpu_torch.ops.kernels import connected as kcc
 from video_unscreen_tpu_torch.ops.kernels.cc_masks import HARD_MASKS, hard_mask
 from video_unscreen_tpu_torch.ops.kernels import morph as km
+from video_unscreen_tpu_torch.ops.kernels.morph_cases import (
+    MORPH_CALLS, MORPH_HARD_MASKS, morph_hard_mask, se_offsets)
 from video_unscreen_tpu_torch.ops.morphology import ellipse_offsets
 
 
@@ -30,16 +32,33 @@ def _dev(a):
 FLOOD_LAUNCHES = 4
 
 
+# The most iterations one launch carries, by ellipse size, for K2 and K1:
+# the halos must leave an output tile of 32 of the window's 128 columns
+# and 16 of its rows (K2 blocks up to 32 warps, K1 blocks up to 16, 6 rows
+# a thread past 20 rows of halo). k = 1 has no neighbours: no limit.
+K2_PER_LAUNCH = {3: 48, 4: 48, 5: 24, 7: 16}
+K1_PER_LAUNCH = {3: 40, 4: 40, 5: 17, 7: 11}
+
+
 def _chain_launches(k, iters):
-    """Launches of a K2 chain: csrc/morph.cu carries at most 16 halo cells,
-    so 16 // r iterations, per launch."""
-    r = max(max(abs(dy), abs(dx)) for dy, dx in ellipse_offsets(k))
-    return 1 if r == 0 else max(1, -(-iters // (16 // r)))
+    """Launches of a K2 chain: one while it fits a launch, else
+    near-equal launches."""
+    if k not in K2_PER_LAUNCH:
+        return 1
+    return -(-max(iters, 1) // K2_PER_LAUNCH[k])
+
+
+def _trimap_launches(k, iters):
+    """Launches of a K1 call: one fused launch, after a chain too long for
+    it has run its head as two K2 chains (dilate, erode)."""
+    head = max(0, iters - K1_PER_LAUNCH.get(k, iters))
+    return 1 + (2 * _chain_launches(k, head) if head else 0)
 
 
 @cuda
 @pytest.mark.parametrize("k,iters", [(3, 2), (3, 5), (3, 40), (4, 2),
-                                     (5, 3), (7, 10), (1, 3)])
+                                     (5, 3), (7, 10), (1, 3), (3, 60),
+                                     (7, 20)])
 @pytest.mark.parametrize("shape", [(544, 960), (37, 150)])
 def test_morph_kernel(k, iters, shape):
     require_cuda()
@@ -53,7 +72,8 @@ def test_morph_kernel(k, iters, shape):
 
 
 @cuda
-@pytest.mark.parametrize("k,iters", [(3, 5), (3, 3), (3, 20), (5, 4)])
+@pytest.mark.parametrize("k,iters", [(3, 5), (3, 3), (3, 20), (5, 4),
+                                     (3, 60)])
 @pytest.mark.parametrize("shape", [(544, 960), (40, 130), (16, 140)])
 def test_trimap_kernel(k, iters, shape):
     require_cuda()
@@ -61,14 +81,82 @@ def test_trimap_kernel(k, iters, shape):
     before = km.TRIMAP.launches
     assert_equal(km.trimap(x, ellipse_offsets(k), iters),
                  km.trimap_plain(x, ellipse_offsets(k), iters))
-    # one fused launch, after the chains' first iterations as K2 launches
-    r = max(max(abs(dy), abs(dx)) for dy, dx in ellipse_offsets(k))
-    head = max(0, iters - 16 // r)
-    assert km.TRIMAP.launches == before + 1 + 2 * (
-        _chain_launches(k, head) if head else 0)
+    assert km.TRIMAP.launches == before + _trimap_launches(k, iters)
     full = _dev(np.full(shape, 255.0))  # touches every border
     assert_equal(km.trimap(full, ellipse_offsets(k), iters),
                  km.trimap_plain(full, ellipse_offsets(k), iters))
+
+
+def _hold_call(kernel, x, offs, iters):
+    """K1 or K2 on x against its plain version (K2 in both directions),
+    one launch a call."""
+    counter = km.TRIMAP if kernel == "trimap" else km.MORPH
+    for dil in ((None,) if kernel == "trimap" else (True, False)):
+        before = (counter.calls, counter.launches)
+        if kernel == "trimap":
+            got, want = (km.trimap(x, offs, iters),
+                         km.trimap_plain(x, offs, iters))
+        else:
+            got, want = (km.morph(x, offs, iters, dil),
+                         km.morph_plain(x, offs, iters, dil))
+        assert (counter.calls, counter.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+        assert_equal(got, want)
+
+
+@cuda
+@pytest.mark.parametrize("kernel,caller,shape,se,iters", MORPH_CALLS)
+def test_morph_kernels_on_paths(kernel, caller, shape, se, iters):
+    """Every K1 and K2 call the green, bg and training paths make
+    (`morph_cases.MORPH_CALLS`), bit-exact and one launch."""
+    require_cuda()
+    _hold_call(kernel, _dev(soft_mask(*shape, seed=iters)), se_offsets(se),
+               iters)
+
+
+@cuda
+@pytest.mark.parametrize("case", MORPH_HARD_MASKS)
+@pytest.mark.parametrize("shape", [(544, 960), (37, 150), (40, 130),
+                                   (16, 140)])
+def test_morph_kernels_hard_masks(case, shape):
+    """All 255, all 0, a hot pixel at each corner, a line along each edge
+    and a checkerboard, at the green work size and at widths that are not
+    multiples of 4 or of a tile: the cross (k3 it2, it40), the 4x4
+    ellipse and K1."""
+    require_cuda()
+    x = _dev(morph_hard_mask(case, *shape))
+    for kernel, se, iters in (("morph", "ellipse3", 2),
+                              ("morph", "ellipse3", 40),
+                              ("morph", "ellipse4", 2),
+                              ("trimap", "ellipse3", 5)):
+        _hold_call(kernel, x, se_offsets(se), iters)
+
+
+@cuda
+@pytest.mark.parametrize("k,iters", [(3, 2), (4, 2), (3, 40), (7, 3)])
+@pytest.mark.parametrize("shape", [(544, 960), (37, 150)])
+def test_morph_kernels_batched(k, iters, shape):
+    """A batch of 3 different masks in one launch of K2 (each direction)
+    and of K1: each item as the plain version of that item alone."""
+    require_cuda()
+    x = _dev(np.stack([soft_mask(*shape, seed=iters),
+                       morph_hard_mask("edges", *shape),
+                       morph_hard_mask("checkerboard", *shape)]))
+    offs = ellipse_offsets(k)
+    want_launches = (_chain_launches(k, iters), _trimap_launches(k, iters))
+    for kernel, counter, n in (("morph", km.MORPH, want_launches[0]),
+                               ("trimap", km.TRIMAP, want_launches[1])):
+        for dil in ((True, False) if kernel == "morph" else (None,)):
+            before = counter.launches
+            got = (km.morph(x, offs, iters, dil) if kernel == "morph"
+                   else km.trimap(x, offs, iters))
+            assert counter.launches == before + n
+            assert got.shape == x.shape
+            for i in range(3):
+                want = (km.morph_plain(x[i], offs, iters, dil)
+                        if kernel == "morph"
+                        else km.trimap_plain(x[i], offs, iters))
+                assert_equal(got[i], want)
 
 
 @cuda
@@ -432,6 +520,10 @@ def test_wrappers_reject_bad_input():
         km.morph(x.t(), ellipse_offsets(3), 2, True)       # not contiguous
     with pytest.raises(ValueError):
         km.trimap(x.double(), ellipse_offsets(3), 2)        # not float32
+    with pytest.raises(ValueError):
+        km.morph(x[None, None], ellipse_offsets(3), 2, True)  # 4-D
+    with pytest.raises(ValueError):
+        km.trimap(x, ellipse_offsets(11), 2)        # SE reaches 5 cells
     with pytest.raises(ValueError):
         kcc.connected_components_compact(x[None])           # not 2-D
     q, k, v, mask = _attention_case(64, 128, 128, 512, "all")

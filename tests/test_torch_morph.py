@@ -58,6 +58,32 @@ def test_trimap_matches_pallas_kernel(shape, seed):
     assert_equal(ttrimap(tt(a), 3, 5), want)
 
 
+@pytest.mark.parametrize("k,iters", [(3, 5), (4, 2)])
+def test_batched_plain_versions_match_jax(k, iters):
+    """morph_plain and trimap_plain on a (3, H, W) batch of different masks
+    (soft, the 1-pixel edge lines, a checkerboard): each item as the JAX
+    `_morph` (both directions) and the Pallas trimap (interpreted) give
+    it alone."""
+    from video_unscreen_tpu_torch.ops.kernels.morph_cases import \
+        morph_hard_mask
+    h, w = 19, 45
+    items = [soft_mask(h, w, seed=k), morph_hard_mask("edges", h, w),
+             morph_hard_mask("checkerboard", h, w)]
+    x = tt(np.stack(items))
+    offs = tmorph.ellipse_offsets(k)
+    jax_offs = jmorph._se_offsets(jmorph.ellipse_kernel(k))
+    for dil in (True, False):
+        got = kmorph.morph_plain(x, offs, iters, dil)
+        assert got.shape == x.shape
+        for i, a in enumerate(items):
+            assert_equal(got[i], jmorph._morph(jnp.asarray(a), jax_offs,
+                                               iters, dil), f"item {i}")
+    got = kmorph.trimap_plain(x, offs, iters)
+    for i, a in enumerate(items):
+        assert_equal(got[i], pallas_trimap(jnp.asarray(a), k, iters),
+                     f"trimap item {i}")
+
+
 def test_trimap_border_semantics():
     """A mask touching every border: the erosion sees +inf outside the
     image, so the border does not erode."""

@@ -32,8 +32,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: (argtypes); every entry returns a cudaError_t as int and
 # writes the number of kernels it launched through its last argument
 _SIGNATURES = {
-    "vut_morph": (_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P),
-    "vut_trimap": (_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P),
+    "vut_morph": (_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P),
+    "vut_trimap": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P),
     "vut_flood": (_P, _P, _P, _P, _I, _I, _P, _P),
     "vut_flood_phases": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "vut_attention_tiles": (_P, _P, _P, _I, _I, _P, _P),

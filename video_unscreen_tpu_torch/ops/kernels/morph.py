@@ -47,19 +47,21 @@ MORPH = LaunchCount("morph")
 # -- plain versions ------------------------------------------------------------
 def _shift2d(img: torch.Tensor, dy: int, dx: int,
              fill: float) -> torch.Tensor:
-    """out[y, x] = img[y + dy, x + dx] inside the image, else `fill`."""
-    h, w = img.shape
+    """out[..., y, x] = img[..., y + dy, x + dx] inside the image, else
+    `fill`."""
+    h, w = img.shape[-2:]
     out = torch.full_like(img, fill)
     y0, y1 = max(-dy, 0), min(h, h - dy)
     x0, x1 = max(-dx, 0), min(w, w - dx)
     if y1 > y0 and x1 > x0:
-        out[y0:y1, x0:x1] = img[y0 + dy:y1 + dy, x0 + dx:x1 + dx]
+        out[..., y0:y1, x0:x1] = img[..., y0 + dy:y1 + dy, x0 + dx:x1 + dx]
     return out
 
 
 def morph_plain(x: torch.Tensor, offsets: Offsets, iters: int,
                 is_dilate: bool) -> torch.Tensor:
-    """Iterated dilate/erode as a chain of shifted max/min."""
+    """Iterated dilate/erode of an (H, W) or (B, H, W) mask as a chain of
+    shifted max/min."""
     fill = float("-inf") if is_dilate else float("inf")
     combine = torch.maximum if is_dilate else torch.minimum
     out = x
@@ -74,7 +76,8 @@ def morph_plain(x: torch.Tensor, offsets: Offsets, iters: int,
 
 def trimap_plain(x: torch.Tensor, offsets: Offsets,
                  iters: int) -> torch.Tensor:
-    """{0, 128, 255}: 255 where the erode > 127, 0 where the dilate < 128."""
+    """{0, 128, 255} of an (H, W) or (B, H, W) mask: 255 where the erode >
+    127, 0 where the dilate < 128."""
     tri = torch.full_like(x, 128.0)
     tri = torch.where(morph_plain(x, offsets, iters, False) > 127.0, 255.0,
                       tri)
@@ -83,14 +86,22 @@ def trimap_plain(x: torch.Tensor, offsets: Offsets,
 
 
 # -- kernels -----------------------------------------------------------------
-def _check_input(x: torch.Tensor, what: str) -> None:
+# the kernels take SE cells up to this far from the anchor (k <= 9)
+REACH = 4
+
+
+def _check_input(x: torch.Tensor, offsets: Offsets, what: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: needs a CPU or CUDA tensor, got "
                          f"{x.device}")
-    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"{what}: needs a contiguous 2-D float32 tensor, "
-                         f"got {x.dtype} {tuple(x.shape)} "
-                         f"contiguous={x.is_contiguous()}")
+    if (x.dtype != torch.float32 or x.dim() not in (2, 3)
+            or not x.is_contiguous() or x.numel() == 0):
+        raise ValueError(f"{what}: needs a contiguous non-empty (H, W) or "
+                         f"(B, H, W) float32 tensor, got {x.dtype} "
+                         f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
+    if any(abs(v) > REACH for off in offsets for v in off):
+        raise ValueError(f"{what}: the kernel takes SE cells within {REACH} "
+                         f"of the anchor, got {list(offsets)}")
 
 
 def _c_offsets(offsets: Offsets):
@@ -98,12 +109,17 @@ def _c_offsets(offsets: Offsets):
     return (ctypes.c_int * max(len(flat), 1))(*flat), len(flat) // 2
 
 
+def _bhw(x: torch.Tensor) -> Tuple[int, int, int]:
+    return (1, *x.shape) if x.dim() == 2 else tuple(x.shape)
+
+
 def morph(x: torch.Tensor, offsets: Offsets, iters: int,
           is_dilate: bool) -> torch.Tensor:
-    """K2: `iters` dilations (or erosions) of the (H, W) mask `x`."""
+    """K2: `iters` dilations (or erosions) of the (H, W) or (B, H, W) mask
+    `x`, the batch in one launch."""
     if x.device.type == "cpu":
         return morph_plain(x, offsets, iters, is_dilate)
-    _check_input(x, "morph")
+    _check_input(x, offsets, "morph")
     lib = build.library()
     out = torch.empty_like(x)
     # the scratch a chain longer than one launch ping-pongs through; the C
@@ -111,11 +127,11 @@ def morph(x: torch.Tensor, offsets: Offsets, iters: int,
     tmp = torch.empty_like(x)
     offs, n = _c_offsets(offsets)
     launches = ctypes.c_int(0)
-    h, w = x.shape
+    b, h, w = _bhw(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vut_morph(x.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                            h, w, ctypes.addressof(offs), n, int(iters),
+                            h, w, b, ctypes.addressof(offs), n, int(iters),
                             int(is_dilate), stream,
                             ctypes.addressof(launches))
     build.check(err, "morph kernel")
@@ -124,10 +140,11 @@ def morph(x: torch.Tensor, offsets: Offsets, iters: int,
 
 
 def trimap(x: torch.Tensor, offsets: Offsets, iters: int) -> torch.Tensor:
-    """K1: the fused dilate/erode/select trimap of the (H, W) mask `x`."""
+    """K1: the fused dilate/erode/select trimap of the (H, W) or (B, H, W)
+    mask `x`, the batch in one launch."""
     if x.device.type == "cpu":
         return trimap_plain(x, offsets, iters)
-    _check_input(x, "trimap")
+    _check_input(x, offsets, "trimap")
     lib = build.library()
     out = torch.empty_like(x)
     # scratch for the dilate and erode chains, used when they are too long
@@ -135,12 +152,12 @@ def trimap(x: torch.Tensor, offsets: Offsets, iters: int) -> torch.Tensor:
     tmp_d, tmp_e = torch.empty_like(x), torch.empty_like(x)
     offs, n = _c_offsets(offsets)
     launches = ctypes.c_int(0)
-    h, w = x.shape
+    b, h, w = _bhw(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vut_trimap(x.data_ptr(), out.data_ptr(), tmp_d.data_ptr(),
-                             tmp_e.data_ptr(), h, w, ctypes.addressof(offs),
-                             n, int(iters), stream,
+                             tmp_e.data_ptr(), h, w, b,
+                             ctypes.addressof(offs), n, int(iters), stream,
                              ctypes.addressof(launches))
     build.check(err, "trimap kernel")
     TRIMAP.add(launches)

@@ -1,0 +1,57 @@
+"""The cases K1 and K2 are held and timed on, shared by the port's tests
+and `chip_smoke.py`.
+
+`MORPH_CALLS` lists every K1 and K2 call the green, bg and training paths
+make. The hard masks break iterated morphology at the image's border: all
+255 and all 0 (the fill must neither grow nor erode the border), one hot
+pixel at each corner, a 1-pixel line along each edge, and a checkerboard
+(every cell differs from its four neighbours)."""
+
+# (kernel, caller, (h, w), SE, iters). The trimap is the k3 ellipse (the
+# 5-point cross); "cross3" is regionfill's cross_offsets(3), the same five
+# cells; "ellipse4" the 4x4 ellipse, anchored at (2, 2).
+MORPH_CALLS = (
+    ("trimap", "green trimap (ops/trimap.py:22)", (544, 960), "ellipse3", 5),
+    ("trimap", "bg trimap (agents/trimap.py:38)", (540, 960), "ellipse3", 5),
+    ("morph", "colour filter / seed close and open", (544, 960), "ellipse3",
+     2),
+    ("morph", "green band tier 1", (544, 960), "ellipse3", 10),
+    ("morph", "green band tier 2", (544, 960), "ellipse3", 20),
+    ("morph", "green band tier 3", (544, 960), "ellipse3", 40),
+    ("morph", "bg background mask (pipeline/bg.py:63)", (1080, 1920),
+     "ellipse3", 2),
+    ("morph", "regionfill perimeter (ops/regionfill.py:62)", (1080, 1920),
+     "cross3", 1),
+    ("morph", "bg alpha dilate (pipeline/bg.py:111)", (1080, 1920),
+     "ellipse4", 2),
+)
+
+MORPH_HARD_MASKS = ("full", "empty", "corners", "edges", "checkerboard")
+
+
+def se_offsets(se):
+    """The (dy, dx) cells of a MORPH_CALLS SE name ("ellipse<k>",
+    "cross3")."""
+    from ..morphology import cross_offsets, ellipse_offsets
+    if se == "cross3":
+        return cross_offsets(3)
+    assert se.startswith("ellipse"), se
+    return ellipse_offsets(int(se[len("ellipse"):]))
+
+
+def morph_hard_mask(name, h, w):
+    """One of MORPH_HARD_MASKS as an (h, w) 0/255 f32 array."""
+    import numpy as np
+    m = np.zeros((h, w), np.float32)
+    if name == "full":
+        m[:] = 255.0
+    elif name == "corners":
+        m[0, 0] = m[0, -1] = m[-1, 0] = m[-1, -1] = 255.0
+    elif name == "edges":
+        m[0, :] = m[-1, :] = m[:, 0] = m[:, -1] = 255.0
+    elif name == "checkerboard":
+        yy, xx = np.mgrid[0:h, 0:w]
+        m = ((yy + xx) % 2 == 0).astype(np.float32) * 255.0
+    else:
+        assert name == "empty", name
+    return m
