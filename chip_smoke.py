@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--paths default|green_deeplab]
 
-Phases, each printed with its wall seconds:
+The default run reads weights/matting_unet.msgpack and weights/stm.msgpack
+only, so that one copy of the repo holds it. Phases, each printed with its
+wall seconds:
   1. build the CUDA kernels of video_unscreen_tpu_torch/csrc (one nvcc call);
   2. build the green pipeline (configs/green.json with the chroma seed) at
      1080p -> 544x960 and load the MattingUNet weights
@@ -15,9 +17,10 @@ Phases, each printed with its wall seconds:
      `ops/kernels/morph_cases.py`: 544x960,
      540x960 and 1080x1920; the cross, the 4x4 ellipse; 1 to 40
      iterations), K2 in both directions, on a soft mask, all 255, all 0,
-     hot corners, edge lines, a checkerboard and a batch of 3, one launch
-     a call, timed beside the same chain as F.max_pool2d calls (held
-     bit-exact first); K3 flood bit-exact (green's 272x480, bg's
+     hot corners, edge lines, a checkerboard and a batch of 8 (S of
+     run_segmented), one launch a call, timed beside the same chain as
+     F.max_pool2d calls (held bit-exact first), the green trimap and band
+     also at the batch of 8; K3 flood bit-exact (green's 272x480, bg's
      1080x1920; also on a checkerboard, a snake across every tile edge,
      the full and the empty mask, with its launches a call), K4 attention (the STM memory read, Lq 2040 x Lk
      22440, dk 128, dv 512, and one training read, Lq 64 x Lk 128) to
@@ -35,7 +38,25 @@ Phases, each printed with its wall seconds:
      kernel launched, the outputs (IoU with the synthetic ground truth
      > 0.75), and the frames per second;
   5. run the first 2 frames again on the host (device="cpu", the plain
-     versions) and hold the card's alphas to the JAX suite's bound;
+     versions) and hold the card's alphas to the JAX suite's bound (this
+     pipeline and phase 4's are float32: matting_dtype and seg_dtype set);
+  5a. the DeepLab seed (DeepLabV3+ ResNet-50, grid and flip TTA: 12 crops
+     of 513x513 at 544x960) at full width with seeded weights: its time in
+     float32 and in bfloat16 beside its operation count (counted on the
+     meta device) and bound, and the MattingUNet's at 544x960 likewise;
+     card against host in float32 on a 320x480 frame at crop 257 (2x3
+     overlapping locations and their flips, 12 crops, as 513 gives at
+     544x960): scores to 1e-4, masks equal wherever |p_fg - p_bg| > 1e-3;
+     bfloat16 scores finite;
+  5b. the green path in bfloat16 (the pipeline's default) with the chroma
+     seed on the same 8 frames, counts reset just before: IoU > 0.75 on
+     every frame, alpha >= 128 masks agree with phase 4's on >= 99.99% of
+     the pixels of every frame, frames/s;
+  5c. `run_segmented` with S = 8 segments of 4 frames (32 frames), bfloat16
+     and float32, counts reset just before the bfloat16 run: IoU > 0.75 on
+     every frame, K1 one launch a step for the batch of 8, host syncs per
+     frame against phase 5b's, frames/s; float32 segment 0 held to the
+     sequential run of its frames within the JAX bound;
   6. run bg mode (`pipeline/bg.py:run`, configs/bg.json with the chroma
      seed at 960) on the same 8 frames, counts reset just before: each of
      K1-K4 must launch, IoU with the ground truth > 0.8 on frame 0 and
@@ -59,8 +80,22 @@ JSON line of per-kernel numbers, the card's name and
 power limit, and as the last line {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero; without CUDA, or without the package
 beside this file, it exits non-zero before printing any result.
+
+`--paths green_deeplab` runs configs/green.json as shipped (the DeepLab
+seed from weights/deeplab_binseg.msgpack, bfloat16) with the MattingUNet
+weights, and needs no STM weights: the build, K1-K3 against their plain
+versions, then 8 frames in bfloat16 and in float32 and `run_segmented`
+with S = 8 (32 frames) in both: IoU > 0.75 on every frame, the seed run
+exactly on the frames whose segment was not tracking (its forward and
+frame counts against the tracking flags), bfloat16 against float32 on the
+card (seed masks on >= 99.95% of the pixels, alpha >= 128 masks on
+>= 99.99% of every frame),
+float32 card against host on 2 frames of 270x480 (work 288x480) within the
+JAX bound, frames/s and the seed's time with the shipped weights. It ends
+with the same JSON lines (the kernels row for K1-K3).
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -85,6 +120,15 @@ TRAIN_HOST = dict(batch=2, hw=64)  # the card-vs-host step
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TF32X3_OPS_PER_S = 495e12 / 3  # H100 SXM TF32 tensor cores, 3 passes
+BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
+N_SEGMENTS, SEG_FRAMES = 8, 4   # run_segmented: bench.py's S, 4 frames each
+DEEPLAB_HOST_HW, DEEPLAB_HOST_LONG = (270, 480), 480  # host DeepLab stays short
+# the seed's card-vs-host frame and crop: 2x3 overlapping locations, each
+# with its flip (12 crops), as the 513 crop gives at 544x960
+SEED_GRID_HW, SEED_GRID_CROP = (320, 480), 257
+# bfloat16 against float32 on the card: the least share of pixels on which
+# the alpha >= 128 masks (and the seed masks) agree, on every frame
+BF16_ALPHA_AGREE, BF16_SEED_AGREE = 0.9999, 0.9995
 
 
 def check(cond, msg):
@@ -312,9 +356,10 @@ def pool_trimap(x, se, iters):
 def morph_phase(device):
     """K1 and K2 at every call the paths make: bit-exact against the plain
     versions (K2 in both directions) on a soft mask, the hard masks and a
-    batch of 3, one launch a call; then timed beside the plain version and
-    the max_pool2d chain (itself held bit-exact first). Returns the rows
-    of K1 and K2."""
+    batch of N_SEGMENTS (run_segmented's (S, H, W) calls), one launch a
+    call; then timed beside the plain version and the max_pool2d chain
+    (itself held bit-exact first), and the green path's calls (the trimap
+    and the band) also at the batch. Returns the rows of K1 and K2."""
     import torch
     from video_unscreen_tpu_torch.ops.kernels import morph as km
     from video_unscreen_tpu_torch.ops.kernels.morph_cases import (
@@ -337,7 +382,10 @@ def morph_phase(device):
         soft = torch.from_numpy(soft_mask(h, w, SEED + 10 + i)).to(device)
         hard = [torch.from_numpy(morph_hard_mask(n, h, w)).to(device)
                 for n in MORPH_HARD_MASKS]
-        batch = torch.stack([soft, hard[3], hard[4]])  # edges, checkerboard
+        # S frames: the soft mask, the hard masks and more soft masks
+        batch = torch.stack([soft, *hard] + [
+            torch.from_numpy(soft_mask(h, w, SEED + 100 * j + i)).to(device)
+            for j in range(N_SEGMENTS - 1 - len(hard))])
         before = (counter.calls, counter.launches)
         for x in [soft, *hard, batch]:
             for dil in ((True,) if kernel == "trimap" else (True, False)):
@@ -384,6 +432,20 @@ def morph_phase(device):
               f"iters={iters} ({caller}): {ms:.4f} ms, {launches:g} launch a "
               f"call (plain {plain:.4f} ms, max_pool2d chain of {n_lib} "
               f"calls {lib:.4f} ms, bound {b:.5f} ms by {by})", flush=True)
+        if caller.startswith("green"):  # batched in run_segmented
+            if kernel == "trimap":
+                fn = lambda: km.trimap(batch, offs, iters)
+                plain_fn = lambda: km.trimap_plain(batch, offs, iters)
+            else:
+                fn = lambda: km.morph(batch, offs, iters, True)
+                plain_fn = lambda: km.morph_plain(batch, offs, iters, True)
+            n_b = batch.shape[0]
+            entry.update(batch=n_b, batch_ms=cuda_ms(fn, 50),
+                         batch_plain_ms=cuda_ms(plain_fn, 1, rounds=3),
+                         batch_bound_ms=n_b * b)
+            print(f"    at batch {n_b}: {entry['batch_ms']:.4f} ms, 1 "
+                  f"launch (plain {entry['batch_plain_ms']:.4f} ms, bound "
+                  f"{entry['batch_bound_ms']:.5f} ms by {by})", flush=True)
     # chains longer than the paths run, untimed: K1 at 20 iterations (6
     # rows a thread) and 60 (a K2 head of 20, then the fused launch), K2 at
     # 60 (two launches)
@@ -403,7 +465,8 @@ def morph_phase(device):
                        pool_chain_ms=main["pool_chain_ms"],
                        pool_chain_calls=main["pool_chain_calls"])
     print(f"  K1, K2: bit-exact in {n_checked} checks (the soft mask, "
-          f"{', '.join(MORPH_HARD_MASKS)} and a batch of 3 at each call; "
+          f"{', '.join(MORPH_HARD_MASKS)} and a batch of {N_SEGMENTS} at "
+          f"each call; "
           f"K1 iters 20 and 60, K2 iters 60 on the soft mask)", flush=True)
     return rows
 
@@ -991,40 +1054,243 @@ def bg_phases(frames, gts, stm_weights, matting_weights):
     return counts
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    try:
-        import video_unscreen_tpu_torch as pkg
-    except ImportError as e:
-        print(f"chip_smoke: the port is not beside this script: {e}",
-              file=sys.stderr)
-        return 2
-    if Path(pkg.__file__).resolve().parent.parent != ROOT:
-        print(f"chip_smoke: imported {pkg.__file__}, not the package "
-              f"beside this script", file=sys.stderr)
-        return 2
-
+def gt_ious(alphas, gts, hw):
+    """IoU of each alpha >= 128 with its ground truth resized (nearest) to
+    the work resolution `hw`."""
     import numpy as np
-    from video_unscreen_tpu_torch.config import load_config
-    from video_unscreen_tpu_torch.ops import kernels
+    import torch
     from video_unscreen_tpu_torch.ops.geometry import resize
-    from video_unscreen_tpu_torch.ops.kernels import build
+    out = []
+    for a, gt in zip(alphas, gts):
+        g = resize(torch.from_numpy(gt.astype(np.float32)), hw,
+                   "nearest").numpy() > 0
+        p = a >= 128
+        out.append(float((g & p).sum() / max((g | p).sum(), 1)))
+    return out
+
+
+def agreement(a, b):
+    """Per frame, the share of pixels on which a >= 128 and b >= 128
+    agree."""
+    return [float(((x >= 128) == (y >= 128)).mean()) for x, y in zip(a, b)]
+
+
+def net_flops(build, *shapes):
+    """Operations of one forward of `build()` on zero inputs of `shapes`,
+    counted by `torch.utils.flop_counter` on the meta device."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    with torch.device("meta"):
+        net = build().eval()
+        with FlopCounterMode(display=False) as counter:
+            net(*[torch.zeros(*s) for s in shapes])
+    return counter.get_total_flops()
+
+
+def seed_rows(segs, frame):
+    """The seed's device ms a call on the (H, W, 3) work frame in float32
+    and bfloat16 (`segs`: {"f32": agent, "bf16": agent}), beside its
+    operations and their bound at each type's rate."""
+    import torch
+    from video_unscreen_tpu_torch.agents.binseg import _crop_grid
+    from video_unscreen_tpu_torch.models.deeplab import build_deeplab
+    h, w = frame.shape[:2]
+    ch, cw = min(513, h), min(513, w)
+    n_crops = len(_crop_grid(h, w, ch, cw, 0.5, True))
+    flops = net_flops(build_deeplab, (n_crops, 3, ch, cw))
+    out = {}
+    for name, rate, reps in (("f32", F32_OPS_PER_S, 2),
+                             ("bf16", BF16_OPS_PER_S, 10)):
+        seg = segs[name]
+        ms = cuda_ms(lambda: seg.predict_mask_impl(frame), reps, rounds=5)
+        out[name] = dict(ms=ms, bound_ms=flops / rate * 1e3)
+    print(f"  DeepLab seed at {h}x{w} ({n_crops} crops of {ch}x{cw}, "
+          f"{flops / 1e12:.4f} TFLOP a call): float32 {out['f32']['ms']:.3f} "
+          f"ms (bound {out['f32']['bound_ms']:.3f} ms at 67 TFLOP/s), "
+          f"bfloat16 {out['bf16']['ms']:.3f} ms (bound "
+          f"{out['bf16']['bound_ms']:.3f} ms at 989 TFLOP/s)", flush=True)
+    return dict(flops=flops, crops=n_crops, **out)
+
+
+def seed_phase(frame, matting_weights):
+    """5a: the DeepLab seed at full width with seeded weights (no weights
+    file: the default run's copy holds none), timed in float32 and
+    bfloat16; card against host in float32 on a SEED_GRID_HW frame at crop
+    SEED_GRID_CROP (2x3 overlapping locations and their flips); the
+    MattingUNet's time at the work resolution in both types."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.agents.binseg import SegAgent, _crop_grid
+    from video_unscreen_tpu_torch.agents.vmatting import VMattingAgent
+    from video_unscreen_tpu_torch.models.matting_unet import MattingUNet
+
+    t0 = time.perf_counter()
+    segs = {"f32": SegAgent(device="cuda", seed=SEED),
+            "bf16": SegAgent(device="cuda", seed=SEED, dtype=torch.bfloat16)}
+    rows = seed_rows(segs, frame)
+    s16 = segs["bf16"].predict_scores(frame)
+    check(s16.dtype == torch.float32 and bool(torch.isfinite(s16).all()),
+          "bfloat16 seed scores not finite float32")
+    (gh, gw), gc = SEED_GRID_HW, SEED_GRID_CROP
+    locs = _crop_grid(gh, gw, gc, gc, 0.5, True)
+    check(len(locs) == 12 and len({l[:2] for l in locs}) == 6,
+          f"seed card vs host: {len(locs)} crops, want 2x3 locations with "
+          f"their flips")
+    sub = frame[:gh, :gw]
+    card = SegAgent(device="cuda", seed=SEED, crop_h=gc,
+                    crop_w=gc).predict_scores(sub).cpu()
+    host = SegAgent(device="cpu", seed=SEED, crop_h=gc,
+                    crop_w=gc).predict_scores(sub.cpu())
+    err = float((card - host).abs().max())
+    check(err <= 1e-4, f"seed card vs host scores: max |diff| {err}")
+    sure = (host[..., 1] - host[..., 0]).abs() > 1e-3
+    same = card.argmax(-1) == host.argmax(-1)
+    check(bool(same[sure].all()), "seed card vs host masks differ where "
+          "|p_fg - p_bg| > 1e-3")
+    print(f"  seed card vs host ({gh}x{gw}, {len(locs)} crops of {gc}x{gc}, "
+          f"float32): scores max "
+          f"|diff| {err:.3g}, masks equal on all {int(sure.sum())} decided "
+          f"pixels ({int((~sure).sum())} within 1e-3)", flush=True)
+
+    h, w = frame.shape[:2]
+    rng = np.random.RandomState(SEED + 9)
+    args = [torch.from_numpy(rng.uniform(0, 1, (1, c, h, w)).astype(
+        np.float32)).cuda() for c in (3, 1, 3)]
+    flops = net_flops(MattingUNet, *[a.shape for a in args])
+    unet = {}
+    for name, dt, rate in (("f32", torch.float32, F32_OPS_PER_S),
+                           ("bf16", torch.bfloat16, BF16_OPS_PER_S)):
+        net = VMattingAgent(str(matting_weights), device="cuda",
+                            dtype=dt).model
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: net(*args), 10, rounds=5)
+        unet[name] = dict(ms=ms, bound_ms=flops / rate * 1e3)
+    rows["unet"] = dict(flops=flops, **unet)
+    phase("seed and UNet, float32 and bfloat16", t0)
+    print(f"  MattingUNet at {h}x{w} ({flops / 1e9:.2f} GFLOP): float32 "
+          f"{unet['f32']['ms']:.3f} ms (bound {unet['f32']['bound_ms']:.3f} "
+          f"ms), bfloat16 {unet['bf16']['ms']:.3f} ms (bound "
+          f"{unet['bf16']['bound_ms']:.4f} ms)", flush=True)
+    return rows
+
+
+def timed_run(fn, *args):
+    """`fn(*args)` with the kernel counts reset just before and read just
+    after; returns (result, seconds, counts)."""
+    import torch
+    from video_unscreen_tpu_torch.ops import kernels
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, kernels.counts()
+
+
+def check_launched(counts, what, names=("trimap", "morph", "flood")):
+    """Each kernel of `names` launched at least once in a path's run."""
+    for k in names:
+        check(counts[k][1] > 0, f"kernel {k} was not launched on the {what} "
+              f"path")
+
+
+def check_seed_log(pipe, before, what):
+    """The seed ran on the first frame of every segment and exactly on the
+    frames whose segment was not tracking: the agent's forward and frame
+    counts since `before` against the tracking flags of each step."""
+    steps = pipe.step_tracking
+    check(not any(steps[0]), f"{what}: the seed did not run on frame 0 of "
+          f"every segment")
+    n_fwd = sum(1 for t in steps if not all(t))
+    n_frames = sum(t.count(False) for t in steps)
+    got = (pipe.seg.forwards - before[0], pipe.seg.frames - before[1])
+    check(got == (n_fwd, n_frames), f"{what}: seed forwards and frames "
+          f"{got}, want {(n_fwd, n_frames)} from the tracking flags")
+    return n_fwd, n_frames
+
+
+def green_bf16_phase(cfg, frames, gts, alphas32):
+    """5b: the green path in bfloat16 (the pipeline's default) on the same
+    frames as phase 4; returns (its kernel counts, the pipeline)."""
+    import numpy as np
+    import torch
     from video_unscreen_tpu_torch.pipeline.fused_green import \
         FusedGreenPipeline
 
-    device = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    print(f"device: {name} x{torch.cuda.device_count()}, torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    pipe = FusedGreenPipeline(cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
+                              device="cuda")
+    check(pipe.vmat.model.enc_conv1.weight.dtype == torch.bfloat16,
+          "the pipeline's default matting dtype is not bfloat16")
+    pipe.run(frames[:2])   # warm-up: cuDNN plans for bfloat16
+    torch.cuda.synchronize()
+    (alphas, _, _), secs, counts = timed_run(pipe.run, frames)
+    ious = gt_ious(alphas, gts, pipe.work_hw)
+    agree = agreement(alphas, alphas32)
+    print(f"  green bfloat16, {N_FRAMES} frames: {N_FRAMES / secs:.2f} "
+          f"frames/s; {pipe.stats['syncs'] / N_FRAMES:.3f} host syncs a "
+          f"frame; IoU min {min(ious):.4f} mean {np.mean(ious):.4f}; alpha "
+          f">= 128 agrees with float32 on {min(agree):.6f} of pixels (worst "
+          f"frame); (calls, launches) {counts}", flush=True)
+    check(min(ious) > 0.75, f"green bfloat16 IoU {ious}")
+    check(min(agree) >= BF16_ALPHA_AGREE,
+          f"green bfloat16 vs float32 masks {agree}")
+    check_launched(counts, "green bfloat16")
+    return counts, pipe
 
+
+def segmented_phase(pipe16, pipe32):
+    """5c: `run_segmented` with S = 8 segments of 4 frames, bfloat16 then
+    float32; returns the bfloat16 run's kernel counts."""
+    import numpy as np
+    import torch
+
+    n = N_SEGMENTS * SEG_FRAMES
+    frames, gts = green_clip(n, *FRAME_HW, seed=SEED + 1)
     t0 = time.perf_counter()
-    lib_path = build.build()
-    build.library()
-    phase(f"build ({lib_path.name})", t0)
+    fps = {}
+    for label, pipe in (("bf16", pipe16), ("f32", pipe32)):
+        # warm-up: one step of the batch of 8 (cuDNN plans)
+        pipe.run_segmented(frames[:N_SEGMENTS], N_SEGMENTS, SEG_FRAMES)
+        torch.cuda.synchronize()
+        (alphas, _, _), secs, counts = timed_run(
+            pipe.run_segmented, frames, N_SEGMENTS, SEG_FRAMES)
+        fps[label] = n / secs
+        ious = gt_ious(alphas, gts, pipe.work_hw)
+        print(f"  run_segmented {label}, S {N_SEGMENTS} x {SEG_FRAMES} "
+              f"frames: {fps[label]:.2f} frames/s; "
+              f"{pipe.stats['syncs'] / n:.3f} host syncs a frame "
+              f"({pipe.stats['syncs']} for {n} frames); IoU min "
+              f"{min(ious):.4f} mean {np.mean(ious):.4f}; (calls, launches) "
+              f"{counts}", flush=True)
+        check(min(ious) > 0.75, f"run_segmented {label} IoU {ious}")
+        check_launched(counts, f"run_segmented {label}")
+        check(counts["trimap"] == (SEG_FRAMES, SEG_FRAMES),
+              f"run_segmented {label}: K1 (calls, launches) "
+              f"{counts['trimap']}, want one launch a step for the batch of "
+              f"{N_SEGMENTS}")
+        if label == "bf16":
+            seg_counts = counts
+        else:
+            seq = pipe.run(frames[:SEG_FRAMES])[0]
+            dmax, frac = within_bound(alphas[:SEG_FRAMES], seq)
+            print(f"  float32 segment 0 vs the sequential run of its "
+                  f"frames: max |diff| {dmax}, |diff| > 1 on {frac:.6f}",
+                  flush=True)
+            check(dmax <= 4 and frac < 1e-3,
+                  f"segment 0 vs sequential: max {dmax}, frac>1 {frac}")
+    phase(f"run_segmented (S {N_SEGMENTS}, {n} frames, bfloat16 and "
+          f"float32)", t0)
+    return seg_counts
+
+
+def default_paths(device):
+    """The default run: every phase but the DeepLab weights; returns
+    (kernel counts by path, kernel rows)."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.config import load_config
+    from video_unscreen_tpu_torch.ops import kernels
+    from video_unscreen_tpu_torch.pipeline.fused_green import \
+        FusedGreenPipeline
 
     t0 = time.perf_counter()
     cfg = load_config(str(ROOT / "configs" / "green.json"))
@@ -1034,8 +1300,9 @@ def main():
     stm_weights = ROOT / "weights" / "stm.msgpack"
     check(stm_weights.is_file(), f"the STM weights {stm_weights} are missing")
     cfg["vmatting"]["model_path"] = str(weights)
+    f32 = dict(matting_dtype=torch.float32, seg_dtype=torch.float32)
     pipe = FusedGreenPipeline(cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
-                              device="cuda")
+                              device="cuda", **f32)
     check(pipe.work_hw == (544, 960), f"work res {pipe.work_hw}")
     phase(f"weights ({weights.relative_to(ROOT)})", t0)
 
@@ -1065,19 +1332,13 @@ def main():
     phase("pipeline", t0)
     fps = N_FRAMES / dt
     print(f"  green 1080p -> 544x960, {N_FRAMES} frames: {fps:.2f} "
-          f"frames/s; (calls, launches) {counts['green']}", flush=True)
-    for k in ("trimap", "morph", "flood"):
-        check(counts["green"][k][1] > 0,
-              f"kernel {k} was not launched on the green path")
+          f"frames/s; {pipe.stats['syncs'] / N_FRAMES:.3f} host syncs a "
+          f"frame; (calls, launches) {counts['green']}", flush=True)
+    check_launched(counts["green"], "green")
     check(alphas.shape == (N_FRAMES, 544, 960) and alphas.dtype == np.uint8,
           f"alphas {alphas.shape} {alphas.dtype}")
     check(fgs.shape == bgs.shape == (N_FRAMES, 544, 960, 3), "fg/bg shape")
-    ious = []
-    for a, gt in zip(alphas, gts):
-        g = resize(torch.from_numpy(gt.astype(np.float32)), (544, 960),
-                   "nearest").numpy() > 0
-        p = a >= 128
-        ious.append(float((g & p).sum() / max((g | p).sum(), 1)))
+    ious = gt_ious(alphas, gts, (544, 960))
     print(f"  IoU with the synthetic ground truth: min {min(ious):.4f} "
           f"mean {np.mean(ious):.4f}", flush=True)
     check(min(ious) > 0.75, f"IoU with the ground truth {ious}")
@@ -1085,7 +1346,7 @@ def main():
     t0 = time.perf_counter()
     torch.set_num_threads(os.cpu_count() or 1)
     host = FusedGreenPipeline(cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
-                              device="cpu")
+                              device="cpu", **f32)
     h_alphas, _, _ = host.run(frames[:N_CPU_FRAMES])
     dmax, frac = within_bound(alphas[:N_CPU_FRAMES], h_alphas)
     phase(f"host run ({N_CPU_FRAMES} frames)", t0)
@@ -1094,8 +1355,168 @@ def main():
     check(dmax <= 4 and frac < 1e-3,
           f"card vs host alphas: max {dmax}, frac>1 {frac}")
 
+    work = pipe._prep_frames(torch.from_numpy(frames[0][None]).to(device))[0]
+    rows["seed"] = seed_phase(work, weights)
+    t0 = time.perf_counter()
+    counts["green_bf16"], pipe16 = green_bf16_phase(cfg, frames, gts, alphas)
+    phase("green bfloat16", t0)
+    counts["segmented"] = segmented_phase(pipe16, pipe)
+
     counts["bg"] = bg_phases(frames, gts, stm_weights, weights)
     counts["train"] = train_phases(stm_weights)
+    return counts, rows
+
+
+def green_deeplab_paths(device):
+    """`--paths green_deeplab`: configs/green.json as shipped (the DeepLab
+    seed, bfloat16) beside float32; returns (kernel counts by path, kernel
+    rows of K1-K3)."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.agents.binseg import SegAgent
+    from video_unscreen_tpu_torch.config import load_config
+    from video_unscreen_tpu_torch.pipeline.fused_green import \
+        FusedGreenPipeline
+
+    t0 = time.perf_counter()
+    cfg = load_config(str(ROOT / "configs" / "green.json"))
+    seed_weights = ROOT / "weights" / "deeplab_binseg.msgpack"
+    weights = ROOT / "weights" / "matting_unet.msgpack"
+    for p in (seed_weights, weights):
+        check(p.is_file(), f"the weights {p} are missing")
+    check("type" not in cfg["binseg"] and cfg["binseg"]["model_path"],
+          "configs/green.json no longer ships the DeepLab seed")
+    cfg["binseg"]["model_path"] = str(seed_weights)
+    cfg["vmatting"]["model_path"] = str(weights)
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    pipes = {k: FusedGreenPipeline(cfg, FRAME_HW,
+                                   work_long_side=WORK_LONG_SIDE,
+                                   matting_dtype=dt, seg_dtype=dt,
+                                   device="cuda")
+             for k, dt in types.items()}
+    for k, pipe in pipes.items():
+        check(isinstance(pipe.seg, SegAgent)
+              and pipe.seg.model.cls_out.weight.dtype == types[k],
+              f"{k}: the pipeline's seed is not the {k} DeepLab")
+    phase(f"weights ({seed_weights.relative_to(ROOT)}, "
+          f"{weights.relative_to(ROOT)})", t0)
+
+    t0 = time.perf_counter()
+    rows = morph_phase(device)
+    rows.update(kernel_phase(device))
+    phase("kernels vs plain (K1-K3)", t0)
+
+    frames, gts = green_clip(N_FRAMES, *FRAME_HW, seed=SEED)
+    counts, alphas = {}, {}
+    for k, pipe in pipes.items():
+        t0 = time.perf_counter()
+        pipe.run(frames[:2])   # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        before = (pipe.seg.forwards, pipe.seg.frames)
+        (a, _, _), secs, counts[f"deeplab_{k}"] = timed_run(pipe.run,
+                                                            frames)
+        seeded = check_seed_log(pipe, before, f"green_deeplab {k}")
+        ious = gt_ious(a, gts, pipe.work_hw)
+        alphas[k] = a
+        phase(f"green DeepLab {k} ({N_FRAMES} frames)", t0)
+        print(f"  green DeepLab {k}, {N_FRAMES} frames: "
+              f"{N_FRAMES / secs:.2f} frames/s; seed forwards, frames "
+              f"{seeded}; tracking by step {pipe.step_tracking}; IoU min "
+              f"{min(ious):.4f} mean {np.mean(ious):.4f}; (calls, "
+              f"launches) {counts[f'deeplab_{k}']}", flush=True)
+        check(min(ious) > 0.75, f"green DeepLab {k} IoU {ious}")
+        check_launched(counts[f"deeplab_{k}"], f"green DeepLab {k}")
+    agree = agreement(alphas["bf16"], alphas["f32"])
+    work = pipes["f32"]._prep_frames(
+        torch.from_numpy(frames[0][None]).to(device))[0]
+    seeds = {k: p.seg.predict_mask_impl(work).cpu().numpy()
+             for k, p in pipes.items()}
+    seed_agree = float((seeds["bf16"] == seeds["f32"]).mean())
+    print(f"  bfloat16 vs float32 on the card: seed masks agree on "
+          f"{seed_agree:.6f} of pixels, alpha >= 128 on {min(agree):.6f} "
+          f"(worst frame)", flush=True)
+    check(seed_agree >= BF16_SEED_AGREE,
+          f"seed masks bf16 vs f32 {seed_agree}")
+    check(min(agree) >= BF16_ALPHA_AGREE, f"alpha masks bf16 vs f32 {agree}")
+    rows["seed"] = seed_rows({k: p.seg for k, p in pipes.items()}, work)
+
+    t0 = time.perf_counter()
+    n = N_SEGMENTS * SEG_FRAMES
+    frames_s, gts_s = green_clip(n, *FRAME_HW, seed=SEED + 1)
+    for k, pipe in pipes.items():
+        pipe.run_segmented(frames_s[:N_SEGMENTS], N_SEGMENTS, SEG_FRAMES)
+        torch.cuda.synchronize()
+        before = (pipe.seg.forwards, pipe.seg.frames)
+        (a, _, _), secs, counts[f"deeplab_segmented_{k}"] = timed_run(
+            pipe.run_segmented, frames_s, N_SEGMENTS, SEG_FRAMES)
+        seeded = check_seed_log(pipe, before, f"green_deeplab S=8 {k}")
+        ious = gt_ious(a, gts_s, pipe.work_hw)
+        print(f"  run_segmented DeepLab {k}, S {N_SEGMENTS} x {SEG_FRAMES} "
+              f"frames: {n / secs:.2f} frames/s; "
+              f"{pipe.stats['syncs'] / n:.3f} host syncs a frame; seed "
+              f"forwards, frames {seeded}; IoU min {min(ious):.4f} mean "
+              f"{np.mean(ious):.4f}", flush=True)
+        check(min(ious) > 0.75, f"run_segmented DeepLab {k} IoU {ious}")
+        check_launched(counts[f"deeplab_segmented_{k}"],
+                       f"run_segmented DeepLab {k}")
+    phase(f"run_segmented DeepLab (S {N_SEGMENTS}, {n} frames)", t0)
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    small, _ = green_clip(N_CPU_FRAMES, *DEEPLAB_HOST_HW, seed=SEED)
+    runs = {dev: FusedGreenPipeline(
+        cfg, DEEPLAB_HOST_HW, work_long_side=DEEPLAB_HOST_LONG,
+        matting_dtype=torch.float32, seg_dtype=torch.float32,
+        device=dev).run(small)[0] for dev in ("cuda", "cpu")}
+    dmax, frac = within_bound(runs["cuda"], runs["cpu"])
+    phase(f"DeepLab host run ({N_CPU_FRAMES} frames at "
+          f"{DEEPLAB_HOST_HW[0]}x{DEEPLAB_HOST_HW[1]})", t0)
+    print(f"  DeepLab float32 card vs host alphas: max |diff| {dmax}, "
+          f"|diff| > 1 on {frac:.6f}", flush=True)
+    check(dmax <= 4 and frac < 1e-3,
+          f"DeepLab card vs host alphas: max {dmax}, frac>1 {frac}")
+    return counts, rows
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paths", choices=("default", "green_deeplab"),
+                    default="default")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        import video_unscreen_tpu_torch as pkg
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script: {e}",
+              file=sys.stderr)
+        return 2
+    if Path(pkg.__file__).resolve().parent.parent != ROOT:
+        print(f"chip_smoke: imported {pkg.__file__}, not the package "
+              f"beside this script", file=sys.stderr)
+        return 2
+
+    from video_unscreen_tpu_torch.ops import kernels
+    from video_unscreen_tpu_torch.ops.kernels import build
+
+    device = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    print(f"device: {name} x{torch.cuda.device_count()}, torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}; paths "
+          f"{args.paths}", flush=True)
+
+    t0 = time.perf_counter()
+    lib_path = build.build()
+    build.library()
+    phase(f"build ({lib_path.name})", t0)
+
+    if args.paths == "green_deeplab":
+        counts, rows = green_deeplab_paths(device)
+    else:
+        counts, rows = default_paths(device)
 
     for path, c in counts.items():
         for k in ("trimap", "morph"):
@@ -1106,14 +1527,17 @@ def main():
         for path, c in counts.items()), flush=True)
 
     out = []
-    for k in counts["green"]:
-        row = {"library_ms": None, **rows[k]}
-        by_path = {p: dict(zip(("calls", "launches"), c[k]))
-                   for p, c in counts.items()}
-        out.append(dict(name=k, route="cuda",
-                        launches=sum(c["launches"] for c in by_path.values()),
-                        calls=sum(c["calls"] for c in by_path.values()),
+    for c in kernels.COUNTERS:
+        if c.name not in rows:
+            continue
+        row = {"library_ms": None, **rows[c.name]}
+        by_path = {p: dict(zip(("calls", "launches"), n[c.name]))
+                   for p, n in counts.items()}
+        out.append(dict(name=c.name, route="cuda",
+                        launches=sum(n["launches"] for n in by_path.values()),
+                        calls=sum(n["calls"] for n in by_path.values()),
                         by_path=by_path, **row))
+    print(json.dumps({"seed": rows["seed"]}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -23,7 +23,8 @@ def pipes():
                   pack_d2h=False, matting_dtype=jnp.float32,
                   seg_dtype=jnp.float32)
     tpipe = tfg.FusedGreenPipeline(TEST_CFG, HW, work_long_side=128,
-                                   device="cpu")
+                                   matting_dtype=torch.float32,
+                                   seg_dtype=torch.float32, device="cpu")
     return jpipe, tpipe
 
 

@@ -74,12 +74,14 @@ def test_port_trainer_imports_nothing_of_jax():
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "run_fused", "bg_run",
-                                   "stm_agent", "stm_train_state"])
+                                   "stm_agent", "stm_train_state",
+                                   "seg_agent", "run_segmented"])
 def test_entry_points_refuse_missing_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal path does not run")
     from tests.test_pipeline_bg import BG_TEST_CFG
     from tests.test_pipeline_green import TEST_CFG
+    from video_unscreen_tpu_torch.agents.binseg import SegAgent
     from video_unscreen_tpu_torch.agents.stm import STMAgent
     from video_unscreen_tpu_torch.parallel.train_stm import \
         make_stm_train_state
@@ -96,6 +98,10 @@ def test_entry_points_refuse_missing_cuda(entry):
             bg.run(BG_TEST_CFG, frames)
         elif entry == "stm_agent":
             STMAgent()
+        elif entry == "seg_agent":
+            SegAgent()
+        elif entry == "run_segmented":
+            run_fused(TEST_CFG, frames * 2, work_long_side=128, segments=2)
         else:
             make_stm_train_state()
 
@@ -106,7 +112,7 @@ def test_unported_options_raise():
         FusedGreenPipeline, run_fused)
     with pytest.raises(NotImplementedError):
         run_fused(TEST_CFG, [], save=True, device="cpu")
-    cfg = dict(TEST_CFG, binseg={"type": "deeplab",
+    cfg = dict(TEST_CFG, binseg={"type": "human",
                                  "model_path": "weights/x.msgpack"})
     with pytest.raises(NotImplementedError):
         FusedGreenPipeline(cfg, (96, 128), work_long_side=128, device="cpu")

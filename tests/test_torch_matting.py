@@ -1,6 +1,9 @@
 """MattingUNet and the matting agent of the port against the JAX package,
 with the parameters carried across from the JAX weight load, to about 1e-5
-relative (float32 convolutions summed in another order)."""
+relative (float32 convolutions summed in another order); the bfloat16 net's
+last convolution against JAX's bfloat16 one within a mean relative
+difference of 5.5e-3 (same-type runs 4.1e-3, float32 against bfloat16
+7.4e-3 and 7.7e-3 on these inputs)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,10 +11,13 @@ import pytest
 import torch
 
 from tests.test_pipeline_green import make_clip
-from tests.torch_port_util import assert_close, assert_equal, tt
+from tests.torch_port_util import (assert_bf16_close, assert_close,
+                                   assert_equal, tt)
 from video_unscreen_tpu.agents.vmatting import VMattingAgent as JVM
 from video_unscreen_tpu_torch.agents.vmatting import VMattingAgent as TVM
+from video_unscreen_tpu.models.matting_unet import MattingUNet as JUNet
 from video_unscreen_tpu_torch.models.matting_unet import MattingUNet
+from video_unscreen_tpu_torch.models.precision import convs_to
 
 WEIGHTS = "weights/matting_unet.msgpack"
 
@@ -45,6 +51,41 @@ def test_unet_forward(agents, h, w):
     with torch.no_grad():
         got = tagent.model(_nchw(img), _nchw(ap), _nchw(tri))[:, 0]
     assert_close(got, want, 1e-5, "alpha")
+
+
+def test_unet_bf16_against_jax(agents):
+    """The bfloat16 net (convolutions and BatchNorm in bfloat16, as flax's
+    `dtype=jnp.bfloat16`) against JAX's bfloat16 apply on the same
+    variables, at a bound that either net in float32 would miss: the last
+    convolution's output, the input of the head, which the port takes in
+    float32 where flax stays in bfloat16; the alpha float32 and finite."""
+    import copy
+    jagent, tagent = agents
+    img, ap, tri = _inputs(96, 128, seed=0)
+    want = {}
+    for dt in (jnp.float32, jnp.bfloat16):
+        _, inter = JUNet(dtype=dt).apply(
+            jagent.variables, img, ap, tri, capture_intermediates=True,
+            mutable=["intermediates"])
+        raw = inter["intermediates"]["dec_conv2"]["__call__"][0]
+        assert raw.dtype == dt
+        want[dt] = np.asarray(raw[..., 0].astype(jnp.float32))
+    net16 = convs_to(copy.deepcopy(tagent.model), torch.bfloat16)
+    got = {}
+    for dt, m in ((torch.float32, tagent.model), (torch.bfloat16, net16)):
+        hook = m.dec_conv2.register_forward_hook(
+            lambda mod, args, out, dt=dt: got.__setitem__(dt, out[:, 0]))
+        with torch.no_grad():
+            alpha = m(_nchw(img), _nchw(ap), _nchw(tri))
+        hook.remove()
+        assert alpha.dtype == torch.float32
+        assert bool(torch.isfinite(alpha).all())
+    assert got[torch.bfloat16].dtype == torch.bfloat16
+    got = {dt: g.float() for dt, g in got.items()}
+    assert_bf16_close(got[torch.bfloat16], want[jnp.bfloat16], 5.5e-3,
+                      [(got[torch.float32], want[jnp.bfloat16]),
+                       (got[torch.bfloat16], want[jnp.float32])],
+                      "MattingUNet bfloat16 head input")
 
 
 def test_transposed_conv_layout():

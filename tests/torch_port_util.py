@@ -5,6 +5,9 @@
 - `cuda` is the marker of tests that need an NVIDIA card (registered in
   pyproject.toml); such a test calls `require_cuda()` first, so the
   decision is made when it runs, never at import.
+- `assert_bf16_close` holds a bfloat16 output of the port to the JAX
+  package's bfloat16 output by their mean difference, at a bound that a
+  float32 side against a bfloat16 one exceeds.
 - `compare` runs one numpy input, made from a seed, through a JAX function
   and its port and holds the outputs together.
 
@@ -51,6 +54,27 @@ def assert_close(got, want, rtol=1e-5, what=""):
     scale = max(1.0, float(np.abs(want).max(initial=0.0)))
     err = float(np.abs(got - want).max(initial=0.0))
     assert err <= rtol * scale, f"{what}: max |diff| {err} > {rtol} * {scale}"
+
+
+def mean_rel_err(got, want) -> float:
+    """mean |got - want| / mean |want|."""
+    got = nn_(got).astype(np.float64)
+    want = nn_(want).astype(np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).mean() / np.abs(want).mean())
+
+
+def assert_bf16_close(got, want, bound, cross, what=""):
+    """bfloat16 against bfloat16: mean |got - want| <= bound * mean |want|.
+    XLA keeps excess precision inside its fused bfloat16 chains, so two
+    bfloat16 runs agree only to a fraction of bfloat16's own error; the
+    bound is held to that size by `cross`, pairs of a float32 output
+    against a bfloat16 one, each of which must exceed it."""
+    err = mean_rel_err(got, want)
+    errs = [mean_rel_err(g, w) for g, w in cross]
+    assert err <= bound, f"{what}: mean relative |diff| {err} > {bound}"
+    assert min(errs) > bound, (f"{what}: float32 against bfloat16 is within "
+                               f"the bound: {errs} <= {bound}")
 
 
 def assert_equal(got, want, what=""):

@@ -1,11 +1,16 @@
 """Where the PyTorch port's green path spends a frame, on one NVIDIA card.
 
     python tools/profile_torch_green.py [--frames 8] [--warmup 2]
+        [--seed chroma|deeplab] [--segments 1]
 
 Runs `video_unscreen_tpu_torch`'s `FusedGreenPipeline` (configs/green.json,
-chroma seed, 1080p -> 544x960) on the seeded synthetic frames of
-`chip_smoke.py:green_clip`, first three times unprofiled (frames/s of each
-run, for the run-to-run spread), then once under `torch.profiler`, with
+1080p -> 544x960, the chroma seed or, with `--seed deeplab`, the shipped
+DeepLab seed from weights/deeplab_binseg.msgpack; matting and seed in the
+pipeline's default bfloat16; `run`, or
+`run_segmented` with S segments of 4-frame chunks) on the seeded synthetic
+frames of `chip_smoke.py:green_clip`, first three times unprofiled
+(frames/s of each run, for the run-to-run spread), then once under
+`torch.profiler`, with
 each stage wrapped in a `record_function` span, and prints per stage the device time (kernels launched inside the span) and the
 host wall time, the top device kernels, the device's busy and idle share of
 the profiled window, and the MattingUNet's operation count (counted on the
@@ -107,34 +112,45 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--seed", choices=("chroma", "deeplab"),
+                    default="chroma")
+    ap.add_argument("--segments", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_green: CUDA is not available", file=sys.stderr)
         return 2
 
     cfg = load_config(str(ROOT / "configs" / "green.json"))
-    cfg["binseg"] = {"type": "chroma"}
+    if args.seed == "chroma":
+        cfg["binseg"] = {"type": "chroma"}
+    else:
+        cfg["binseg"]["model_path"] = str(ROOT / "weights" /
+                                          "deeplab_binseg.msgpack")
     cfg["vmatting"]["model_path"] = str(ROOT / "weights" /
                                         "matting_unet.msgpack")
     frames, _ = green_clip(args.frames, 1080, 1920, seed=0)
     pipe = fused_green.FusedGreenPipeline(cfg, (1080, 1920), device="cuda")
-    n = args.frames
+    n, s = args.frames, args.segments
+
+    def run(clip):
+        return pipe.run_segmented(clip, s, 4) if s > 1 else pipe.run(clip)
+
     with instrumented(pipe):
-        pipe.run(frames[:args.warmup])
+        run(frames[:max(args.warmup, s)])
         torch.cuda.synchronize()
         rates = []
         for _ in range(3):
             t0 = time.perf_counter()
-            pipe.run(frames)
+            run(frames)
             torch.cuda.synchronize()
             rates.append(n / (time.perf_counter() - t0))
-        print("unprofiled frames/s: "
+        print(f"seed {args.seed}, bfloat16, S {s}; unprofiled frames/s: "
               + ", ".join(f"{r:.2f}" for r in rates))
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            pipe.run(frames)
+            run(frames)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
 

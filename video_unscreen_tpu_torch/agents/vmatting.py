@@ -4,7 +4,10 @@ Port of `video_unscreen_tpu/agents/vmatting.py` (`device_forward_impl`
 and the host API `forward`):
 pad/resize to a multiple of 32, the {0, 128, 255} trimap as three one-hot
 channels, the net, the inverse geometry, and the hard reset outside the
-unknown band (0 where the trimap is 0, 1 where it is 255).
+unknown band (0 where the trimap is 0, 1 where it is 255). A batch of
+frames goes through the net as one batch. `dtype` is the net's
+(`models/precision.py`): float32, or bfloat16 as the JAX green pipeline
+runs it; the alpha is float32 either way.
 """
 
 from __future__ import annotations
@@ -15,8 +18,10 @@ import torch
 import torch.nn.functional as F
 
 from ..models.matting_unet import MattingUNet
+from ..models.precision import convs_to, empty_module
 from ..ops.geometry import (get_target_size, imnormalize, inv_pad_resize,
                             pad_resize)
+from ..parallel.train_stm import init_flax_like
 from ..utils.checkpoint import load_matting_unet
 from ..utils.device import as_float, resolve_device
 
@@ -25,25 +30,27 @@ class VMattingAgent:
     DIVISION = 32
 
     def __init__(self, model_path: Optional[str] = None,
-                 input_long_side: int = 960, device="cuda"):
+                 input_long_side: int = 960, device="cuda",
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
         """`model_path` is a flax msgpack checkpoint (or a dict of its
-        variables as numpy arrays); None gives random weights from seed 0.
-        A `.meta.json` sidecar asking for the SpectralNorm fold is refused:
-        none ships, and the fold is not ported. `device` is the card unless
-        the caller passes "cpu"."""
+        variables as numpy arrays); None gives flax-like random weights
+        from a `torch.Generator` seeded with `seed`. A `.meta.json` sidecar
+        asking for the SpectralNorm fold is refused: none ships, and the
+        fold is not ported. `device` is the card unless the caller passes
+        "cpu"."""
         if input_long_side % self.DIVISION != 0:
             input_long_side = (input_long_side // self.DIVISION + 1
                                ) * self.DIVISION
         self.input_long_side = int(input_long_side)
         self.device = resolve_device(device)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(0)
-            model = MattingUNet()
+        model = empty_module(MattingUNet)
         if model_path is not None:
             if isinstance(model_path, str):
                 self._refuse_spectral_norm(model_path)
             model.load_state_dict(load_matting_unet(model_path))
-        self.model = model.to(self.device).eval()
+        else:
+            init_flax_like(model, torch.Generator().manual_seed(seed))
+        self.model = convs_to(model.to(self.device).eval(), dtype)
 
     @staticmethod
     def _refuse_spectral_norm(model_path: str) -> None:
@@ -61,19 +68,22 @@ class VMattingAgent:
                             trimap: torch.Tensor,
                             input_hw: Tuple[int, int]) -> torch.Tensor:
         """(H, W, 3) BGR + (H, W) alpha_pre + (H, W) trimap -> (H, W)
-        alpha 0..255."""
-        ori_hw = tuple(trimap.shape)
-        img_p = pad_resize(img, input_hw)
-        tri_p = pad_resize(trimap, input_hw)
-        ap_p = pad_resize(alpha_pre, input_hw) / 255.0
+        alpha 0..255, or the same with a leading batch axis on all four."""
+        if trimap.dim() == 2:
+            return self.device_forward_impl(img[None], alpha_pre[None],
+                                            trimap[None], input_hw)[0]
+        ori_hw = tuple(trimap.shape[1:])
+        img_p = torch.stack([pad_resize(x, input_hw) for x in img])
+        tri_p = torch.stack([pad_resize(t, input_hw) for t in trimap])
+        ap_p = torch.stack([pad_resize(a, input_hw) for a in alpha_pre]) \
+            / 255.0
         norm = imnormalize(img_p)
         # one-hot trimap: 0 -> bg, (0, 255) -> unknown, 255 -> fg
         cls = torch.where(tri_p >= 255.0, 2, torch.where(tri_p > 0.0, 1, 0))
         tri_oh = F.one_hot(cls.to(torch.int64), 3).to(norm.dtype)
-        pred = self.model(norm.permute(2, 0, 1)[None],
-                          ap_p[None, None],
-                          tri_oh.permute(2, 0, 1)[None])[0, 0]
-        pred = inv_pad_resize(pred, ori_hw)
+        pred = self.model(norm.permute(0, 3, 1, 2), ap_p[:, None],
+                          tri_oh.permute(0, 3, 1, 2))[:, 0]
+        pred = torch.stack([inv_pad_resize(p, ori_hw) for p in pred])
         # keep the prediction only in the unknown band
         pred = torch.where(trimap == 0.0, 0.0, pred)
         pred = torch.where(trimap == 255.0, 1.0, pred)

@@ -4,7 +4,12 @@ Port of `video_unscreen_tpu/models/matting_unet.py` (inference form): a
 ResShortCut encoder/decoder with resnet18-shaped stages [2, 2, 2, 2],
 input RGB (normalized) + previous alpha + one-hot trimap (7 channels),
 five shortcut stacks, 4x4 stride-2 transposed-conv upsampling and a
-`(tanh + 1) / 2` output. NCHW layout.
+`(tanh + 1) / 2` output. NCHW layout. The net runs in its convolutions'
+dtype (`models/precision.py:convs_to`, float32 or bfloat16); the output
+head takes the last convolution's result in float32, so the alpha is
+float32 either way. flax's bfloat16 net takes the tanh in bfloat16 too,
+in alpha steps of 2^-9 to 2^-8 around 0.5, the alpha >= 128 threshold;
+the float32 head keeps the masks closer to the float32 net's (PERF.md).
 
 Submodules carry the flax module names (`enc_conv1`, `BasicBlockEnc_3`,
 `Conv_0`, `BatchNorm_1`, ...) so a checkpoint maps one to one
@@ -175,7 +180,10 @@ class MattingUNet(nn.Module):
 
     def forward(self, img: torch.Tensor, alpha_pre: torch.Tensor,
                 trimap: torch.Tensor) -> torch.Tensor:
-        x = torch.cat([img, alpha_pre, trimap], dim=1)
+        # in the convolutions' dtype (`models/precision.py`); the head
+        # below is float32 either way
+        x = torch.cat([img, alpha_pre, trimap], dim=1).to(
+            self.enc_conv1.weight.dtype)
         out = F.relu(self.enc_bn1(self.enc_conv1(x)))
         x1 = F.relu(self.enc_bn2(self.enc_conv2(out)))          # H/2
         out = F.relu(self.enc_bn3(self.enc_conv3(x1)))          # H/4
@@ -194,7 +202,7 @@ class MattingUNet(nn.Module):
             out = self._run(self._dec[k:k + n], out) + skip
             k += n
         out = F.leaky_relu(self.dec_bn1(self.dec_conv1(out)), 0.2) + feats[0]
-        raw = self.dec_conv2(out)
+        raw = self.dec_conv2(out).float()
         # exact 0/1 beyond the reference's saturation point: downstream
         # tests `alpha > 0` (color_correct), which must not hinge on which
         # device's tanh rounds a deep-background pixel to 0

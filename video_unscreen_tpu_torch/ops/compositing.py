@@ -23,9 +23,10 @@ def _half_window(winsize: Sequence[int], device) -> torch.Tensor:
 
 def is_pixel_inrange(img: torch.Tensor, bg: torch.Tensor,
                      winsize: Sequence[int] = (20, 20, 120)) -> torch.Tensor:
-    """(H, W) bool: pixels of `img` inside the HSV window around `bg` (a
-    (3,) color or an (H, W, 3) image, BGR 0..255); bounds clamped to
-    (10, 255)."""
+    """(..., H, W) bool: pixels of `img` inside the HSV window around `bg`
+    (a (3,) color, or BGR colors of any shape broadcasting to `img`'s, such
+    as an (H, W, 3) image or (S, 1, 1, 3) for a batch; BGR 0..255); bounds
+    clamped to (10, 255)."""
     img_hsv = bgr2hsv(img)
     bg_hsv = bgr2hsv(bg[None, None, :])[0, 0] if bg.dim() == 1 \
         else bgr2hsv(bg)

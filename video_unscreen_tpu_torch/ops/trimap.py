@@ -32,11 +32,14 @@ def generate_trimap_withbg(mask: torch.Tensor, img: torch.Tensor,
     Pixels of `img` inside the HSV window around the background color are
     "fuzzy"; when they cover at most 10% of the mask they are zeroed from
     it and marked unknown, otherwise the mask-only trimap stands. An empty
-    mask passes through unchanged."""
+    mask passes through unchanged. A batch (B, H, W) of masks, with (B, H,
+    W, 3) images and `bg` broadcasting to them, is decided mask by mask and
+    goes through K1 in one call."""
     fg = mask > 0
-    fg_count = fg.sum()
+    fg_count = fg.sum(dim=(-2, -1), keepdim=True)
     fuzzy = fg & is_pixel_inrange(img, bg, color_winsize)
-    fallback = fuzzy.sum() / fg_count.clamp_min(1) > 0.1
+    fallback = (fuzzy.sum(dim=(-2, -1), keepdim=True)
+                / fg_count.clamp_min(1) > 0.1)
     take = ~fallback & fuzzy
     trimap = generate_trimap(torch.where(take, 0.0, mask), kernelsize, iters)
     trimap = torch.where(take, 128.0, trimap)

@@ -155,12 +155,15 @@ def stm_loss(model: STM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 def init_flax_like(model: nn.Module, generator: torch.Generator) -> None:
     """flax's initial distributions: convolution kernels lecun-normal (a
     normal truncated at two standard deviations, scaled to variance
-    1/fan_in), biases 0; BatchNorm scale 1, bias 0, mean 0, var 1."""
+    1/fan_in, fan_in = input channels x kernel taps, for a transposed
+    convolution too), biases 0; BatchNorm scale 1, bias 0, mean 0, var 1."""
     # the standard deviation of N(0, 1) truncated to [-2, 2]
     trunc_std = 0.87962566103423978
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
-            fan_in = mod.weight[0].numel()
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            # weights (out, in, kh, kw); transposed (in, out, kh, kw)
+            fan_in = (mod.weight[:, 0] if isinstance(mod, nn.ConvTranspose2d)
+                      else mod.weight[0]).numel()
             std = math.sqrt(1.0 / fan_in) / trunc_std
             with torch.no_grad():
                 nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,

@@ -1,38 +1,57 @@
 """Fused green mode: the whole per-frame stage chain on the device.
 
-Port of `video_unscreen_tpu/pipeline/fused_green.py` for one clip segment
-(S=1) with the weights-free chroma seed:
+Port of `video_unscreen_tpu/pipeline/fused_green.py` (`run` and
+`run_segmented`, fg computed on the device, BGR frames resized on the
+device: the JAX package's `fetch_fg="device"`, `host_downscale=False`):
 
-    host:   upload each uint8 frame
+    host:   upload each step's uint8 frames (one per segment)
     device: resize to work resolution ->
-            seg (tracking shortcut | chroma seed) ->
+            seg (tracking shortcut | DeepLab or chroma seed) ->
             color filter (refit every `colorfiltering_update_duration`-th
             frame, after a tracking loss, or while untrained; else predict)
             -> object removal -> trimap (displacement-adaptive band) ->
             matting UNet -> color correct -> fg un-blend
-    host:   fetch uint8 alpha, fg, bg at work resolution
+    host:   fetch uint8 alpha, fg, bg at work resolution, once a chunk
 
-The JAX package compiles one `lax.scan` whose gates are `lax.cond`s. Here
-torch runs eagerly and the gates are host branches: each frame reads two
-device scalars (the tracking and refit flags, then the band tier), so only
-the taken branch runs, as with `lax.cond`. Data-dependent selects inside a
-stage stay `torch.where`.
+A run advances S independent clip segments in lockstep (`run` is S = 1),
+as the JAX `_step_batched` does. The JAX package compiles one `lax.scan`
+whose gates are `lax.cond`s; here torch runs eagerly and the gates are
+host branches: each step reads the segments' tracking and refit flags in
+one sync and the band tiers in a second, so only the taken branches run:
+
+- the seed runs once a step, on the segments that lost tracking only, as
+  one batch (DeepLab: their 12 crops each at 544x960, through the net 48
+  at a time), and only when one did; a segment that is tracking takes its
+  previous alpha;
+- the color filter refits the segments whose schedule says so and
+  predicts for the rest (JAX's three tiers, all, some and none);
+- one band tier for all segments, the max over the batch, as in JAX: one
+  segment's motion widens every segment's band.
+
+The UNet runs with batch S, the trimap (K1) and the band's dilate (K2) on
+the (S, H, W) batch in one launch each. The GMM fit and predict, object
+removal (K3) and `color_correct` take one frame, so they loop over the
+segments. Data-dependent selects inside a stage stay `torch.where`.
+Segment boundaries reset the carry; the clip's tail is padded with its last
+frame and trimmed.
 """
 
 from __future__ import annotations
 
+import collections
 import time
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from ..agents.binseg import build_seg_agent
 from ..agents.colorfiltering import CFState, ColorFilteringAgent
 from ..agents.vmatting import VMattingAgent
 from ..ops.chroma import chroma_segment
 from ..ops.compositing import color_correct, get_fg, is_pixel_inrange
 from ..ops.connected import remove_invalid_objects_ds
-from ..ops.geometry import get_target_size, resize
+from ..ops.geometry import get_target_size, resize_nchw
 from ..ops.morphology import dilate
 from ..ops.trimap import generate_trimap_withbg
 from ..utils.device import resolve_device
@@ -46,33 +65,50 @@ class GreenCarry(NamedTuple):
     fid: torch.Tensor        # 0-d int32
 
 
-def _build_seed_segmenter(cfg_binseg: dict):
-    """None for the chroma seed, the only seed ported so far. `type`
-    defaults to "deeplab" when a model_path is configured, as in the JAX
-    package."""
-    kind = cfg_binseg.get("type")
+def _build_seed_segmenter(cfg_binseg: dict, dtype: torch.dtype,
+                          device="cuda"):
+    """None for the weights-free chroma seed, else `build_seg_agent`'s
+    agent (a `SegAgent` in `dtype` for "deeplab"). `type` defaults to
+    "deeplab" when a model_path is configured and to "chroma" otherwise,
+    as in the JAX package; a configured weights file that is missing
+    raises."""
+    kw = dict(cfg_binseg)
+    kind = kw.pop("type", None)
     if kind is None:
-        kind = "deeplab" if cfg_binseg.get("model_path") else "chroma"
-    if kind != "chroma":
-        raise NotImplementedError(
-            f"binseg type {kind!r}: the DeepLab and SCHP seeds are not "
-            "ported yet; set binseg to {'type': 'chroma'}")
-    return None
+        kind = "deeplab" if kw.get("model_path") else "chroma"
+    if kind == "chroma":
+        return None
+    kw.setdefault("dtype", dtype)
+    return build_seg_agent(dict(kw, type=kind), device)
 
 
-def seed_mask(seg, frame: torch.Tensor) -> torch.Tensor:
-    """Non-tracking seed mask (the chroma prior)."""
-    return chroma_segment(frame)[0]
+def seed_mask(seg, frames: torch.Tensor) -> torch.Tensor:
+    """Non-tracking seed masks {0, 255} of (B, H, W, 3) work-resolution
+    frames: the DeepLab TTA (the batch's crops together) or the chroma
+    prior (frame by frame)."""
+    if seg is not None:
+        return seg.predict_mask_impl(frames)
+    return torch.stack([chroma_segment(f)[0] for f in frames])
 
 
 class FusedGreenPipeline:
-    """Green-mode runner for one clip geometry."""
+    """Green-mode runner for one clip geometry.
+
+    `matting_dtype` and `seg_dtype` are the MattingUNet's and the DeepLab
+    seed's (`models/precision.py`); bfloat16 by default, as in the JAX
+    pipeline. `stats` counts, for the last run, the steps, host syncs,
+    seed steps and seeded frames, the refit tiers and the band tiers;
+    `step_tracking` holds each step's tracking flags as the host read
+    them (a segment whose flag is False took the seed)."""
 
     def __init__(self, cfg: dict, frame_hw: Tuple[int, int],
-                 work_long_side: int = 960, device="cuda"):
+                 work_long_side: int = 960,
+                 matting_dtype: torch.dtype = torch.bfloat16,
+                 seg_dtype: torch.dtype = torch.bfloat16, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.seg = _build_seed_segmenter(cfg.get("binseg", {}))
+        self.seg = _build_seed_segmenter(cfg.get("binseg", {}), seg_dtype,
+                                         self.device)
         self.ori_hw = tuple(frame_hw)
         self.work_hw = get_target_size(frame_hw[0], frame_hw[1],
                                        work_long_side, division=32)
@@ -82,7 +118,8 @@ class FusedGreenPipeline:
             device=self.device)
         self.vmat = VMattingAgent(
             model_path=cfg["vmatting"].get("model_path"),
-            input_long_side=work_long_side, device=self.device)
+            input_long_side=work_long_side, device=self.device,
+            dtype=matting_dtype)
         self.score_map = torch.from_numpy(np.array(build_score_map(
             self.work_hw[0], self.work_hw[1], cfg))).to(self.device)
         self.fg_exist_thr = float(cfg["fg_exist_thr"])
@@ -102,6 +139,8 @@ class FusedGreenPipeline:
         # when the mask centroid moved > 2/4/5 x iters px since last frame
         self.tri_adaptive = bool(tri.get("adaptive_band", True))
         self.tri_tiers = (1, 2, 4, 8)
+        self.stats = collections.Counter()
+        self.step_tracking: List[Tuple[bool, ...]] = []
 
     def init_carry(self) -> GreenCarry:
         h, w = self.work_hw
@@ -112,18 +151,66 @@ class FusedGreenPipeline:
             cf_state=self.cf.reset_gmms(),
             fid=torch.tensor(0, dtype=torch.int32, device=dev))
 
-    # -- per-frame step ------------------------------------------------------
-    def _prep_frame(self, frame_full: torch.Tensor) -> torch.Tensor:
-        """uint8 (H, W, 3) on the device -> float32 at work resolution."""
-        return resize(frame_full.to(torch.float32), self.work_hw)
+    def init_carries(self, n_segments: int) -> List[GreenCarry]:
+        """One fresh carry per segment."""
+        return [self.init_carry() for _ in range(n_segments)]
 
-    def _step(self, carry: GreenCarry, frame_full: torch.Tensor):
-        frame = self._prep_frame(frame_full)
-        tracking, refit = torch.stack(
-            [carry.tracking, self._cf_refit_flag(carry)]).tolist()
-        # the seed runs only on frames that lost tracking
-        segmask = carry.alpha_pre if tracking else seed_mask(self.seg, frame)
-        return self._post_seg(carry, frame, segmask, refit)
+    # -- per-step work -------------------------------------------------------
+    def _prep_frames(self, frames_full: torch.Tensor) -> torch.Tensor:
+        """uint8 (S, H, W, 3) on the device -> float32 at work
+        resolution."""
+        x = frames_full.to(torch.float32)
+        if tuple(x.shape[1:3]) == self.work_hw:
+            return x
+        y = resize_nchw(x.permute(0, 3, 1, 2), self.work_hw)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+    def _step_batched(self, carries: List[GreenCarry],
+                      frames_full: torch.Tensor):
+        """Advance S segments one frame: `carries` has one carry a
+        segment, `frames_full` is uint8 (S, H, W, 3) on the device.
+        Returns (new carries, (alpha, fg, bg) uint8 (S, h, w[, 3]))."""
+        n_s = len(carries)
+        frames = self._prep_frames(frames_full)
+        flags = torch.stack([c.tracking for c in carries]
+                            + [self._cf_refit_flag(c) for c in carries])
+        flags = flags.tolist()
+        self.stats["syncs"] += 1
+        tracking, refit = flags[:n_s], flags[n_s:]
+        self.step_tracking.append(tuple(tracking))
+
+        # the seed runs only on the segments that lost tracking
+        segmask = [c.alpha_pre for c in carries]
+        need = [s for s in range(n_s) if not tracking[s]]
+        if need:
+            seeds = seed_mask(self.seg, frames[need])
+            for j, s in enumerate(need):
+                segmask[s] = seeds[j]
+            self.stats["seed_steps"] += 1
+            self.stats["seeded_frames"] += len(need)
+        segmask = torch.stack(segmask)
+
+        # color filter, one segment at a time: refit or predict
+        n_refit = sum(refit)
+        self.stats["refit_" + ("none" if n_refit == 0 else "all"
+                               if n_refit == n_s else "some")] += 1
+        alphacf, bg_color, cf_states = [], [], []
+        for s, c in enumerate(carries):
+            a, bgc, _, st = self.cf.device_forward_impl(
+                frames[s], segmask[s], self.cf_train_iters if refit[s] else 0,
+                c.cf_state)
+            alphacf.append(a)
+            bg_color.append(bgc)
+            cf_states.append(st)
+        alphacf, bg_color = torch.stack(alphacf), torch.stack(bg_color)
+        alpha_pre = torch.stack([c.alpha_pre for c in carries])
+        # one band tier for all segments: the largest
+        tier = int(self._band_tier(alpha_pre, alphacf).max())
+        self.stats["syncs"] += 1
+        self.stats[f"tier_{tier}"] += 1
+        self.stats["steps"] += 1
+        return self._post_cf(carries, frames, segmask, alphacf, bg_color,
+                             cf_states, tier)
 
     def _cf_refit_flag(self, carry: GreenCarry) -> torch.Tensor:
         """Refit schedule: every `cf_duration`-th frame, after a tracking
@@ -134,18 +221,20 @@ class FusedGreenPipeline:
     def _band_tier(self, alpha_pre: torch.Tensor,
                    alpha_now: torch.Tensor) -> torch.Tensor:
         """Band-width tier 0..3 from the mask-centroid displacement between
-        the previous matte and the current chroma alpha."""
+        the previous matte and the current chroma alpha, for an (H, W) pair
+        or per item of an (S, H, W) pair."""
         if not self.tri_adaptive:
-            return torch.tensor(0, device=self.device)
+            return torch.zeros(alpha_pre.shape[:-2], dtype=torch.int64,
+                               device=self.device)
         h, w = self.work_hw
         ys = torch.arange(h, dtype=torch.float32, device=self.device)
         xs = torch.arange(w, dtype=torch.float32, device=self.device)
 
         def centroid(m):
             wgt = (m >= 128).to(torch.float32)
-            tot = wgt.sum()
-            cy = (wgt.sum(dim=1) * ys).sum() / tot.clamp_min(1.0)
-            cx = (wgt.sum(dim=0) * xs).sum() / tot.clamp_min(1.0)
+            tot = wgt.sum(dim=(-2, -1))
+            cy = (wgt.sum(dim=-1) * ys).sum(dim=-1) / tot.clamp_min(1.0)
+            cx = (wgt.sum(dim=-2) * xs).sum(dim=-1) / tot.clamp_min(1.0)
             return cy, cx, tot
 
         cy0, cx0, t0 = centroid(alpha_pre)
@@ -161,92 +250,118 @@ class FusedGreenPipeline:
                     bg_color: torch.Tensor, tier: int) -> torch.Tensor:
         """Trimap with a tier-selected OUTWARD band widening: in a ring of
         `dilate(mask, k, iters * {2, 4, 8})`, background pixels become
-        unknown unless the chroma window confirms them as screen color."""
-        base = generate_trimap_withbg(alphaor, frame, bg_color,
-                                      self.tri_kernel, self.tri_iters,
-                                      self.tri_winsize)
+        unknown unless the chroma window confirms them as screen color.
+        `alphaor` (H, W) with `bg_color` (3,), or (S, H, W) with (S, 3)."""
+        bg = bg_color if bg_color.dim() == 1 else bg_color[:, None, None, :]
+        base = generate_trimap_withbg(alphaor, frame, bg, self.tri_kernel,
+                                      self.tri_iters, self.tri_winsize)
         if not self.tri_adaptive or tier == 0:
             return base
         wide = dilate(alphaor, self.tri_kernel,
                       self.tri_iters * self.tri_tiers[tier])
-        bg_like = is_pixel_inrange(frame, bg_color, self.tri_winsize)
+        bg_like = is_pixel_inrange(frame, bg, self.tri_winsize)
         return torch.where((base == 0.0) & (wide >= 128.0) & ~bg_like, 128.0,
                            base)
 
-    def _post_seg(self, carry: GreenCarry, frame: torch.Tensor,
-                  segmask: torch.Tensor, refit: bool):
-        """Color filter (refit or predict), then everything after."""
-        alphacf, bg_color, _, cf_state = self.cf.device_forward_impl(
-            frame, segmask, self.cf_train_iters if refit else 0,
-            carry.cf_state)
-        tier = int(self._band_tier(carry.alpha_pre, alphacf))
-        return self._post_cf(carry, frame, segmask, alphacf, bg_color,
-                             cf_state, tier)
-
-    def _post_cf(self, carry: GreenCarry, frame: torch.Tensor,
+    def _post_cf(self, carries: List[GreenCarry], frames: torch.Tensor,
                  segmask: torch.Tensor, alphacf: torch.Tensor,
-                 bg_color: torch.Tensor, cf_state: CFState, tier: int):
-        """Object removal -> trimap -> matting -> color correct -> fg.
+                 bg_color: torch.Tensor, cf_states: List[CFState],
+                 tier: int):
+        """Object removal -> trimap -> matting -> color correct -> fg, on
+        (S, ...) batches.
 
-        Returns (new carry, (alpha, fg, bg) uint8 at work resolution)."""
+        Returns (new carries, (alpha, fg, bg) uint8 at work resolution)."""
         h, w = self.work_hw
-        fg_exists = (segmask >= 128).sum() > self.fg_exist_thr * h * w
+        min_fg = self.fg_exist_thr * h * w
+        fg_exists = ((segmask >= 128).sum(dim=(-2, -1)) > min_fg)[:, None,
+                                                                  None]
 
         # invalid-object removal (segmask consensus unless tracking),
-        # labeled at 1/or_downscale resolution
-        consensus_ref = torch.where(carry.tracking, alphacf, segmask)
-        alphaor = remove_invalid_objects_ds(
-            alphacf, consensus_ref, self.score_map,
-            saliency_thr=self.saliency_thr,
+        # labeled at 1/or_downscale resolution, one segment at a time
+        was_tracking = torch.stack([c.tracking for c in carries])
+        consensus_ref = torch.where(was_tracking[:, None, None], alphacf,
+                                    segmask)
+        alphaor = torch.stack([remove_invalid_objects_ds(
+            a, ref, self.score_map, saliency_thr=self.saliency_thr,
             consensus_thr=self.consensus_thr, downscale=self.or_downscale)
+            for a, ref in zip(alphacf, consensus_ref)])
 
-        trimap = self._gen_trimap(alphaor, frame, bg_color, tier)
-        alpha = self.vmat.device_forward_impl(frame, carry.alpha_pre, trimap,
+        trimap = self._gen_trimap(alphaor, frames, bg_color, tier)
+        alpha_pre = torch.stack([c.alpha_pre for c in carries])
+        alpha = self.vmat.device_forward_impl(frames, alpha_pre, trimap,
                                               self.work_hw)
-        alpha = color_correct(frame, alpha, bg_color,
-                              target_long_side=self.cc_long_side)
+        alpha = torch.stack([color_correct(
+            f, a, bgc, target_long_side=self.cc_long_side)
+            for f, a, bgc in zip(frames, alpha, bg_color)])
 
-        bg_img = torch.where((alpha < 128)[..., None], frame,
-                             bg_color.expand(frame.shape))
-        fg = get_fg(frame, alpha, bg_img)
+        bg_px = bg_color[:, None, None, :]
+        bg_img = torch.where((alpha < 128)[..., None], frames,
+                             bg_px.expand(frames.shape))
+        fg = get_fg(frames, alpha, bg_img)
 
         # no-foreground gate
         alpha = torch.where(fg_exists, alpha, 0.0)
-        fg = torch.where(fg_exists, fg, 0.0)
+        fg = torch.where(fg_exists[..., None], fg, 0.0)
 
-        tracking = (alpha >= 128).sum() > self.fg_exist_thr * h * w
-        new_carry = GreenCarry(alpha_pre=alpha, tracking=tracking,
-                               cf_state=cf_state, fid=carry.fid + 1)
+        tracking = (alpha >= 128).sum(dim=(-2, -1)) > min_fg
+        new_carries = [GreenCarry(alpha_pre=alpha[s], tracking=tracking[s],
+                                  cf_state=cf_states[s], fid=c.fid + 1)
+                       for s, c in enumerate(carries)]
         alpha_u8 = alpha.clamp(0.0, 255.0).to(torch.uint8)
         # bg = alpha < 128 ? the work-res frame : the screen color
-        frame_u8 = frame.round().clamp(0.0, 255.0).to(torch.uint8)
+        frame_u8 = frames.round().clamp(0.0, 255.0).to(torch.uint8)
         bg_u8 = torch.where((alpha_u8 < 128)[..., None], frame_u8,
-                            bg_color.clamp(0.0, 255.0).to(torch.uint8))
-        return new_carry, (alpha_u8, fg.clamp(0.0, 255.0).to(torch.uint8),
-                           bg_u8)
+                            bg_px.clamp(0.0, 255.0).to(torch.uint8))
+        return new_carries, (alpha_u8, fg.clamp(0.0, 255.0).to(torch.uint8),
+                             bg_u8)
 
     # -- host loop -----------------------------------------------------------
-    @torch.inference_mode()
-    def run(self, frames):
-        """Run a clip of uint8 (H, W, 3) BGR frames.
+    def run(self, frames, chunk_size: int = 8):
+        """Run a clip of uint8 (H, W, 3) BGR frames as one segment.
 
         Returns (alphas (N, h, w), fgs (N, h, w, 3), bgs (N, h, w, 3)) as
         uint8 numpy arrays at work resolution."""
-        carry = self.init_carry()
-        alphas, fgs, bgs = [], [], []
-        for f in frames:
-            x = torch.from_numpy(np.ascontiguousarray(f, np.uint8))
-            carry, (a, fg, bg) = self._step(carry, x.to(self.device))
-            packed = torch.cat([a[..., None], fg, bg], dim=-1).cpu().numpy()
-            alphas.append(packed[..., 0])
-            fgs.append(packed[..., 1:4])
-            bgs.append(packed[..., 4:7])
-        return np.stack(alphas), np.stack(fgs), np.stack(bgs)
+        return self.run_segmented(frames, 1, chunk_size)
+
+    @torch.inference_mode()
+    def run_segmented(self, frames, n_segments: int = 2,
+                      chunk_size: int = 4):
+        """Split the clip into `n_segments` contiguous segments of
+        ceil(N / S) frames (the tail padded with the last frame) and
+        advance them in lockstep, S frames a step; outputs are fetched once
+        every `chunk_size` steps. Segment boundaries reset the carry.
+        Returns `run`'s arrays, in clip order, trimmed to N frames."""
+        frames = list(frames)
+        n = len(frames)
+        seg_len = -(-n // n_segments)
+        padded = frames + [frames[-1]] * (n_segments * seg_len - n)
+        self.stats = collections.Counter()
+        self.step_tracking = []
+        carries = self.init_carries(n_segments)
+        chunks = []
+        for c0 in range(0, seg_len, chunk_size):
+            outs = []
+            for t in range(c0, min(c0 + chunk_size, seg_len)):
+                step = np.stack([np.asarray(padded[s * seg_len + t], np.uint8)
+                                 for s in range(n_segments)])
+                carries, (a, fg, bg) = self._step_batched(
+                    carries, torch.from_numpy(step).to(self.device))
+                outs.append(torch.cat([a[..., None], fg, bg], dim=-1))
+            chunks.append(torch.stack(outs, dim=1).cpu().numpy())
+            self.stats["syncs"] += 1
+        # (S, seg_len, h, w, 7) -> clip order, trimmed
+        packed = np.concatenate(chunks, axis=1).reshape(
+            (n_segments * seg_len,) + chunks[0].shape[2:])[:n]
+        return packed[..., 0], packed[..., 1:4], packed[..., 4:7]
 
 
 def run_fused(cfg: dict, frames=None, save: bool = False,
-              work_long_side: int = 960, device="cuda") -> dict:
-    """Green-mode runner on the fused path over in-memory frames.
+              chunk_size: int = 8, work_long_side: int = 960,
+              segments: int = 1, matting_dtype: torch.dtype = torch.bfloat16,
+              seg_dtype: torch.dtype = torch.bfloat16,
+              device="cuda") -> dict:
+    """Green-mode runner on the fused path over in-memory frames;
+    `segments > 1` batches that many clip segments (`run_segmented`).
 
     `save=True` (the JPEG artifacts) and reading the clip from disk need an
     image codec the port does not carry yet."""
@@ -260,9 +375,13 @@ def run_fused(cfg: dict, frames=None, save: bool = False,
     h, w, _ = frame_list[0].shape
     print(f"{len(frame_list)} frames.")
     pipe = FusedGreenPipeline(cfg, (h, w), work_long_side=work_long_side,
-                              device=device)
+                              matting_dtype=matting_dtype,
+                              seg_dtype=seg_dtype, device=device)
     st = time.time()
-    alphas, _, _ = pipe.run(frame_list)
+    if segments > 1:
+        alphas, _, _ = pipe.run_segmented(frame_list, segments, chunk_size)
+    else:
+        alphas, _, _ = pipe.run(frame_list, chunk_size)
     elapsed = time.time() - st
     print(f"fused green: {len(frame_list)} frames in {elapsed:.2f}s "
           f"({len(frame_list) / elapsed:.2f} fps)")

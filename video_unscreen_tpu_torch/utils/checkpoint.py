@@ -17,12 +17,14 @@ second.
 - BatchNorm `scale`/`bias` and `batch_stats` `mean`/`var` ->
   `weight`/`bias`/`running_mean`/`running_var`.
 
-`load_stm` maps the STM's flax variables to a `state_dict` for
-`models/stm.py:STM` the same way (conv kernels HWIO -> OIHW, BatchNorm as
+`load_stm` and `load_deeplab` map the STM's and DeepLab's flax variables
+to a `state_dict` for `models/stm.py:STM` and `models/deeplab.py` the same
+way (conv kernels HWIO -> OIHW, BatchNorm as
 above, flax's eps 1e-5 kept by the modules), with flax's auto-names taken
 by order: `Bottleneck_3` -> `blocks.3`, `Conv_2` -> `convs.2`,
 `BatchNorm_1` -> `bns.1`, `ResBlock_0` -> `resblocks.0`, `Refine_1` ->
-`refines.1`; explicit names (`encoder_q`, `stem_conv1`, `kv_m`, ...) stay.
+`refines.1`, `ASPPConv_2` -> `branches.2`; explicit names (`encoder_q`,
+`stem_conv1`, `kv_m`, `cls_out`, ...) stay.
 
 `save_stm` is its inverse: it writes an STM's `params` and `batch_stats`
 in the layout flax's `to_bytes` writes (maps of strings, each array an
@@ -175,7 +177,7 @@ def load_matting_unet(source) -> Dict[str, torch.Tensor]:
 # flax auto-name prefix -> the port's ModuleList attribute
 _AUTO_NAMES = {"Conv": "convs", "BatchNorm": "bns", "Bottleneck": "blocks",
                "BasicBlock": "blocks", "ResBlock": "resblocks",
-               "Refine": "refines"}
+               "Refine": "refines", "ASPPConv": "branches"}
 _AUTO_RE = re.compile(r"^([A-Za-z]+)_(\d+)$")
 
 
@@ -218,6 +220,11 @@ def load_stm(source) -> Dict[str, torch.Tensor]:
         state[f"{mod}.{stats[path[-1]]}"] = _tensor(arr)
         state[f"{mod}.num_batches_tracked"] = torch.tensor(0)
     return state
+
+
+# DeepLab's tree maps by the same names (`ASPPConv_1` -> `branches.1`;
+# `cls_out` keeps its bias)
+load_deeplab = load_stm
 
 
 _FLAX_AUTO = {v: k for k, v in _AUTO_NAMES.items() if k != "BasicBlock"}
