@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--paths default|green_deeplab]
 
 The default run reads weights/matting_unet.msgpack and weights/stm.msgpack
-only, so that one copy of the repo holds it. Phases, each printed with its
+only, so that one copy of the repo holds it (the DeepLab and SCHP seeds
+run on seeded weights). Phases, each printed with its
 wall seconds:
   1. build the CUDA kernels of video_unscreen_tpu_torch/csrc (one nvcc call);
   2. build the green pipeline (configs/green.json with the chroma seed) at
@@ -14,13 +15,14 @@ wall seconds:
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: K1 trimap and K2
      morph bit-exact at every call the paths make (`MORPH_CALLS` of
-     `ops/kernels/morph_cases.py`: 544x960,
-     540x960 and 1080x1920; the cross, the 4x4 ellipse; 1 to 40
-     iterations), K2 in both directions, on a soft mask, all 255, all 0,
-     hot corners, edge lines, a checkerboard and a batch of 8 (S of
-     run_segmented), one launch a call, timed beside the same chain as
-     F.max_pool2d calls (held bit-exact first), the green trimap and band
-     also at the batch of 8; K3 flood bit-exact (green's 272x480, bg's
+     `ops/kernels/morph_cases.py`: 544x960, 540x960, 272x480 and
+     1080x1920; the cross, the 4x4 ellipse; 1 to 40 iterations), K2 in
+     both directions, on a soft mask, all 255, all 0, hot corners, edge
+     lines, a checkerboard and a batch of 8 (S of run_segmented) times the
+     call's planes a frame (24 for the fused bg regionfill's perimeter),
+     one launch a call, timed beside the same chain as F.max_pool2d calls
+     (held bit-exact first), the green and fused bg calls also at the
+     batch; K3 flood bit-exact (green's 272x480, bg's
      1080x1920; also on a checkerboard, a snake across every tile edge,
      the full and the empty mask, with its launches a call), K4 attention (the STM memory read, Lq 2040 x Lk
      22440, dk 128, dv 512, and one training read, Lq 64 x Lk 128) to
@@ -63,6 +65,30 @@ wall seconds:
      > 0.75 on average, frames/s over the 7 tracked frames;
   7. run bg mode on 2 smaller frames on the card and on the host and hold
      the alphas to the same bound;
+  7a. K4 at the fused bg read (B = 1 and 8 segments, Lq 2040 over a ring
+     bank of 2 slots plus the previous frame, Lk 6120, bank_n 0, 1, 2)
+     against its plain version to rtol 1e-4 / atol 1e-5, timed beside SDPA
+     and its bound over the valid keys;
+  7b. fused bg (`pipeline/fused_bg.py:FusedBgPipeline.run`, configs/bg.json
+     with the chroma seed; STM, matting and seed in bfloat16 as shipped,
+     and in float32) on the 8 frames, counts reset just before the
+     bfloat16 run: K1-K4 must launch, IoU > 0.8 on frame 0 and > 0.75 on
+     average, alpha >= 128 masks of bfloat16 and float32 agree on
+     BG_BF16_ALPHA_AGREE of every frame, frames/s and host syncs a frame;
+     float32 card against host on 2 frames of 270x480 within the JAX bound;
+  7c. fused bg `run_segmented` as bench.py runs bg (S = 8, chunks of 4, 64
+     frames: 8-frame segments) in bfloat16, frames/s and the IoU bars; in
+     float32 with pass 1 at full resolution, segment 0 against the
+     sequential run of its frames within the JAX bound;
+  7d. the SCHP seed at full width on seeded weights (544x960 -> 473x473)
+     in float32 and bfloat16 (each in its shipped layout, `models/
+     precision.py:net_input`), beside its operations (meta-device count)
+     and bound; float32 card against host on
+     a 270x480 frame (logits to 1e-4 of their scale, masks equal wherever
+     the top-two margin > 1e-3); then 7c in bfloat16 with `binseg: human`
+     on those weights: the seed's forwards and frames against the frames
+     that were not tracking or ballooned (random SCHP masks change how
+     often STM tracks: these frames/s are not the shipped weights');
   8. train the STM 3 AdamW steps from weights/stm.msgpack at the trainer's
      defaults (batch 8, 128x128, clip_len 3, lr 5e-4) on the port's own
      synthetic clips, counts reset just before: every loss finite, K4, K5
@@ -103,6 +129,16 @@ import sys
 import time
 from pathlib import Path
 
+try:  # beside the package; copied alone, main() refuses to run
+    from video_unscreen_tpu_torch.utils.synthetic import (bg_config,
+                                                          green_clip, iou,
+                                                          soft_mask)
+    from video_unscreen_tpu_torch.utils.timing import (
+        ATTN_DK, ATTN_DV, ATTN_LQ, ATTN_SLOTS, BF16_OPS_PER_S, F32_OPS_PER_S,
+        attn_bounds, bound, cuda_ms, net_flops, sdpa_bwd_ms, sdpa_fwd_ms)
+except ImportError:
+    pass
+
 ROOT = Path(__file__).resolve().parent
 FRAME_HW = (1080, 1920)
 WORK_LONG_SIDE = 960
@@ -110,17 +146,14 @@ N_FRAMES = 8
 N_CPU_FRAMES = 2
 BG_HOST_HW = (270, 480)  # bg card-vs-host frames: the host's CG stays short
 SEED = 0
-# the STM memory read on the bg path: 544x960 / 16 query pixels against a
-# bank of 10 slots plus the previous frame (K4's shape)
-ATTN_LQ, ATTN_SLOTS, ATTN_DK, ATTN_DV = 34 * 60, 11, 128, 512
 # STM training at the trainer's defaults: 128x128 clips of 3 frames, so
 # 8x8 queries against 2 memory frames (K5/K6's training shape)
 TRAIN_BATCH, TRAIN_HW, TRAIN_CLIP, TRAIN_LR, TRAIN_STEPS = 8, 128, 3, 5e-4, 3
 TRAIN_HOST = dict(batch=2, hw=64)  # the card-vs-host step
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-TF32X3_OPS_PER_S = 495e12 / 3  # H100 SXM TF32 tensor cores, 3 passes
-BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
+# fused bg: the ring bank of configs/bg.json (stm.fused_bank_capacity),
+# run_segmented as bench.py runs bg (S = 8, chunks of 4) on 8-frame
+# segments
+FUSED_BANK, SEG_CHUNK, BG_SEG_FRAMES = 2, 4, 8
 N_SEGMENTS, SEG_FRAMES = 8, 4   # run_segmented: bench.py's S, 4 frames each
 DEEPLAB_HOST_HW, DEEPLAB_HOST_LONG = (270, 480), 480  # host DeepLab stays short
 # the seed's card-vs-host frame and crop: 2x3 overlapping locations, each
@@ -129,6 +162,7 @@ SEED_GRID_HW, SEED_GRID_CROP = (320, 480), 257
 # bfloat16 against float32 on the card: the least share of pixels on which
 # the alpha >= 128 masks (and the seed masks) agree, on every frame
 BF16_ALPHA_AGREE, BF16_SEED_AGREE = 0.9999, 0.9995
+BG_BF16_ALPHA_AGREE = 0.997  # ~14x the share that differed when read
 
 
 def check(cond, msg):
@@ -138,127 +172,6 @@ def check(cond, msg):
 
 def phase(name, t0):
     print(f"phase {name}: {time.perf_counter() - t0:.2f}s", flush=True)
-
-
-def green_clip(n, h, w, seed):
-    """A magenta ellipse moving right over a noisy green screen (the
-    pattern of the repo's synthetic clips; radii 260 x 170 and 6 px per
-    frame at 1080p, scaled with the frame), and its GT alpha."""
-    import numpy as np
-    rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    ry, rx, step = 260.0 * h / 1080, 170.0 * w / 1920, 6.0 * w / 1920
-    frames, gts = [], []
-    for t in range(n):
-        blob = ((yy - h // 2) ** 2 / ry ** 2
-                + (xx - (w // 3 + step * t)) ** 2 / rx ** 2) < 1.0
-        img = np.empty((h, w, 3), np.float32)
-        img[...] = (40, 190, 50)
-        img[blob] = (150, 60, 170)
-        img += rng.randn(h, w, 3).astype(np.float32) * 4
-        frames.append(img.clip(0, 255).astype(np.uint8))
-        gts.append(blob)
-    return frames, gts
-
-
-def soft_mask(h, w, seed):
-    """Seeded soft ellipse with speckle: a grayscale mask for morphology."""
-    import numpy as np
-    rng = np.random.RandomState(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    a = np.zeros((h, w), np.float32)
-    a[((yy - h // 2) ** 2 / (h * 0.3) ** 2
-       + (xx - w // 3) ** 2 / (w * 0.2) ** 2) < 1.0] = 255.0
-    a *= rng.uniform(0.6, 1.0, (h, w)).astype(np.float32)
-    a[rng.rand(h, w) < 0.002] = 200.0
-    return a
-
-
-def cuda_ms(fn, reps, rounds=7):
-    """Median over `rounds` of the device time per call of `fn`, from CUDA
-    events around `reps` calls. A sleep kernel holds the stream while the
-    host queues the calls, so the card runs them back to back and the
-    host's launch cost (tens of us per call from Python) stays out of the
-    time of a kernel that takes less."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    # cycles for 1.5x the host's queueing time at up to 2 GHz
-    cycles = int((1.5 * reps * host_ms + 1.0) * 2e6)
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return sorted(times)[len(times) // 2]
-
-
-def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def attn_bounds(kind, n_b, n_q, n_k, n_valid, dk, dv):
-    """bound() of K4 ("fwd"), K5 ("dq") or K6 ("dkv") on n_b items of
-    n_q queries over n_k keys of which n_valid are valid, at the f32 rate
-    and at the 3xTF32 tensor-core rate (and, for K6 only as a diagnostic,
-    at its own split between the two, "fma_tc"): q, the valid keys' k and
-    v and the mask read once (and for the backward dO, lse and delta), the
-    outputs written once. The card's bound is the 3xTF32 one: it does
-    f32-accurate products at that rate."""
-    per_pair = {"fwd": dk + dv, "dq": 2 * dk + dv, "dkv": 2 * dk + 2 * dv}
-    flops = 2 * n_b * n_q * n_valid * per_pair[kind]
-    if kind == "fwd":
-        n_io = n_q * dk + n_valid * (dk + dv) + n_k + n_q * (dv + 1)
-    else:
-        n_io = (n_q * (dk + dv + 2) + n_valid * (dk + dv) + n_k
-                + (n_q * dk if kind == "dq" else n_k * (dk + dv)))
-    out = {"f32": bound(4 * n_b * n_io, flops),
-           "3xtf32": bound(4 * n_b * n_io, flops, TF32X3_OPS_PER_S)}
-    if kind == "dkv":
-        # K6 as built: S and dV (dk + dv multiply-adds a pair) on the FMA
-        # units, dP and dK (the other dk + dv) on the tensor cores at
-        # 3xTF32; the pipes run at once, so the slower half bounds this
-        # design (a looser bound than the card's, kept beside it)
-        out["fma_tc"] = bound(4 * n_b * n_io, flops / 2)
-    return out
-
-
-def as_bh(t):
-    """(B, L, d) or (L, d) -> (B, 1, L, d), SDPA's batch and head axes."""
-    return t.reshape(-1, 1, *t.shape[-2:])
-
-
-def sdpa_fwd_ms(q, k, v, mask, reps):
-    """SDPA on the same read with the boolean mask: the library time."""
-    import torch.nn.functional as F
-    q4, k4, v4 = as_bh(q), as_bh(k), as_bh(v)
-    m4 = (mask > 0).reshape(-1, 1, 1, mask.shape[-1])
-    return cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=m4), reps)
-
-
-def sdpa_bwd_ms(q, k, v, mask, dout, reps):
-    """SDPA's backward (dQ, dK and dV) on the same read."""
-    import torch
-    import torch.nn.functional as F
-    q4, k4, v4 = (as_bh(t).clone().requires_grad_() for t in (q, k, v))
-    o4 = F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=(mask > 0).reshape(-1, 1, 1, mask.shape[-1]))
-    g4 = as_bh(dout)
-    return cuda_ms(lambda: torch.autograd.grad(
-        o4, (q4, k4, v4), g4, retain_graph=True), reps)
 
 
 def item_mask(name, lq, lk, rng):
@@ -356,10 +269,11 @@ def pool_trimap(x, se, iters):
 def morph_phase(device):
     """K1 and K2 at every call the paths make: bit-exact against the plain
     versions (K2 in both directions) on a soft mask, the hard masks and a
-    batch of N_SEGMENTS (run_segmented's (S, H, W) calls), one launch a
+    batch of N_SEGMENTS times the call's planes a frame (run_segmented's
+    (S, H, W) calls; the fused bg regionfill's (3S, h, w)), one launch a
     call; then timed beside the plain version and the max_pool2d chain
-    (itself held bit-exact first), and the green path's calls (the trimap
-    and the band) also at the batch. Returns the rows of K1 and K2."""
+    (itself held bit-exact first), and the green and fused bg paths' calls
+    also at the batch. Returns the rows of K1 and K2."""
     import torch
     from video_unscreen_tpu_torch.ops.kernels import morph as km
     from video_unscreen_tpu_torch.ops.kernels.morph_cases import (
@@ -376,16 +290,18 @@ def morph_phase(device):
                     max_abs_err=0.0, by_call=[])
             for k, ln in (("trimap", 80), ("morph", 89))}
     n_checked = 0
-    for i, (kernel, caller, (h, w), se, iters) in enumerate(MORPH_CALLS):
+    for i, (kernel, caller, (h, w), se, iters, planes) in enumerate(
+            MORPH_CALLS):
         offs = se_offsets(se)
         counter = km.TRIMAP if kernel == "trimap" else km.MORPH
         soft = torch.from_numpy(soft_mask(h, w, SEED + 10 + i)).to(device)
         hard = [torch.from_numpy(morph_hard_mask(n, h, w)).to(device)
                 for n in MORPH_HARD_MASKS]
-        # S frames: the soft mask, the hard masks and more soft masks
+        # S frames of `planes`: the soft mask, the hard masks and more
+        # soft masks
         batch = torch.stack([soft, *hard] + [
             torch.from_numpy(soft_mask(h, w, SEED + 100 * j + i)).to(device)
-            for j in range(N_SEGMENTS - 1 - len(hard))])
+            for j in range(N_SEGMENTS * planes - 1 - len(hard))])
         before = (counter.calls, counter.launches)
         for x in [soft, *hard, batch]:
             for dil in ((True,) if kernel == "trimap" else (True, False)):
@@ -432,7 +348,7 @@ def morph_phase(device):
               f"iters={iters} ({caller}): {ms:.4f} ms, {launches:g} launch a "
               f"call (plain {plain:.4f} ms, max_pool2d chain of {n_lib} "
               f"calls {lib:.4f} ms, bound {b:.5f} ms by {by})", flush=True)
-        if caller.startswith("green"):  # batched in run_segmented
+        if caller.startswith(("green", "fused bg")):  # run_segmented's
             if kernel == "trimap":
                 fn = lambda: km.trimap(batch, offs, iters)
                 plain_fn = lambda: km.trimap_plain(batch, offs, iters)
@@ -465,8 +381,8 @@ def morph_phase(device):
                        pool_chain_ms=main["pool_chain_ms"],
                        pool_chain_calls=main["pool_chain_calls"])
     print(f"  K1, K2: bit-exact in {n_checked} checks (the soft mask, "
-          f"{', '.join(MORPH_HARD_MASKS)} and a batch of {N_SEGMENTS} at "
-          f"each call; "
+          f"{', '.join(MORPH_HARD_MASKS)} and a batch of {N_SEGMENTS} "
+          f"times the planes a frame at each call; "
           f"K1 iters 20 and 60, K2 iters 60 on the soft mask)", flush=True)
     return rows
 
@@ -973,23 +889,6 @@ def train_phases(stm_weights):
     return counts
 
 
-def bg_config(stm_weights, matting_weights):
-    """configs/bg.json with the weights-free chroma seed at 960 (the SCHP
-    seed is not ported yet)."""
-    from video_unscreen_tpu_torch.config import load_config
-    cfg = load_config(str(ROOT / "configs" / "bg.json"))
-    cfg["binseg"] = {"type": "chroma", "input_long_side": 960}
-    cfg["stm"]["model_path"] = str(stm_weights)
-    cfg["vmatting"]["model_path"] = str(matting_weights)
-    return cfg
-
-
-def iou(alpha, gt):
-    import numpy as np
-    p = alpha >= 128
-    return float((gt & p).sum() / max((gt | p).sum(), 1))
-
-
 def within_bound(got, want):
     import numpy as np
     d = np.abs(got.astype(np.int16) - want.astype(np.int16))
@@ -1073,18 +972,6 @@ def agreement(a, b):
     """Per frame, the share of pixels on which a >= 128 and b >= 128
     agree."""
     return [float(((x >= 128) == (y >= 128)).mean()) for x, y in zip(a, b)]
-
-
-def net_flops(build, *shapes):
-    """Operations of one forward of `build()` on zero inputs of `shapes`,
-    counted by `torch.utils.flop_counter` on the meta device."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-    with torch.device("meta"):
-        net = build().eval()
-        with FlopCounterMode(display=False) as counter:
-            net(*[torch.zeros(*s) for s in shapes])
-    return counter.get_total_flops()
 
 
 def seed_rows(segs, frame):
@@ -1282,6 +1169,272 @@ def segmented_phase(pipe16, pipe32):
     return seg_counts
 
 
+def fused_bg_read_phase(device, rows):
+    """(a) K4 at the fused bg read: B segments of Lq 2040 over a ring bank
+    of FUSED_BANK slots plus the previous frame (Lk 6120), the first
+    bank_n slots valid; against the plain version, timed beside SDPA and
+    the bound over the valid keys. Adds rows["attention"]["fused_bg"]."""
+    import torch
+    from video_unscreen_tpu_torch.ops.kernels import attention as ka
+
+    lq, dk, dv = ATTN_LQ, ATTN_DK, ATTN_DV
+    lk = (FUSED_BANK + 1) * lq
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    out = {}
+    err = rel = 0.0
+    for b in (1, N_SEGMENTS):
+        q, k, v = (torch.randn(*s, generator=gen, device=device)
+                   for s in ((b, lq, dk), (b, lk, dk), (b, lk, dv)))
+        for bank_n in range(FUSED_BANK + 1):
+            valid = torch.tensor([s < bank_n or s == FUSED_BANK
+                                  for s in range(FUSED_BANK + 1)],
+                                 device=device)
+            mask = valid.float().repeat_interleave(lq).expand(
+                b, -1).contiguous()
+            for g, t in zip(ka.masked_memory_attention(q, k, v, mask),
+                            ka.attention_plain(q, k, v, mask)):
+                e = held_close(f"fused bg read B {b} bank_n {bank_n}", g, t)
+                err, rel = max(err, e[0]), max(rel, e[1])
+            n_valid = int(mask[0].sum())
+            bd = attn_bounds("fwd", b, lq, lk, n_valid, dk, dv)
+            ms = cuda_ms(lambda: ka.masked_memory_attention(q, k, v, mask),
+                         20)
+            plain = cuda_ms(lambda: ka.attention_plain(q, k, v, mask), 3,
+                            rounds=3)
+            lib = sdpa_fwd_ms(q, k, v, mask, 3)
+            out[f"b{b}_bank{bank_n}"] = dict(
+                batch=b, lq=lq, lk=lk, valid_keys=n_valid, ms=ms,
+                plain_ms=plain, library_ms=lib, bound_ms=bd["3xtf32"][0],
+                bound_by=bd["3xtf32"][1], bound_f32_ms=bd["f32"][0])
+            print(f"  K4 fused bg read B {b} x Lq {lq}, Lk {lk}, bank_n "
+                  f"{bank_n} ({n_valid} valid keys): {ms:.4f} ms (plain "
+                  f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+                  f"{bd['3xtf32'][0]:.4f} ms at 3xTF32 / {bd['f32'][0]:.4f} "
+                  f"ms at f32)", flush=True)
+    rows["attention"]["fused_bg"] = out
+    rows["attention"]["max_abs_err"] = max(rows["attention"]["max_abs_err"],
+                                           err)
+    rows["attention"]["max_rel_err"] = max(rows["attention"]["max_rel_err"],
+                                           rel)
+    print(f"  fused bg reads: max |diff| {err:.3g} (relative {rel:.3g})",
+          flush=True)
+
+
+def fused_bg_pipes(cfg, types=("bf16", "f32"), **kw):
+    """{"bf16": the shipped types, "f32": every net in float32} fused bg
+    pipelines at 1080p -> 544x960 on the card."""
+    import torch
+    from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
+    f32 = dict(matting_dtype=torch.float32, stm_dtype=torch.float32,
+               seg_dtype=torch.float32)
+    return {k: FusedBgPipeline(cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
+                               device="cuda", **(f32 if k == "f32" else {}),
+                               **kw) for k in types}
+
+
+def fused_bg_phase(frames, gts, stm_weights, matting_weights):
+    """(b) fused bg (configs/bg.json with the chroma seed) on the 8 1080p
+    frames in bfloat16 and float32, counts reset just before the bfloat16
+    run; then float32 card against host on 2 smaller frames. Returns (the
+    bfloat16 run's kernel counts, its pipeline)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = bg_config(stm_weights, matting_weights)
+    pipes = fused_bg_pipes(cfg)
+    check(pipes["bf16"].stm.model.kv_q.convs[0].weight.dtype
+          == torch.bfloat16, "the fused bg STM is not bfloat16")
+    alphas, counts = {}, None
+    for k, pipe in pipes.items():
+        pipe.run(frames[:2])   # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        (a, segm, fg, bgs), secs, c = timed_run(pipe.run, frames)
+        if k == "bf16":
+            counts = c
+        check(a.shape == (N_FRAMES,) + pipe.work_hw and a.dtype == np.uint8
+              and fg.shape == bgs.shape == a.shape + (3,)
+              and segm.shape == a.shape, f"fused bg {k} output shapes")
+        ious = gt_ious(a, gts, pipe.work_hw)
+        st = pipe.stats
+        print(f"  fused bg {k}, {N_FRAMES} frames 1080p -> 544x960: "
+              f"{N_FRAMES / secs:.3f} frames/s; {st['syncs'] / N_FRAMES:.3f} "
+              f"host syncs a frame ({st['cg_syncs']} CG checks, "
+              f"{st['cg_iters']} CG iterations over {3 * N_FRAMES} "
+              f"channel solves); tracked {st['tracked_frames']}, seeded "
+              f"{st['seeded_frames']}, ballooned {st['ballooned_frames']}; "
+              f"IoU {[round(v, 4) for v in ious]}, mean {np.mean(ious):.4f}; "
+              f"(calls, launches) {c}", flush=True)
+        check(ious[0] > 0.8 and np.mean(ious) > 0.75,
+              f"fused bg {k} IoU with the ground truth {ious}")
+        alphas[k] = a
+    check_launched(counts, "fused bg", ("trimap", "morph", "flood",
+                                        "attention"))
+    agree = agreement(alphas["bf16"], alphas["f32"])
+    print(f"  fused bg bfloat16 vs float32: alpha >= 128 agrees on "
+          f"{min(agree):.6f} of pixels (worst frame)", flush=True)
+    check(min(agree) >= BG_BF16_ALPHA_AGREE,
+          f"fused bg bfloat16 vs float32 masks {agree}")
+    phase(f"fused bg ({N_FRAMES} frames, bfloat16 and float32)", t0)
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    small, _ = green_clip(N_CPU_FRAMES, *BG_HOST_HW, seed=SEED)
+    from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
+    runs = {dev: FusedBgPipeline(
+        cfg, BG_HOST_HW, work_long_side=BG_HOST_HW[1],
+        matting_dtype=torch.float32, stm_dtype=torch.float32,
+        seg_dtype=torch.float32, device=dev).run(small) for dev in
+        ("cuda", "cpu")}
+    dmax, frac = within_bound(runs["cuda"][0], runs["cpu"][0])
+    phase(f"fused bg host run ({N_CPU_FRAMES} frames at {BG_HOST_HW[0]}x"
+          f"{BG_HOST_HW[1]})", t0)
+    print(f"  fused bg float32 card vs host alphas: max |diff| {dmax}, "
+          f"|diff| > 1 on {frac:.6f}", flush=True)
+    check(dmax <= 4 and frac < 1e-3,
+          f"fused bg card vs host alphas: max {dmax}, frac>1 {frac}")
+    return counts, pipes["bf16"]
+
+
+def fused_bg_segmented_run(pipe, frames, gts, label):
+    """`run_segmented` with S = 8, chunks of 4 (bench.py's bg setting) on
+    `frames`, after a one-step warm-up; returns (outputs, IoUs, kernel
+    counts, the seed's forwards and frames in the timed run)."""
+    import numpy as np
+    import torch
+    n = len(frames)
+    pipe.run_segmented(frames[:N_SEGMENTS], N_SEGMENTS, SEG_CHUNK)
+    torch.cuda.synchronize()
+    seed = pipe.seg
+    before = (seed.forwards, seed.frames) if seed is not None else (0, 0)
+    out, secs, counts = timed_run(pipe.run_segmented, frames, N_SEGMENTS,
+                                  SEG_CHUNK)
+    seeded = ((seed.forwards - before[0], seed.frames - before[1])
+              if seed is not None else None)
+    ious = gt_ious(out[0], gts, pipe.work_hw)
+    st = pipe.stats
+    seg_len = n // N_SEGMENTS
+    print(f"  fused bg run_segmented {label}, S {N_SEGMENTS} x {seg_len} "
+          f"frames, chunks of {SEG_CHUNK}: {n / secs:.3f} "
+          f"frames/s; {st['syncs'] / n:.3f} host syncs a frame; tracked "
+          f"{st['tracked_frames']}, seeded {st['seeded_frames']} in "
+          f"{st['seed_steps']} seed steps, ballooned "
+          f"{st['ballooned_frames']}; IoU min {min(ious):.4f} mean "
+          f"{np.mean(ious):.4f}; (calls, launches) {counts}", flush=True)
+    return out, ious, counts, seeded
+
+
+def fused_bg_segmented_phase(pipe16, stm_weights, matting_weights):
+    """(c) `run_segmented` as bench.py runs bg: S = 8, chunks of 4, 64
+    frames (8-frame segments), bfloat16; then float32 with pass 1 at full
+    resolution, segment 0 held to the sequential run of its frames within
+    the JAX bound. Returns the bfloat16 run's kernel counts."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    n = N_SEGMENTS * BG_SEG_FRAMES
+    frames, gts = green_clip(n, *FRAME_HW, seed=SEED + 1)
+    _, ious, counts, _ = fused_bg_segmented_run(pipe16, frames, gts,
+                                                "bf16")
+    check(ious[0] > 0.8 and np.mean(ious) > 0.75,
+          f"fused bg run_segmented IoU {ious}")
+    check_launched(counts, "fused bg run_segmented",
+                   ("trimap", "morph", "flood", "attention"))
+    cfg = bg_config(stm_weights, matting_weights)
+    pipe32 = fused_bg_pipes(cfg, ("f32",), pass1_downscale=1)["f32"]
+    (a_seg, _, _, _), _, _, _ = fused_bg_segmented_run(
+        pipe32, frames, gts, "f32 pass 1 at 1")
+    seq = pipe32.run(frames[:BG_SEG_FRAMES])[0]
+    dmax, frac = within_bound(a_seg[:BG_SEG_FRAMES], seq)
+    print(f"  fused bg float32 segment 0 vs the sequential run of its "
+          f"frames: max |diff| {dmax}, |diff| > 1 on {frac:.6f}", flush=True)
+    check(dmax <= 4 and frac < 1e-3,
+          f"fused bg segment 0 vs sequential: max {dmax}, frac>1 {frac}")
+    phase(f"fused bg run_segmented (S {N_SEGMENTS}, {n} frames)", t0)
+    return counts
+
+
+def schp_phase(frame, stm_weights, matting_weights, rows):
+    """(d) the SCHP seed at full width on seeded weights (the copy cannot
+    hold the shipped ones): its time in float32 and bfloat16 at the work
+    frame (each in its shipped layout), beside its operations and bound; card
+    against host in float32 on a 270x480 frame at crop 473; then (c) with
+    `binseg: human` on those weights, the seed's forwards against the
+    frames that were not tracking or ballooned. Returns that run's kernel
+    counts."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.agents.binseg import HumanSegAgent
+    from video_unscreen_tpu_torch.models import human_parse
+
+    t0 = time.perf_counter()
+    agents = {"f32": HumanSegAgent(device="cuda", seed=SEED),
+              "bf16": HumanSegAgent(device="cuda", seed=SEED,
+                                    dtype=torch.bfloat16)}
+    h, w = frame.shape[:2]
+    crop = agents["f32"].input_size
+    flops = net_flops(human_parse.SCHPHumanParser, (1, 3) + crop)
+    out = dict(flops=flops, frame=[h, w], crop=list(crop))
+    for name, rate in (("f32", F32_OPS_PER_S), ("bf16", BF16_OPS_PER_S)):
+        agent = agents[name]
+        ms = cuda_ms(lambda: agent.predict_mask_impl(frame), 5, rounds=5)
+        out[name] = dict(ms=ms, bound_ms=flops / rate * 1e3)
+        print(f"  SCHP seed {name} at {h}x{w} -> {crop[0]}x{crop[1]} "
+              f"({flops / 1e9:.2f} GFLOP a frame): {ms:.3f} ms (bound "
+              f"{flops / rate * 1e3:.3f} ms at {rate / 1e12:.0f} TFLOP/s)",
+              flush=True)
+    rows["schp"] = out
+    m16 = agents["bf16"].predict_mask_impl(frame)
+    check(m16.dtype == torch.float32 and bool(torch.isfinite(m16).all()),
+          "bfloat16 SCHP masks not finite float32")
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    small = torch.from_numpy(green_clip(1, *BG_HOST_HW, seed=SEED)[0][0])
+    card = agents["f32"].predict_logits(small.to(torch.float32).cuda()).cpu()
+    host = HumanSegAgent(device="cpu", seed=SEED).predict_logits(
+        small.to(torch.float32))
+    err = float((card - host).abs().max())
+    scale = max(1.0, float(host.abs().max()))
+    check(err <= 1e-4 * scale, f"SCHP card vs host logits: max |diff| "
+          f"{err} (scale {scale})")
+    top2 = host.topk(2, dim=0).values
+    sure = (top2[0] - top2[1]) > 1e-3
+    same = (card.argmax(0) > 0) == (host.argmax(0) > 0)
+    check(bool(same[sure].all()), "SCHP card vs host masks differ where "
+          "the top-two margin > 1e-3")
+    print(f"  SCHP card vs host ({BG_HOST_HW[0]}x{BG_HOST_HW[1]} -> "
+          f"{crop[0]}x{crop[1]}, float32): logits max |diff| {err:.3g} "
+          f"(scale {scale:.3g}); masks equal on all {int(sure.sum())} "
+          f"decided pixels ({int((~sure).sum())} within 1e-3)", flush=True)
+    phase("SCHP seed (seeded weights), float32 and bfloat16", t0)
+
+    t0 = time.perf_counter()
+    cfg = bg_config(stm_weights, matting_weights)
+    cfg["binseg"] = {"type": "human", "seed": SEED}
+    pipe = fused_bg_pipes(cfg, ("bf16",))["bf16"]
+    check(isinstance(pipe.seg, HumanSegAgent), "the fused bg seed is not "
+          "SCHP")
+    n = N_SEGMENTS * BG_SEG_FRAMES
+    frames, gts = green_clip(n, *FRAME_HW, seed=SEED + 1)
+    _, _, counts, got = fused_bg_segmented_run(
+        pipe, frames, gts, "bf16, SCHP on seeded weights")
+    seeded = pipe.step_seeded
+    want = (sum(1 for t in seeded if any(t)), sum(sum(t) for t in seeded))
+    check(got == want, f"SCHP seed forwards, frames {got}, want {want} from "
+          f"the frames not tracking or ballooned")
+    check(all(seeded[0]), "the SCHP seed did not run on every segment's "
+          "first frame")
+    print(f"  SCHP seed forwards, frames {got} (the steps with a segment "
+          f"not tracking or ballooned, and those segments); random SCHP "
+          f"masks change how often STM tracks, so these frames/s are not "
+          f"the shipped weights' rate", flush=True)
+    check_launched(counts, "fused bg with SCHP", ("trimap", "morph",
+                                                  "flood"))
+    phase(f"fused bg run_segmented with SCHP (S {N_SEGMENTS}, {n} frames)",
+          t0)
+    return counts
+
+
 def default_paths(device):
     """The default run: every phase but the DeepLab weights; returns
     (kernel counts by path, kernel rows)."""
@@ -1363,6 +1516,15 @@ def default_paths(device):
     counts["segmented"] = segmented_phase(pipe16, pipe)
 
     counts["bg"] = bg_phases(frames, gts, stm_weights, weights)
+    t0 = time.perf_counter()
+    fused_bg_read_phase(device, rows)
+    phase("K4 at the fused bg read", t0)
+    counts["fused_bg"], pipe_bg = fused_bg_phase(frames, gts, stm_weights,
+                                                 weights)
+    counts["fused_bg_segmented"] = fused_bg_segmented_phase(
+        pipe_bg, stm_weights, weights)
+    del pipe_bg
+    counts["fused_bg_schp"] = schp_phase(work, stm_weights, weights, rows)
     counts["train"] = train_phases(stm_weights)
     return counts, rows
 
@@ -1483,6 +1645,7 @@ def main(argv=None):
     ap.add_argument("--paths", choices=("default", "green_deeplab"),
                     default="default")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1537,7 +1700,9 @@ def main(argv=None):
                         launches=sum(n["launches"] for n in by_path.values()),
                         calls=sum(n["calls"] for n in by_path.values()),
                         by_path=by_path, **row))
-    print(json.dumps({"seed": rows["seed"]}))
+    print(json.dumps({k: rows[k] for k in ("seed", "schp") if k in rows}))
+    print(f"total wall seconds: {time.perf_counter() - t_start:.1f}",
+          flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

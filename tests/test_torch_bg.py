@@ -26,7 +26,7 @@ from video_unscreen_tpu.pipeline import bg as jbg
 from video_unscreen_tpu.pipeline import common as jcommon
 from video_unscreen_tpu.pipeline import run_bg
 from video_unscreen_tpu_torch.agents.binseg import (ChromaSegAgent,
-                                                    SegAgent,
+                                                    HumanSegAgent, SegAgent,
                                                     build_seg_agent)
 from video_unscreen_tpu_torch.agents.stm import STMAgent
 from video_unscreen_tpu_torch.agents.trimap import TrimapAgent
@@ -89,15 +89,18 @@ def test_chroma_seg_agent(clip):
 
 @pytest.mark.parametrize("kind", ["human", "deeplab"])
 def test_unported_seeds_raise(kind):
-    """SCHP ("human") is not ported and raises. DeepLab is: it builds a
-    SegAgent, and a configured weights file that is missing raises."""
+    """Both neural seeds are ported: SCHP ("human") builds a
+    HumanSegAgent and DeepLab a SegAgent, and a configured weights file
+    that is missing raises."""
     if kind == "human":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_seg_agent({"type": kind, "model_path": "x"}, device="cpu")
-        return
-    agent = build_seg_agent({"type": kind, "crop_h": 64, "crop_w": 64},
-                            device="cpu")
-    assert isinstance(agent, SegAgent) and agent.crop_h == 64
+        agent = build_seg_agent({"type": kind, "crop_h": 64, "crop_w": 64,
+                                 "layers": (1, 1, 1, 1)}, device="cpu")
+        assert isinstance(agent, HumanSegAgent)
+        assert agent.input_size == (64, 64)
+    else:
+        agent = build_seg_agent({"type": kind, "crop_h": 64, "crop_w": 64},
+                                device="cpu")
+        assert isinstance(agent, SegAgent) and agent.crop_h == 64
     with pytest.raises(FileNotFoundError):
         build_seg_agent({"type": kind, "model_path": "x"}, device="cpu")
 

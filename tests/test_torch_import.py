@@ -75,17 +75,20 @@ def test_port_trainer_imports_nothing_of_jax():
 
 @pytest.mark.parametrize("entry", ["pipeline", "run_fused", "bg_run",
                                    "stm_agent", "stm_train_state",
-                                   "seg_agent", "run_segmented"])
+                                   "seg_agent", "run_segmented", "fused_bg",
+                                   "human_seg_agent"])
 def test_entry_points_refuse_missing_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal path does not run")
     from tests.test_pipeline_bg import BG_TEST_CFG
     from tests.test_pipeline_green import TEST_CFG
-    from video_unscreen_tpu_torch.agents.binseg import SegAgent
+    from video_unscreen_tpu_torch.agents.binseg import (HumanSegAgent,
+                                                        SegAgent)
     from video_unscreen_tpu_torch.agents.stm import STMAgent
     from video_unscreen_tpu_torch.parallel.train_stm import \
         make_stm_train_state
     from video_unscreen_tpu_torch.pipeline import bg
+    from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
     from video_unscreen_tpu_torch.pipeline.fused_green import (
         FusedGreenPipeline, run_fused)
     frames = [torch.zeros((96, 128, 3), dtype=torch.uint8).numpy()]
@@ -102,17 +105,21 @@ def test_entry_points_refuse_missing_cuda(entry):
             SegAgent()
         elif entry == "run_segmented":
             run_fused(TEST_CFG, frames * 2, work_long_side=128, segments=2)
+        elif entry == "fused_bg":
+            FusedBgPipeline(BG_TEST_CFG, (96, 128), work_long_side=128)
+        elif entry == "human_seg_agent":
+            HumanSegAgent(layers=(1, 1, 1, 1))
         else:
             make_stm_train_state()
 
 
 def test_unported_options_raise():
+    from tests.test_pipeline_bg import BG_TEST_CFG
     from tests.test_pipeline_green import TEST_CFG
-    from video_unscreen_tpu_torch.pipeline.fused_green import (
-        FusedGreenPipeline, run_fused)
+    from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
+    from video_unscreen_tpu_torch.pipeline.fused_green import run_fused
     with pytest.raises(NotImplementedError):
         run_fused(TEST_CFG, [], save=True, device="cpu")
-    cfg = dict(TEST_CFG, binseg={"type": "human",
-                                 "model_path": "weights/x.msgpack"})
-    with pytest.raises(NotImplementedError):
-        FusedGreenPipeline(cfg, (96, 128), work_long_side=128, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10a"):
+        FusedBgPipeline(BG_TEST_CFG, (96, 128), work_long_side=128,
+                        wire="yuv420", device="cpu")

@@ -104,14 +104,25 @@ def _hold_call(kernel, x, offs, iters):
         assert_equal(got, want)
 
 
+# run_segmented's S (bench.py's segments)
+N_SEGMENTS = 8
+
+
 @cuda
-@pytest.mark.parametrize("kernel,caller,shape,se,iters", MORPH_CALLS)
-def test_morph_kernels_on_paths(kernel, caller, shape, se, iters):
-    """Every K1 and K2 call the green, bg and training paths make
-    (`morph_cases.MORPH_CALLS`), bit-exact and one launch."""
+@pytest.mark.parametrize("kernel,caller,shape,se,iters,planes", MORPH_CALLS)
+def test_morph_kernels_on_paths(kernel, caller, shape, se, iters, planes):
+    """Every K1 and K2 call the green, bg, fused bg and training paths
+    make (`morph_cases.MORPH_CALLS`), bit-exact and one launch: on one
+    frame and on the batch run_segmented gives it (S frames of `planes`
+    planes each)."""
     require_cuda()
-    _hold_call(kernel, _dev(soft_mask(*shape, seed=iters)), se_offsets(se),
-               iters)
+    offs = se_offsets(se)
+    _hold_call(kernel, _dev(soft_mask(*shape, seed=iters)), offs, iters)
+    batch = np.stack([soft_mask(*shape, seed=iters + j)
+                      for j in range(N_SEGMENTS * planes - 2)]
+                     + [morph_hard_mask("edges", *shape),
+                        morph_hard_mask("checkerboard", *shape)])
+    _hold_call(kernel, _dev(batch), offs, iters)
 
 
 @cuda
@@ -300,6 +311,34 @@ def test_attention_kernel(shape, mask_name):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     if mask_name == "none":
         assert not out.any() and not lse.any()
+
+
+@cuda
+@pytest.mark.parametrize("bank_n", [0, 1, 2])
+@pytest.mark.parametrize("b", [1, 8])
+def test_attention_kernel_fused_bg(b, bank_n):
+    """K4 at the fused bg read: Lq 2040 over a ring bank of 2 slots plus
+    the previous frame (Lk 3 x 2040 = 6120), the first `bank_n` slots and
+    the last valid, on a batch of b segments in one call; against the
+    plain version, rtol 1e-4, atol 1e-5."""
+    require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lq, slots = 2040, 3
+    gen = torch.Generator(device="cuda").manual_seed(bank_n)
+    q, k, v = (torch.randn(*s, generator=gen, device="cuda")
+               for s in ((b, lq, 128), (b, slots * lq, 128),
+                         (b, slots * lq, 512)))
+    valid = torch.tensor([s < bank_n or s == slots - 1
+                          for s in range(slots)], device="cuda")
+    mask = valid.float().repeat_interleave(lq).expand(b, -1).contiguous()
+    before = (ka.ATTENTION.calls, ka.ATTENTION.launches)
+    out, lse = ka.masked_memory_attention(q, k, v, mask)
+    assert (ka.ATTENTION.calls, ka.ATTENTION.launches) == (
+        before[0] + 1, before[1] + 2)
+    want_out, want_lse = ka.attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    for got, want in ((out, want_out), (lse, want_lse)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
 @cuda

@@ -138,3 +138,29 @@ def test_regionfill_channels_and_empty_hole(factor):
     np.testing.assert_array_equal(
         np.asarray(jrf.regionfill(jnp.asarray(imgs[0]), jnp.asarray(empty),
                                   factor)), imgs[0])
+
+
+@pytest.mark.parametrize("factor", [1.0, 0.5])
+def test_regionfill_solve_holes_per_channel(factor):
+    """The fused bg pipeline's batch: S x 3 channels, each segment with
+    its own hole and warm start, in one `regionfill_solve`; each channel
+    against its own JAX solve (`regionfill_with_state`), and each stops on
+    the iteration its own copy of JAX's loop stops."""
+    imgs = np.stack([_image(s) for s in (0, 1, 2, 3)])
+    masks = np.stack([_hole(s) for s in (0, 0, 1, 2)])   # 0 shared twice
+    sh, sw = trf.solve_shape(H, W, factor)
+    x0 = np.stack([_image(s + 7)[:sh, :sw] for s in range(4)])
+    got, sol, iters = trf.regionfill_solve(tt(imgs), tt(masks), factor, 400,
+                                           1e-5, tt(x0))
+    for c in range(4):
+        want, want_sol = jrf.regionfill_with_state(
+            jnp.asarray(imgs[c]), jnp.asarray(masks[c]), factor, 400, 1e-5,
+            jnp.asarray(x0[c]))
+        assert np.abs(nn_(got[c]) - np.asarray(want)).max() <= 1e-2
+        assert np.abs(nn_(sol[c]) - np.asarray(want_sol)).max() <= 1e-2
+        if factor == 1.0:
+            _, k_jax = _jax_cg(jnp.asarray(imgs[c]), masks[c] > 0,
+                               jnp.asarray(x0[c]), 1e-5, 400)
+            assert int(iters[c]) == k_jax, (c, int(iters[c]), k_jax)
+    assert len(set(iters.tolist())) > 1   # the channels stop apart
+    assert trf.cg_syncs(iters) == -(-int(iters.max()) // 16)

@@ -4,7 +4,7 @@
 
 Runs `video_unscreen_tpu_torch/pipeline/bg.py:run` (configs/bg.json with
 the chroma seed at 960, 1080p frames, STM and matting at 544x960) on the
-seeded synthetic frames of `chip_smoke.py:green_clip`: a 2-frame warm-up,
+seeded synthetic frames of `utils/synthetic.py:green_clip`: a 2-frame warm-up,
 then once under `torch.profiler` with each stage in a `record_function`
 span; the profiled run reuses the warm-up's agents, so the window holds
 the frames and no weight loading. Prints per stage the device time of the kernels launched inside the
@@ -28,7 +28,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from chip_smoke import bg_config, green_clip  # noqa: E402
+from video_unscreen_tpu_torch.utils.synthetic import (  # noqa: E402
+    bg_config, green_clip)
 from profile_torch_green import busy_ms, device_kernels, spanned  # noqa
 from video_unscreen_tpu_torch.agents import (binseg, stm, trimap,  # noqa
                                              vmatting)

@@ -8,7 +8,7 @@ Runs `video_unscreen_tpu_torch`'s `FusedGreenPipeline` (configs/green.json,
 DeepLab seed from weights/deeplab_binseg.msgpack; matting and seed in the
 pipeline's default bfloat16; `run`, or
 `run_segmented` with S segments of 4-frame chunks) on the seeded synthetic
-frames of `chip_smoke.py:green_clip`, first three times unprofiled
+frames of `utils/synthetic.py:green_clip`, first three times unprofiled
 (frames/s of each run, for the run-to-run spread), then once under
 `torch.profiler`, with
 each stage wrapped in a `record_function` span, and prints per stage the device time (kernels launched inside the span) and the
@@ -30,7 +30,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import green_clip  # noqa: E402
+from video_unscreen_tpu_torch.utils.synthetic import green_clip  # noqa
 from video_unscreen_tpu_torch.config import load_config  # noqa: E402
 from video_unscreen_tpu_torch.models.matting_unet import \
     MattingUNet  # noqa: E402

@@ -12,7 +12,7 @@ four a query tile, each doing a dv-128 block's work), and prints one JSON
 line. Equal times mean the recomputation runs on SMs that would otherwise
 idle: one block a query tile forming q k^T once would do four chunks of
 P V on 32 SMs. Needs CUDA; device time from CUDA events
-(`chip_smoke.cuda_ms`).
+(`utils/timing.py:cuda_ms`).
 """
 
 import json
@@ -24,7 +24,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import ATTN_DK, ATTN_LQ, ATTN_SLOTS, cuda_ms  # noqa: E402
+from video_unscreen_tpu_torch.utils.timing import (  # noqa: E402
+    ATTN_DK, ATTN_LQ, ATTN_SLOTS, cuda_ms)
 from video_unscreen_tpu_torch.ops.kernels import attention as ka  # noqa
 
 

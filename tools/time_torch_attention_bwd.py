@@ -4,10 +4,10 @@ of their paths, on one NVIDIA card.
 
     python tools/time_torch_attention_bwd.py
 
-Times each kernel's call (CUDA events, `chip_smoke.cuda_ms`) beside
+Times each kernel's call (CUDA events, `utils/timing.py:cuda_ms`) beside
 SDPA's backward on the same read (dQ, dK and dV from one
 `torch.autograd.grad`, boolean mask) and the kernels' 3xTF32 and f32
-bounds (`chip_smoke.attn_bounds`, over the valid keys; for K6 also the
+bounds (`utils/timing.py:attn_bounds`, over the valid keys; for K6 also the
 bound of its split between FMA units and tensor cores), at: bg's read
 (Lq 2040, Lk 22440, dk 128, dv 512) with the STM mask, every key valid
 and no valid key; the default training batch (8 x Lq 64, Lk 128, every
@@ -24,8 +24,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (ATTN_DK, ATTN_DV, ATTN_LQ, ATTN_SLOTS,  # noqa: E402
-                        attn_bounds, cuda_ms, sdpa_bwd_ms)
+from video_unscreen_tpu_torch.utils.timing import (  # noqa: E402
+    ATTN_DK, ATTN_DV, ATTN_LQ, ATTN_SLOTS, attn_bounds, cuda_ms, sdpa_bwd_ms)
 from video_unscreen_tpu_torch.ops.kernels import attention as ka  # noqa
 
 

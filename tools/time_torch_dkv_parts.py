@@ -9,7 +9,7 @@ Builds the kernel library once for each variant below through
 that `csrc/attention.cu` reads (the outputs of a variant are wrong; only
 its time is read), and times each variant's `vut_attention_bwd_dkv` at
 bg's read with every key valid (Lq 2040, Lk 22440, dk 128, dv 512; the
-wrapper's grid) with CUDA events (`chip_smoke.cuda_ms`):
+wrapper's grid) with CUDA events (`utils/timing.py:cuda_ms`):
   full         the kernel as built;
   no_dv        the FMA warps' dV products;
   no_dp        the tensor-core warps' dP products;
@@ -34,7 +34,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import ATTN_DK, ATTN_DV, ATTN_LQ, ATTN_SLOTS, cuda_ms  # noqa
+from video_unscreen_tpu_torch.utils.timing import (  # noqa: E402
+    ATTN_DK, ATTN_DV, ATTN_LQ, ATTN_SLOTS, cuda_ms)
 from video_unscreen_tpu_torch.ops.kernels import attention as ka  # noqa
 from video_unscreen_tpu_torch.ops.kernels import build  # noqa: E402
 

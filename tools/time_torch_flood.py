@@ -6,7 +6,7 @@
 K3 (`csrc/flood.cu`, connected-component labels with dense ids) runs as a
 few launches a call. This times each launch with CUDA events between them
 (`connected.phase_ms`, calls queued back to back behind a sleep kernel)
-and the whole call as `chip_smoke.py` times it (`chip_smoke.cuda_ms`), on
+and the whole call as `chip_smoke.py` times it (`utils/timing.py:cuda_ms`), on
 the masks `chip_smoke.py` times K3 on: the object-removal labels of the
 green path at 272x480 and of bg mode at 1080x1920 (a thresholded soft
 ellipse with speckle), and a random mask of density 0.45 at each size.
@@ -24,7 +24,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import SEED, cuda_ms, soft_mask  # noqa: E402
+from video_unscreen_tpu_torch.utils.synthetic import soft_mask  # noqa: E402
+from video_unscreen_tpu_torch.utils.timing import cuda_ms  # noqa: E402
+
+SEED = 0
 from video_unscreen_tpu_torch.ops.kernels import connected as kcc  # noqa
 
 

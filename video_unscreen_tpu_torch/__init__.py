@@ -5,9 +5,11 @@ tensor code is PyTorch; each Pallas TPU kernel on a ported path is a CUDA
 kernel written by hand (`csrc/`, bound in `ops/kernels/`). It imports
 torch, numpy and the standard library only.
 
-Ported so far: green-screen unscreen with the chroma seed
-(`pipeline/fused_green.py:FusedGreenPipeline`) and bg mode's modular
-pipeline with the STM tracker (`pipeline/bg.py:run`).
+Ported so far: green-screen unscreen as shipped
+(`pipeline/fused_green.py:FusedGreenPipeline`, the DeepLab or chroma
+seed), bg mode as shipped (`pipeline/fused_bg.py:FusedBgPipeline`, the
+SCHP seed and the STM ring bank) and its modular pipeline
+(`pipeline/bg.py:run`), and STM training (`parallel/train_stm.py`).
 """
 
 __version__ = "0.1.0"

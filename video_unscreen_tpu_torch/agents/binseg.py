@@ -1,10 +1,9 @@
 """Seed segmenters of the non-tracking frames.
 
 Port of `video_unscreen_tpu/agents/binseg.py`: `SegAgent` (DeepLabV3+
-ResNet-50 with grid and flip test-time augmentation), `ChromaSegAgent`
-(the weights-free chroma prior) and `build_seg_agent`. The SCHP seed
-(`"human"`) is not ported yet (ROADMAP.md, Queue 1, item 16): asking for
-it raises.
+ResNet-50 with grid and flip test-time augmentation), `HumanSegAgent`
+(the SCHP human parser, bg mode's seed), `ChromaSegAgent` (the
+weights-free chroma prior) and `build_seg_agent`.
 
 SegAgent's TTA: the crop locations are fixed per frame geometry on the
 host (`_crop_grid`); the crops of every frame, flipped ones mirrored, go
@@ -12,21 +11,31 @@ through ONE forward as one batch; the softmax is taken in float32, flipped
 predictions are mirrored back, and the overlap ensemble is a sum of
 slice-adds divided by the per-pixel count (floored at 1), in the JAX
 package's order.
+
+HumanSegAgent: one whole-frame warp to the crop (473x473 as shipped) by
+the aspect-corrected person box, SCHP, the 1/4 logits upsampled to the
+crop, warped back to the frame, argmax, and > 0 -> 255. Both warps are
+axis-aligned, so each is two products with host-built resampling matrices
+(`ops/geometry.py:warp_planes`); a batch of frames goes through the net as
+one batch.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models.deeplab import build_deeplab
+from ..models.human_parse import SCHPHumanParser
 from ..models.precision import convs_to, empty_module
 from ..ops.chroma import chroma_segment
-from ..ops.geometry import imnormalize, inv_pad_resize, pad_resize
+from ..ops.geometry import (imnormalize, inv_pad_resize, pad_resize,
+                            resize_nchw, warp_matrices, warp_planes)
 from ..parallel.train_stm import init_flax_like
-from ..utils.checkpoint import load_deeplab
+from ..utils.checkpoint import load_deeplab, load_schp
 from ..utils.device import as_float, resolve_device
 
 Loc = Tuple[int, int, bool]
@@ -171,6 +180,108 @@ class SegAgent:
         return (torch.argmax(score, dim=-1) * 255).to(torch.uint8)
 
 
+class HumanSegAgent:
+    """SCHP-LIP human parsing as binary segmentation (bg mode's seed).
+
+    `model_path` is a flax msgpack checkpoint (or a dict of its
+    variables); None gives flax-like random weights from a
+    `torch.Generator` seeded with `seed`. `dtype` is the convolutions'
+    (`models/precision.py`); the logits are float32 either way. `downscale`,
+    `stride_ratio` and `flip` are the SegAgent config's, accepted for
+    parity and ignored with a warning when set, as in the JAX package
+    (SCHP runs one whole-frame warp). `forwards` and `frames` count the
+    net's forwards and the frames segmented."""
+
+    def __init__(self, model_path: Optional[str] = None,
+                 input_long_side: int = 912, downscale: int = 1,
+                 crop_h: int = 473, crop_w: int = 473,
+                 stride_ratio: float = 0.5, flip: bool = True,
+                 cuda_device: int = 0, dtype: torch.dtype = torch.float32,
+                 seed: int = 0, layers: Sequence[int] = (3, 4, 23, 3),
+                 device="cuda"):
+        del input_long_side, cuda_device  # the reference's; unused
+        for name, val, default in (("downscale", downscale, 1),
+                                   ("stride_ratio", stride_ratio, 0.5),
+                                   ("flip", flip, True)):
+            if val != default:
+                warnings.warn(
+                    f"HumanSegAgent ignores {name!r} (accepted for "
+                    f"SegAgent config parity only; SCHP runs one "
+                    f"whole-frame affine warp)", stacklevel=2)
+        self.device = resolve_device(device)
+        self.input_size = (int(crop_h), int(crop_w))
+        model = empty_module(lambda: SCHPHumanParser(20, tuple(layers)))
+        if model_path:
+            model.load_state_dict(load_schp(model_path))
+        else:
+            init_flax_like(model, torch.Generator().manual_seed(seed))
+        self.model = convs_to(model.to(self.device).eval(), dtype)
+        self._warps = {}
+        self.forwards = 0
+        self.frames = 0
+
+    def _transforms(self, h: int, w: int):
+        """Aspect-corrected person-box warp matrices (frame -> crop, crop ->
+        frame), float32 2x3, as the JAX package builds them."""
+        ih, iw = self.input_size
+        aspect = iw / ih
+        cx, cy = (w - 1) * 0.5, (h - 1) * 0.5
+        bw, bh = w - 1, h - 1
+        if bw > aspect * bh:
+            bh = bw / aspect
+        elif bw < aspect * bh:
+            bw = bh * aspect
+        scale_x, scale_y = iw / bw, ih / bh
+        fwd = np.array([[scale_x, 0.0, iw / 2.0 - scale_x * cx],
+                        [0.0, scale_y, ih / 2.0 - scale_y * cy]], np.float32)
+        inv = np.array([[1.0 / scale_x, 0.0, cx - iw / (2.0 * scale_x)],
+                        [0.0, 1.0 / scale_y, cy - ih / (2.0 * scale_y)]],
+                       np.float32)
+        return fwd, inv
+
+    def _warp_pair(self, h: int, w: int):
+        """The resampling matrices of both warps for an (h, w) frame, made
+        once a geometry and kept on the device."""
+        key = (h, w)
+        if key not in self._warps:
+            fwd, inv = self._transforms(h, w)
+            self._warps[key] = (
+                warp_matrices(fwd, (h, w), self.input_size, self.device),
+                warp_matrices(inv, self.input_size, (h, w), self.device))
+        return self._warps[key]
+
+    @torch.inference_mode()
+    def predict_logits(self, frames: torch.Tensor) -> torch.Tensor:
+        """(H, W, 3) or (B, H, W, 3) BGR 0..255 -> (..., 20, H, W) float32
+        logits warped back onto the frame."""
+        batch = frames if frames.dim() == 4 else frames[None]
+        h, w = batch.shape[1:3]
+        to_crop, to_frame = self._warp_pair(h, w)
+        crops = warp_planes(batch.permute(0, 3, 1, 2), *to_crop)
+        norm = imnormalize(crops.permute(0, 2, 3, 1))
+        logits = self.model(norm.permute(0, 3, 1, 2))
+        self.forwards += 1
+        self.frames += batch.shape[0]
+        back = warp_planes(resize_nchw(logits, self.input_size), *to_frame)
+        return back if frames.dim() == 4 else back[0]
+
+    def predict_mask_impl(self, frames: torch.Tensor,
+                          model_axis=None) -> torch.Tensor:
+        """{0, 255} float32 person mask of (H, W, 3) or (B, H, W, 3) frames
+        at their own resolution: class > 0 is the person. `model_axis` is
+        accepted for the seed interface (SCHP has no crop batch to
+        shard)."""
+        del model_axis
+        logits = self.predict_logits(frames)
+        return (torch.argmax(logits, dim=-3) > 0).to(torch.float32) * 255.0
+
+    def forward(self, img) -> torch.Tensor:
+        """BGR frame (numpy or tensor, 0..255) -> uint8 {0, 255} mask on
+        the agent's device."""
+        return self.predict_mask_impl(as_float(img, self.device)).to(
+            torch.uint8)
+
+
 class ChromaSegAgent:
     """Foreground = NOT near the dominant screen color, cleaned by
     open/close morphology, at the frame's own resolution."""
@@ -193,14 +304,12 @@ class ChromaSegAgent:
 
 
 def build_seg_agent(cfg_binseg: dict, device="cuda"):
-    """The agent for a binseg config section. `type` defaults to
-    "deeplab", as in the JAX package."""
+    """The agent for a binseg config section: "deeplab" (the default, as
+    in the JAX package), "human" (SCHP) or "chroma"."""
     kw = dict(cfg_binseg)
     kind = kw.pop("type", "deeplab")
     if kind == "chroma":
         return ChromaSegAgent(device=device, **kw)
     if kind == "human":
-        raise NotImplementedError(
-            "binseg type 'human': the SCHP seed is not ported yet "
-            "(ROADMAP.md, Queue 1, item 16)")
+        return HumanSegAgent(device=device, **kw)
     return SegAgent(device=device, **kw)

@@ -22,6 +22,7 @@ from typing import List, Optional
 
 import torch
 
+from ..models.precision import convs_to
 from ..models.stm import STM
 from ..ops.geometry import (get_target_size, imnormalize, inv_pad_resize,
                             pad_resize)
@@ -34,10 +35,12 @@ class STMAgent:
 
     def __init__(self, model_path: Optional[str] = None,
                  input_long_side: int = 960, memory_step: int = 2,
-                 memory_capacity: int = 10, seed: int = 0, device="cuda"):
+                 memory_capacity: int = 10, seed: int = 0, device="cuda",
+                 dtype: torch.dtype = torch.float32):
         """`model_path` is a flax msgpack checkpoint (or a dict of its
         variables as numpy arrays); None gives random weights from
-        `seed`. `device` is the card unless the caller passes "cpu"."""
+        `seed`. `device` is the card unless the caller passes "cpu".
+        `dtype` is the convolutions' (`models/precision.py`)."""
         self.device = resolve_device(device)
         self.input_long_side = int(input_long_side)
         self.memory_step = int(memory_step)
@@ -47,7 +50,7 @@ class STMAgent:
             model = STM()
         if model_path:
             model.load_state_dict(load_stm(model_path))
-        self.model = model.to(self.device).eval()
+        self.model = convs_to(model.to(self.device).eval(), dtype)
 
     @torch.inference_mode()
     def device_inference(self, frames: List[torch.Tensor],

@@ -24,9 +24,10 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     Eval mode is `nn.BatchNorm2d`'s own forward on the running statistics,
     unchanged. Train mode computes the batch statistics as flax does by
     default (`use_fast_variance=True`): mean = E[x], var = max(E[x^2] -
-    E[x]^2, 0) over N, H and W, in float32, and normalizes with them as
-    (x - mean) * (rsqrt(var + eps) * weight) + bias; the gradient flows
-    through both statistics. It then updates running_mean and running_var
+    E[x]^2, 0) over N, H and W, in at least float32 (flax's
+    `force_float32_reductions`: bfloat16 is promoted), and normalizes with them as (x - mean) *
+    (rsqrt(var + eps) * weight) + bias in that type, returned in x's dtype;
+    the gradient flows through both statistics. It then updates running_mean and running_var
     with momentum 0.99 and that biased variance. The one-pass variance
     loses digits where |mean| >> std, exactly as the reference does; the
     port keeps it so its statistics agree with flax's to f32 rounding
@@ -41,8 +42,9 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         dims = (0, 2, 3)
-        mean = x.mean(dim=dims)
-        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=dims)
+        var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
         with torch.no_grad():
             self.running_mean.mul_(FLAX_MOMENTUM).add_(
                 mean, alpha=1 - FLAX_MOMENTUM)
@@ -50,5 +52,5 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
                 var, alpha=1 - FLAX_MOMENTUM)
             self.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
-                + self.bias[None, :, None, None])
+        return ((xf - mean[None, :, None, None]) * mul[None, :, None, None]
+                + self.bias[None, :, None, None]).to(x.dtype)

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from ..ops.geometry import resize_nchw
 from .batchnorm import FlaxBatchNorm2d
+from .precision import net_input
 from .resnet import ResNet
 
 
@@ -87,13 +88,6 @@ def _dilation(output_stride: int):
     return (False, True, True) if output_stride == 8 else (False, False, True)
 
 
-def _net_input(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """x in the net's dtype and memory layout (the module docstring)."""
-    fmt = (torch.channels_last if dtype == torch.bfloat16
-           else torch.contiguous_format)
-    return x.to(dtype=dtype, memory_format=fmt)
-
-
 class DeepLabV3Plus(nn.Module):
     """DeepLabV3+ over a dilated ResNet: the stage-1 features projected to
     48 channels, the ASPP output upsampled onto their grid, concatenated
@@ -117,7 +111,7 @@ class DeepLabV3Plus(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_hw = x.shape[-2:]
-        feats = self.backbone(_net_input(x, self.cls_out.weight.dtype))
+        feats = self.backbone(net_input(x, self.cls_out.weight.dtype))
         low = F.relu(self.project_bn(self.project_conv(feats["c1"])))
         out = resize_nchw(self.aspp(feats["c4"]), low.shape[-2:])
         out = F.relu(self.cls_bn(self.cls_conv(torch.cat([low, out], dim=1))))
@@ -143,7 +137,7 @@ class DeepLabV3(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_hw = x.shape[-2:]
-        feats = self.backbone(_net_input(x, self.cls_out.weight.dtype))
+        feats = self.backbone(net_input(x, self.cls_out.weight.dtype))
         out = self.aspp(feats["c4"])
         out = F.relu(self.cls_bn(self.cls_conv(out)))
         return resize_nchw(self.cls_out(out), in_hw)

@@ -15,6 +15,14 @@ backward kernels K5 and K6, on a CPU tensor their plain versions; there is
 no other branch; under `torch.no_grad` only K4 runs. In train
 mode (`nn.Module.train()`, the JAX package's `train=True`) the BatchNorms
 update their statistics as flax's do (`batchnorm.FlaxBatchNorm2d`).
+
+The net runs in its convolutions' dtype (`models/precision.py:convs_to`;
+the fused bg pipeline's default is bfloat16): the inputs are cast to it,
+the memory keys and values come out in it, and the read takes q, k and v
+upcast to float32 (K4; float64 stays), as the JAX package's einsum read with
+`preferred_element_type=float32` multiplies bfloat16-stored values
+exactly and sums in float32; the decoder casts the read back.
+
 Submodule names follow flax's creation order (`convs.N` for `Conv_N`,
 `resblocks.N` for `ResBlock_N`, `refines.N` for `Refine_N`) so
 `utils/checkpoint.py:load_stm` maps a flax tree by order.
@@ -82,7 +90,8 @@ class Decoder(nn.Module):
         self.refines = nn.ModuleList([Refine(in3, mdim), Refine(in2, mdim)])
 
     def forward(self, r4, r3, r2) -> torch.Tensor:
-        m4 = self.resblocks[0](self.convs[0](r4))
+        m4 = self.resblocks[0](self.convs[0](r4.to(
+            self.convs[0].weight.dtype)))
         m3 = self.refines[0](r3, m4)   # 1/8
         m2 = self.refines[1](r2, m3)   # 1/4
         p2 = self.convs[1](F.relu(m2))
@@ -116,13 +125,14 @@ def memory_read(mem_k: torch.Tensor, mem_v: torch.Tensor,
     """
     b, t, hm, wm, ck = mem_k.shape
     cv = mem_v.shape[-1]
-    mk = mem_k.reshape(b, t * hm * wm, ck)
-    mv = mem_v.reshape(b, t * hm * wm, cv)
-    qk = q_k.reshape(b, hm * wm, ck)
+    dt = torch.promote_types(mem_k.dtype, torch.float32)
+    mk = mem_k.reshape(b, t * hm * wm, ck).to(dt)
+    mv = mem_v.reshape(b, t * hm * wm, cv).to(dt)
+    qk = q_k.reshape(b, hm * wm, ck).to(dt)
     mask = valid.to(torch.float32).repeat_interleave(hm * wm, dim=1)
     mem = MaskedMemoryAttention.apply(qk.contiguous(), mk.contiguous(),
                                       mv.contiguous(), mask.contiguous())
-    return torch.cat([mem.reshape(b, hm, wm, cv), q_v], dim=-1)
+    return torch.cat([mem.reshape(b, hm, wm, cv), q_v.to(dt)], dim=-1)
 
 
 class STM(nn.Module):
@@ -147,9 +157,10 @@ class STM(nn.Module):
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """frame (B, 3, H, W); masks (B, H, W) in [0, 1]. Returns the
         memory key (B, Hm, Wm, 128) and value (B, Hm, Wm, 512)."""
-        extra = (self.conv1_m(mask_fg[:, None])
-                 + self.conv1_o(mask_bg[:, None]))
-        feats = self.encoder_m(frame, stem_extra=extra)
+        dt = self.conv1_m.weight.dtype
+        extra = (self.conv1_m(mask_fg[:, None].to(dt))
+                 + self.conv1_o(mask_bg[:, None].to(dt)))
+        feats = self.encoder_m(frame.to(dt), stem_extra=extra)
         k, v = self.kv_m(feats["c3"])
         return (k.permute(0, 2, 3, 1).contiguous(),
                 v.permute(0, 2, 3, 1).contiguous())
@@ -158,7 +169,7 @@ class STM(nn.Module):
                     mem_v: torch.Tensor, valid: torch.Tensor
                     ) -> torch.Tensor:
         """Decoder logits (B, 2, H, W) before the soft aggregation."""
-        feats = self.encoder_q(frame)
+        feats = self.encoder_q(frame.to(self.conv1_m.weight.dtype))
         q_k, q_v = self.kv_q(feats["c3"])
         m4 = memory_read(mem_k, mem_v, valid, q_k.permute(0, 2, 3, 1),
                          q_v.permute(0, 2, 3, 1))

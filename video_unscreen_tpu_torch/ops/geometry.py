@@ -9,6 +9,9 @@ Port of `video_unscreen_tpu/ops/geometry.py` on (H, W[, C]) tensors:
   "nearest-exact".
 - `pad_resize` pads "symmetric" (the edge row repeated, cv2
   BORDER_REFLECT), built by hand: torch's "reflect" is REFLECT_101.
+- `affine_warp_axis_aligned` (the SCHP seed's person-box warp) is two
+  products with resampling matrices built on the host in float64 and cast
+  to float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -128,3 +131,57 @@ def imnormalize(img: torch.Tensor, mean=IMAGENET_MEAN,
     mean = torch.as_tensor(np.asarray(mean, np.float32), device=img.device)
     std = torch.as_tensor(np.asarray(std, np.float32), device=img.device)
     return (rgb - mean) / std
+
+
+def _lerp_matrix(out_size: int, scale: float, offset: float,
+                 in_size: int) -> np.ndarray:
+    """(out_size, in_size) bilinear-resampling matrix of the 1-D map
+    src = scale * dst + offset; out-of-range neighbours contribute 0."""
+    o = np.arange(out_size, dtype=np.float64)
+    src = scale * o + offset
+    i0 = np.floor(src).astype(np.int64)
+    w = (src - i0).astype(np.float64)
+    a = np.zeros((out_size, in_size), np.float64)
+    for idx, wt in ((i0, 1.0 - w), (i0 + 1, w)):
+        valid = (idx >= 0) & (idx < in_size)
+        np.add.at(a, (o[valid].astype(np.int64), idx[valid]), wt[valid])
+    return a.astype(np.float32)
+
+
+def warp_matrices(matrix: np.ndarray, in_hw: Tuple[int, int],
+                  out_hw: Tuple[int, int], device) -> Tuple[torch.Tensor,
+                                                            torch.Tensor]:
+    """(A_y, A_x) of an axis-aligned 2x3 affine `matrix` (src -> dst, as
+    cv2.warpAffine; pure scale and translation), as float32 tensors on
+    `device`: output(dst) samples the input at M^-1 dst."""
+    m = np.asarray(matrix, np.float64)
+    if m[0, 1] != 0.0 or m[1, 0] != 0.0:
+        raise ValueError("affine_warp_axis_aligned needs an axis-aligned "
+                         "matrix")
+    sx, tx, sy, ty = m[0, 0], m[0, 2], m[1, 1], m[1, 2]
+    ay = _lerp_matrix(out_hw[0], 1.0 / sy, -ty / sy, in_hw[0])
+    ax = _lerp_matrix(out_hw[1], 1.0 / sx, -tx / sx, in_hw[1])
+    return (torch.from_numpy(ay).to(device),
+            torch.from_numpy(ax).to(device))
+
+
+def warp_planes(x: torch.Tensor, ay: torch.Tensor,
+                ax: torch.Tensor) -> torch.Tensor:
+    """A_y @ x @ A_x^T over the last two axes of a float (..., H, W)
+    stack: the rows first, then the columns, as the JAX package's two
+    einsums."""
+    return torch.matmul(torch.matmul(ay, x.to(torch.float32)), ax.T)
+
+
+def affine_warp_axis_aligned(img: torch.Tensor, matrix: np.ndarray,
+                             out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear warp with zero fill of an (H, W[, C]) image, or a (B, H, W,
+    C) batch, by an axis-aligned host `matrix`, as two resampling
+    products; float32 out."""
+    hw_axes = (0, 1) if img.dim() < 4 else (1, 2)
+    in_hw = (img.shape[hw_axes[0]], img.shape[hw_axes[1]])
+    ay, ax = warp_matrices(matrix, in_hw, out_hw, img.device)
+    if img.dim() == 2:
+        return warp_planes(img, ay, ax)
+    x = img.movedim(-1, -3)               # channels before H, W
+    return warp_planes(x, ay, ax).movedim(-3, -1)

@@ -1,29 +1,38 @@
 """The cases K1 and K2 are held and timed on, shared by the port's tests
 and `chip_smoke.py`.
 
-`MORPH_CALLS` lists every K1 and K2 call the green, bg and training paths
-make. The hard masks break iterated morphology at the image's border: all
-255 and all 0 (the fill must neither grow nor erode the border), one hot
-pixel at each corner, a 1-pixel line along each edge, and a checkerboard
-(every cell differs from its four neighbours)."""
+`MORPH_CALLS` lists every K1 and K2 call the green, bg, fused bg and
+training paths make. The hard masks break iterated morphology at the
+image's border: all 255 and all 0 (the fill must neither grow nor erode the
+border), one hot pixel at each corner, a 1-pixel line along each edge, and
+a checkerboard (every cell differs from its four neighbours)."""
 
-# (kernel, caller, (h, w), SE, iters). The trimap is the k3 ellipse (the
-# 5-point cross); "cross3" is regionfill's cross_offsets(3), the same five
-# cells; "ellipse4" the 4x4 ellipse, anchored at (2, 2).
+# (kernel, caller, (h, w), SE, iters, planes). The trimap is the k3
+# ellipse (the 5-point cross); "cross3" is regionfill's cross_offsets(3),
+# the same five cells; "ellipse4" the 4x4 ellipse, anchored at (2, 2).
+# `planes` is the planes a frame gives the call: run_segmented's S
+# segments give it a batch of S * planes (the fused bg regionfill solves
+# the 3 channels of each segment, each behind its own hole).
 MORPH_CALLS = (
-    ("trimap", "green trimap (ops/trimap.py:22)", (544, 960), "ellipse3", 5),
-    ("trimap", "bg trimap (agents/trimap.py:38)", (540, 960), "ellipse3", 5),
-    ("morph", "colour filter / seed close and open", (544, 960), "ellipse3",
-     2),
-    ("morph", "green band tier 1", (544, 960), "ellipse3", 10),
-    ("morph", "green band tier 2", (544, 960), "ellipse3", 20),
-    ("morph", "green band tier 3", (544, 960), "ellipse3", 40),
+    ("trimap", "green and fused bg trimap (ops/trimap.py:22)", (544, 960),
+     "ellipse3", 5, 1),
+    ("trimap", "bg trimap (agents/trimap.py:38)", (540, 960), "ellipse3", 5,
+     1),
+    ("morph", "colour filter / seed close and open / fused bg hole "
+     "(pipeline/fused_bg.py:297)", (544, 960), "ellipse3", 2, 1),
+    ("morph", "green band tier 1", (544, 960), "ellipse3", 10, 1),
+    ("morph", "green band tier 2", (544, 960), "ellipse3", 20, 1),
+    ("morph", "green band tier 3", (544, 960), "ellipse3", 40, 1),
     ("morph", "bg background mask (pipeline/bg.py:63)", (1080, 1920),
-     "ellipse3", 2),
-    ("morph", "regionfill perimeter (ops/regionfill.py:62)", (1080, 1920),
-     "cross3", 1),
-    ("morph", "bg alpha dilate (pipeline/bg.py:111)", (1080, 1920),
-     "ellipse4", 2),
+     "ellipse3", 2, 1),
+    ("morph", "regionfill perimeter (ops/regionfill.py:65)", (1080, 1920),
+     "cross3", 1, 1),
+    ("morph", "bg alpha dilate (pipeline/bg.py:112)", (1080, 1920),
+     "ellipse4", 2, 1),
+    ("morph", "fused bg background-difference dilate "
+     "(pipeline/fused_bg.py:392)", (544, 960), "ellipse4", 2, 1),
+    ("morph", "fused bg regionfill perimeter (ops/regionfill.py:65)",
+     (272, 480), "cross3", 1, 3),
 )
 
 MORPH_HARD_MASKS = ("full", "empty", "corners", "edges", "checkerboard")

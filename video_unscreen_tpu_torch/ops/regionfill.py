@@ -14,9 +14,12 @@ gamma > max(tol^2 b.b, 0) and k < maxiter: alpha = gamma / p.Ap,
 x += alpha p, r -= alpha Ap, gamma' = r.r, p = r + (gamma' / gamma) p.
 
 The channels of a (C, H, W) image are C independent solves run as one
-batch: a channel whose stopping rule holds is frozen (`torch.where`), so
-each channel follows exactly its own iterate, and the host reads "all
-stopped" only every `_CHECK_EVERY` iterations (one sync each).
+batch, over one shared (H, W) hole or a (C, H, W) hole each (the fused bg
+pipeline's S segments x 3 channels): a channel whose stopping rule holds
+is frozen (`torch.where`), so each channel follows exactly its own
+iterate and stops on the iteration its own JAX `while_loop` stops, and the
+host reads "all stopped" only every `_CHECK_EVERY` iterations (one sync
+each; `cg_syncs` counts them from the iteration counts).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .geometry import resize
+from .geometry import resize_nchw
 from .morphology import cross_offsets
 from .kernels.morph import morph as _morph
 
@@ -56,8 +59,8 @@ def _fill_core(img: torch.Tensor, hole: torch.Tensor, cg_iters: int,
                tol: float, x0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Solve the membrane of each channel of `img` (C, H, W) over the bool
-    (H, W) `hole`. Returns (the image with the hole filled, the CG
-    iteration count of each channel)."""
+    (H, W) or (C, H, W) `hole`. Returns (the image with the hole filled,
+    the CG iteration count of each channel)."""
     c, h, w = img.shape
     dilated = _morph(hole.to(torch.float32), cross_offsets(3), 1, True)
     perimeter = (dilated > 0) & ~hole
@@ -107,36 +110,59 @@ def solve_shape(h: int, w: int, factor: float = 1.0) -> Tuple[int, int]:
     return max(int(h * factor), 1), max(int(w * factor), 1)
 
 
+def cg_syncs(iters: torch.Tensor) -> int:
+    """Host syncs `_fill_core` made for a solve whose channels took
+    `iters` iterations: one every `_CHECK_EVERY`, at least one."""
+    return max(1, -(-int(iters.max()) // _CHECK_EVERY))
+
+
+def _resize_planes(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """"linear" `resize` of each plane of a (C, H, W) stack."""
+    return resize_nchw(x[None], hw)[0]
+
+
+def regionfill_solve(img: torch.Tensor, mask: torch.Tensor,
+                     factor: float = 1.0, cg_iters: int = 400,
+                     tol: float = 1e-5, x0: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fill each channel of a (C, H, W) stack where its (H, W) or (C, H, W)
+    `mask` is > 0 with a Laplacian membrane: optional downscale by
+    `factor`, solve (warm-started from `x0` at `solve_shape`), upsample,
+    and keep the known pixels. An empty mask passes through. Returns
+    (filled, the solve-resolution solution, the CG iterations of each
+    channel (C,))."""
+    h, w = img.shape[-2:]
+    if factor != 1.0:
+        sh, sw = solve_shape(h, w, factor)
+        hole = _resize_planes(mask.to(torch.float32).reshape(-1, h, w),
+                              (sh, sw)) > 0
+        small = _resize_planes(img, (sh, sw))
+        sol, iters = _fill_core(small, hole, cg_iters, tol, x0)
+        filled = _resize_planes(sol, (h, w))
+    else:
+        sol, iters = _fill_core(img, mask > 0, cg_iters, tol, x0)
+        filled = sol
+    return torch.where(mask > 0, filled, img), sol, iters
+
+
 def regionfill_with_state(img: torch.Tensor, mask: torch.Tensor,
                           factor: float = 1.0, cg_iters: int = 400,
                           tol: float = 1e-5,
                           x0: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`regionfill` that also returns the solve-resolution solution, which
-    a later call can take as its warm start `x0` (at `solve_shape`).
-    `img` is (H, W) or a (C, H, W) stack of channels sharing `mask`."""
+    """JAX's `regionfill_with_state` under its name, kept for the parity
+    tests (the port's pipelines call `regionfill_solve`): (filled, the
+    solve-resolution solution) of an (H, W) image or a (C, H, W) stack."""
     flat = img.dim() == 2
-    stack = img[None] if flat else img
-    if x0 is not None and flat:
-        x0 = x0[None]
-    h, w = stack.shape[-2:]
-    if factor != 1.0:
-        sh, sw = solve_shape(h, w, factor)
-        hole = resize(mask.to(torch.float32), (sh, sw)) > 0
-        small = resize(stack.permute(1, 2, 0), (sh, sw)).permute(2, 0, 1)
-        sol, _ = _fill_core(small, hole, cg_iters, tol, x0)
-        filled = resize(sol.permute(1, 2, 0), (h, w)).permute(2, 0, 1)
-    else:
-        sol, _ = _fill_core(stack, mask > 0, cg_iters, tol, x0)
-        filled = sol
-    out = torch.where(mask > 0, filled, stack)
+    if flat:
+        img = img[None]
+        x0 = None if x0 is None else x0[None]
+    out, sol, _ = regionfill_solve(img, mask, factor, cg_iters, tol, x0)
     return (out[0], sol[0]) if flat else (out, sol)
 
 
 def regionfill(img: torch.Tensor, mask: torch.Tensor, factor: float = 1.0,
                cg_iters: int = 400, tol: float = 1e-5) -> torch.Tensor:
-    """Fill `img` ((H, W), or (C, H, W) channels solved independently)
-    where `mask > 0` with a Laplacian membrane: optional downscale by
-    `factor`, solve, upsample, and keep the known pixels. An empty mask
-    passes through."""
+    """JAX's `regionfill` under its name, kept for the parity tests: the
+    filled (H, W) image or (C, H, W) stack."""
     return regionfill_with_state(img, mask, factor, cg_iters, tol)[0]

@@ -32,7 +32,7 @@ from ..agents.vmatting import VMattingAgent
 from ..ops.color import bgr2gray
 from ..ops.compositing import get_bg, get_fg
 from ..ops.morphology import dilate
-from ..ops.regionfill import regionfill
+from ..ops.regionfill import regionfill_solve
 from ..utils.device import resolve_device
 from .common import exist_foreground_np, remove_invalid_objects_cfg
 
@@ -61,7 +61,8 @@ def _per_frame_background(frame: torch.Tensor,
     a = alpha.to(torch.float32)
     bg = get_bg(a, frame)
     alpha_bin = dilate(torch.where(a > 128, 255.0, 0.0), 3, 2)
-    filled = regionfill(bg.permute(2, 0, 1).contiguous(), alpha_bin)
+    filled, _, _ = regionfill_solve(bg.permute(2, 0, 1).contiguous(),
+                                    alpha_bin)
     return filled.permute(1, 2, 0).clamp(0, 255).to(torch.uint8)
 
 

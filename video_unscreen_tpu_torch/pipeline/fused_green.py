@@ -51,11 +51,11 @@ from ..agents.vmatting import VMattingAgent
 from ..ops.chroma import chroma_segment
 from ..ops.compositing import color_correct, get_fg, is_pixel_inrange
 from ..ops.connected import remove_invalid_objects_ds
-from ..ops.geometry import get_target_size, resize_nchw
+from ..ops.geometry import get_target_size
 from ..ops.morphology import dilate
 from ..ops.trimap import generate_trimap_withbg
 from ..utils.device import resolve_device
-from .common import build_score_map
+from .common import build_score_map, prep_frames, run_segments
 
 
 class GreenCarry(NamedTuple):
@@ -159,11 +159,7 @@ class FusedGreenPipeline:
     def _prep_frames(self, frames_full: torch.Tensor) -> torch.Tensor:
         """uint8 (S, H, W, 3) on the device -> float32 at work
         resolution."""
-        x = frames_full.to(torch.float32)
-        if tuple(x.shape[1:3]) == self.work_hw:
-            return x
-        y = resize_nchw(x.permute(0, 3, 1, 2), self.work_hw)
-        return y.permute(0, 2, 3, 1).contiguous()
+        return prep_frames(frames_full, self.work_hw)
 
     def _step_batched(self, carries: List[GreenCarry],
                       frames_full: torch.Tensor):
@@ -331,27 +327,16 @@ class FusedGreenPipeline:
         advance them in lockstep, S frames a step; outputs are fetched once
         every `chunk_size` steps. Segment boundaries reset the carry.
         Returns `run`'s arrays, in clip order, trimmed to N frames."""
-        frames = list(frames)
-        n = len(frames)
-        seg_len = -(-n // n_segments)
-        padded = frames + [frames[-1]] * (n_segments * seg_len - n)
         self.stats = collections.Counter()
         self.step_tracking = []
-        carries = self.init_carries(n_segments)
-        chunks = []
-        for c0 in range(0, seg_len, chunk_size):
-            outs = []
-            for t in range(c0, min(c0 + chunk_size, seg_len)):
-                step = np.stack([np.asarray(padded[s * seg_len + t], np.uint8)
-                                 for s in range(n_segments)])
-                carries, (a, fg, bg) = self._step_batched(
-                    carries, torch.from_numpy(step).to(self.device))
-                outs.append(torch.cat([a[..., None], fg, bg], dim=-1))
-            chunks.append(torch.stack(outs, dim=1).cpu().numpy())
-            self.stats["syncs"] += 1
-        # (S, seg_len, h, w, 7) -> clip order, trimmed
-        packed = np.concatenate(chunks, axis=1).reshape(
-            (n_segments * seg_len,) + chunks[0].shape[2:])[:n]
+
+        def step(carries, batch):
+            carries, (a, fg, bg) = self._step_batched(carries, batch)
+            return carries, torch.cat([a[..., None], fg, bg], dim=-1)
+
+        packed = run_segments(step, self.init_carries(n_segments), frames,
+                              n_segments, chunk_size, self.device,
+                              self.stats)
         return packed[..., 0], packed[..., 1:4], packed[..., 4:7]
 
 

@@ -17,14 +17,17 @@ second.
 - BatchNorm `scale`/`bias` and `batch_stats` `mean`/`var` ->
   `weight`/`bias`/`running_mean`/`running_var`.
 
-`load_stm` and `load_deeplab` map the STM's and DeepLab's flax variables
-to a `state_dict` for `models/stm.py:STM` and `models/deeplab.py` the same
-way (conv kernels HWIO -> OIHW, BatchNorm as
-above, flax's eps 1e-5 kept by the modules), with flax's auto-names taken
-by order: `Bottleneck_3` -> `blocks.3`, `Conv_2` -> `convs.2`,
-`BatchNorm_1` -> `bns.1`, `ResBlock_0` -> `resblocks.0`, `Refine_1` ->
-`refines.1`, `ASPPConv_2` -> `branches.2`; explicit names (`encoder_q`,
-`stem_conv1`, `kv_m`, `cls_out`, ...) stay.
+`state_dict_from_variables` maps a flax variables tree (nested dicts of
+arrays: numpy, or JAX arrays, which it reads as numpy) to a `state_dict`
+by name: conv kernels HWIO -> OIHW, BatchNorm as above (flax's eps 1e-5
+kept by the modules), flax's auto-names taken by order: `Bottleneck_3` ->
+`blocks.3`, `Conv_2` -> `convs.2`, `BatchNorm_1` -> `bns.1`, `ResBlock_0`
+-> `resblocks.0`, `Refine_1` -> `refines.1`, `ASPPConv_2` -> `branches.2`,
+`_ABN_1` -> `abns.1`; explicit names (`encoder_q`, `stem_conv1`, `kv_m`,
+`cls_out`, `layer3_17`, ...) stay. `load_stm`, `load_deeplab` and
+`load_schp` read a msgpack file (or take a tree) and map it so, for
+`models/stm.py:STM`, `models/deeplab.py` and
+`models/human_parse.py:SCHPHumanParser`.
 
 `save_stm` is its inverse: it writes an STM's `params` and `batch_stats`
 in the layout flax's `to_bytes` writes (maps of strings, each array an
@@ -177,8 +180,8 @@ def load_matting_unet(source) -> Dict[str, torch.Tensor]:
 # flax auto-name prefix -> the port's ModuleList attribute
 _AUTO_NAMES = {"Conv": "convs", "BatchNorm": "bns", "Bottleneck": "blocks",
                "BasicBlock": "blocks", "ResBlock": "resblocks",
-               "Refine": "refines", "ASPPConv": "branches"}
-_AUTO_RE = re.compile(r"^([A-Za-z]+)_(\d+)$")
+               "Refine": "refines", "ASPPConv": "branches", "_ABN": "abns"}
+_AUTO_RE = re.compile(r"^(_?[A-Za-z]+)_(\d+)$")
 
 
 def _module_path(path: Tuple[str, ...]) -> str:
@@ -192,12 +195,12 @@ def _module_path(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
-def load_stm(source) -> Dict[str, torch.Tensor]:
-    """state_dict for `models/stm.py:STM` from a flax msgpack path or from
-    the flax variables as a nested dict of numpy arrays. Every leaf maps to
-    one entry; a leaf of an unknown kind raises here, and one the model does
-    not have raises in `load_state_dict` (strict)."""
-    tree = source if isinstance(source, dict) else read_msgpack(source)
+def state_dict_from_variables(tree: dict) -> Dict[str, torch.Tensor]:
+    """state_dict from a flax variables tree ({"params": ...,
+    "batch_stats": ...}, leaves numpy or JAX arrays), mapped by name.
+    Every leaf maps to one entry; a leaf of an unknown kind raises here,
+    and one the model does not have raises in `load_state_dict`
+    (strict)."""
     unknown = set(tree) - {"params", "batch_stats"}
     if unknown:
         raise ValueError(f"unexpected collections {sorted(unknown)}")
@@ -222,9 +225,16 @@ def load_stm(source) -> Dict[str, torch.Tensor]:
     return state
 
 
-# DeepLab's tree maps by the same names (`ASPPConv_1` -> `branches.1`;
-# `cls_out` keeps its bias)
-load_deeplab = load_stm
+def load_stm(source) -> Dict[str, torch.Tensor]:
+    """state_dict for `models/stm.py:STM` from a flax msgpack path or from
+    the flax variables tree (`state_dict_from_variables`)."""
+    tree = source if isinstance(source, dict) else read_msgpack(source)
+    return state_dict_from_variables(tree)
+
+
+# DeepLab's and SCHP's trees map by the same names (`ASPPConv_1` ->
+# `branches.1`, `_ABN_0` -> `abns.0`; `cls_out` keeps its bias)
+load_deeplab = load_schp = load_stm
 
 
 _FLAX_AUTO = {v: k for k, v in _AUTO_NAMES.items() if k != "BasicBlock"}
