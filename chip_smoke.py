@@ -36,9 +36,10 @@ wall seconds:
      same batch), the `--sizes 256` training read (8 items, Lq 256 x Lk
      512) and 3-item batches of ragged reads over every mask kind;
   4. run `FusedGreenPipeline.run` on 8 seeded synthetic 1080p green-screen
-     frames with every launch count reset just before, check that each
-     kernel launched, the outputs (IoU with the synthetic ground truth
-     > 0.75), and the frames per second;
+     frames (the BGR upload resized on the device, as in every phase
+     before 5d: `DEV_RESIZE`) with every launch count reset just before,
+     check that each kernel launched, the outputs (IoU with the synthetic
+     ground truth > 0.75), and the frames per second;
   5. run the first 2 frames again on the host (device="cpu", the plain
      versions) and hold the card's alphas to the JAX suite's bound (this
      pipeline and phase 4's are float32: matting_dtype and seg_dtype set);
@@ -59,6 +60,18 @@ wall seconds:
      every frame, K1 one launch a step for the batch of 8, host syncs per
      frame against phase 5b's, frames/s; float32 segment 0 held to the
      sequential run of its frames within the JAX bound;
+  5d. wire green: bench.py's configuration (bfloat16, `run_segmented` S = 8
+     x 4 frames in chunks of 4, `wire="yuv420"`, the host resize to
+     544x960) beside the BGR wire with the device resize on the same
+     frames, in turns (bgr, yuv420, yuv420, bgr): frames/s, upload bytes a
+     frame, IoU > 0.75 on every frame, K1-K3 launched; the streamed run
+     (pinned double-buffered upload) bit-equal to a plain loop that
+     uploads each step's I420 batch synchronously and calls
+     `_step_batched`; float32 card against host on 2 frames, alpha, fg and
+     bg within the JAX bound;
+  5e. the modular green driver (`pipeline/green.py:run`) on the 8 frames
+     at 1080p, counts reset just before: K1-K3 launched, IoU > 0.75 on
+     every frame, frames/s over its stages;
   6. run bg mode (`pipeline/bg.py:run`, configs/bg.json with the chroma
      seed at 960) on the same 8 frames, counts reset just before: each of
      K1-K4 must launch, IoU with the ground truth > 0.8 on frame 0 and
@@ -89,6 +102,16 @@ wall seconds:
      on those weights: the seed's forwards and frames against the frames
      that were not tracking or ballooned (random SCHP masks change how
      often STM tracks: these frames/s are not the shipped weights');
+  7e. wire fused bg: `FusedBgPipeline` in bfloat16, S = 8 x 8 frames in
+     chunks of 4, the I420 wire and the host resize: frames/s, IoU > 0.8 on
+     frame 0 and > 0.75 on average, K1-K4 launched; float32 card against
+     host on 2 frames of 270x480 with the same wire;
+  7f. disk, where libjpeg is on the machine (`runtime.codec_missing()`,
+     decided before the phase; else one line says why it did not run): the
+     8 frames written as JPEGs, then `tools/unscreen/green_torch.py` and
+     `bg_torch.py` (`--fused --segments 8 --wire yuv420`) through their
+     `main`: every artifact written, the decoded alphamasks within mean 8
+     of the returned alphas, frames/s with the read and the write;
   8. train the STM 3 AdamW steps from weights/stm.msgpack at the trainer's
      defaults (batch 8, 128x128, clip_len 3, lr 5e-4) on the port's own
      synthetic clips, counts reset just before: every loss finite, K4, K5
@@ -163,6 +186,10 @@ SEED_GRID_HW, SEED_GRID_CROP = (320, 480), 257
 # the alpha >= 128 masks (and the seed masks) agree, on every frame
 BF16_ALPHA_AGREE, BF16_SEED_AGREE = 0.9999, 0.9995
 BG_BF16_ALPHA_AGREE = 0.997  # ~14x the share that differed when read
+# the phases older than the wire phases upload BGR and resize on the device
+# (the JAX pipelines' host_downscale=False), as when PERF.md's numbers of
+# them were read; the wire phases run bench.py's host resize and I420
+DEV_RESIZE = dict(host_downscale=False)
 
 
 def check(cond, msg):
@@ -1061,14 +1088,14 @@ def seed_phase(frame, matting_weights):
     return rows
 
 
-def timed_run(fn, *args):
-    """`fn(*args)` with the kernel counts reset just before and read just
-    after; returns (result, seconds, counts)."""
+def timed_run(fn, *args, **kwargs):
+    """`fn(*args, **kwargs)` with the kernel counts reset just before and
+    read just after; returns (result, seconds, counts)."""
     import torch
     from video_unscreen_tpu_torch.ops import kernels
     kernels.reset_counts()
     t0 = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, kernels.counts()
 
@@ -1107,9 +1134,9 @@ def green_bf16_phase(cfg, frames, gts, alphas32):
                               device="cuda")
     check(pipe.vmat.model.enc_conv1.weight.dtype == torch.bfloat16,
           "the pipeline's default matting dtype is not bfloat16")
-    pipe.run(frames[:2])   # warm-up: cuDNN plans for bfloat16
+    pipe.run(frames[:2], **DEV_RESIZE)   # warm-up: cuDNN plans, bfloat16
     torch.cuda.synchronize()
-    (alphas, _, _), secs, counts = timed_run(pipe.run, frames)
+    (alphas, _, _), secs, counts = timed_run(pipe.run, frames, **DEV_RESIZE)
     ious = gt_ious(alphas, gts, pipe.work_hw)
     agree = agreement(alphas, alphas32)
     print(f"  green bfloat16, {N_FRAMES} frames: {N_FRAMES / secs:.2f} "
@@ -1136,10 +1163,11 @@ def segmented_phase(pipe16, pipe32):
     fps = {}
     for label, pipe in (("bf16", pipe16), ("f32", pipe32)):
         # warm-up: one step of the batch of 8 (cuDNN plans)
-        pipe.run_segmented(frames[:N_SEGMENTS], N_SEGMENTS, SEG_FRAMES)
+        pipe.run_segmented(frames[:N_SEGMENTS], N_SEGMENTS, SEG_FRAMES,
+                           **DEV_RESIZE)
         torch.cuda.synchronize()
         (alphas, _, _), secs, counts = timed_run(
-            pipe.run_segmented, frames, N_SEGMENTS, SEG_FRAMES)
+            pipe.run_segmented, frames, N_SEGMENTS, SEG_FRAMES, **DEV_RESIZE)
         fps[label] = n / secs
         ious = gt_ious(alphas, gts, pipe.work_hw)
         print(f"  run_segmented {label}, S {N_SEGMENTS} x {SEG_FRAMES} "
@@ -1157,7 +1185,7 @@ def segmented_phase(pipe16, pipe32):
         if label == "bf16":
             seg_counts = counts
         else:
-            seq = pipe.run(frames[:SEG_FRAMES])[0]
+            seq = pipe.run(frames[:SEG_FRAMES], **DEV_RESIZE)[0]
             dmax, frac = within_bound(alphas[:SEG_FRAMES], seq)
             print(f"  float32 segment 0 vs the sequential run of its "
                   f"frames: max |diff| {dmax}, |diff| > 1 on {frac:.6f}",
@@ -1167,6 +1195,245 @@ def segmented_phase(pipe16, pipe32):
     phase(f"run_segmented (S {N_SEGMENTS}, {n} frames, bfloat16 and "
           f"float32)", t0)
     return seg_counts
+
+
+def plain_wire_loop(pipe, frames, n_segments):
+    """The wire run without the streamer: each step's I420 batch built on
+    the host and uploaded synchronously from pageable memory, then
+    `_step_batched`. Returns (alphas, fgs, screen colors) in clip order."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch import runtime
+    n = len(frames)
+    seg_len = -(-n // n_segments)
+    padded = list(frames) + [frames[-1]] * (n_segments * seg_len - n)
+    carries = pipe.init_carries(n_segments)
+    steps = []
+    with torch.inference_mode():
+        for t in range(seg_len):
+            batch = runtime.prep_batch(
+                [padded[s * seg_len + t] for s in range(n_segments)],
+                pipe.work_hw, True)
+            carries, outs = pipe._step_batched(
+                carries, torch.from_numpy(batch).to("cuda"))
+            steps.append([o.cpu().numpy() for o in outs])
+    return [np.stack([steps[t][k][s] for s in range(n_segments)
+                      for t in range(seg_len)])[:n] for k in range(3)]
+
+
+def wire_green_phase(cfg, pipe16):
+    """5d: bench.py's green configuration: the chroma seed, bfloat16,
+    `run_segmented` S = 8 x 4 frames in chunks of 4, the I420 wire and the
+    host resize, beside the BGR wire with the device resize (`pipe16`, 5b's
+    pipeline) on the same frames, in turns (bgr, yuv420, yuv420, bgr),
+    counts reset just before each; the streamed run bit-equal to the plain
+    loop; float32 card against host on 2 frames. Returns the wire run's
+    kernel counts."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.pipeline.common import host_frames
+    from video_unscreen_tpu_torch.pipeline.fused_green import \
+        FusedGreenPipeline
+
+    t0 = time.perf_counter()
+    n = N_SEGMENTS * SEG_FRAMES
+    frames, gts = green_clip(n, *FRAME_HW, seed=SEED + 1)
+    wire = FusedGreenPipeline(cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
+                              wire="yuv420", device="cuda")
+    runs = {"bgr": (pipe16, DEV_RESIZE), "yuv420": (wire, {})}
+    for pipe, kw in runs.values():
+        pipe.run_segmented(frames[:N_SEGMENTS], N_SEGMENTS, SEG_FRAMES, **kw)
+    torch.cuda.synchronize()
+    fps = {"bgr": [], "yuv420": []}
+    for label in ("bgr", "yuv420", "yuv420", "bgr"):
+        pipe, kw = runs[label]
+        out, secs, c = timed_run(pipe.run_segmented, frames, N_SEGMENTS,
+                                 SEG_FRAMES, **kw)
+        fps[label].append(n / secs)
+        if label == "yuv420":
+            counts, outs = c, out
+    h, w = wire.work_hw
+    ious = gt_ious(outs[0], gts, wire.work_hw)
+    print(f"  wire green (bfloat16, S {N_SEGMENTS} x {SEG_FRAMES}, chunks of "
+          f"{SEG_FRAMES}): yuv420 with the host resize "
+          f"{[round(v, 3) for v in fps['yuv420']]} frames/s, bgr with the "
+          f"device resize {[round(v, 3) for v in fps['bgr']]} (turns bgr, "
+          f"yuv420, yuv420, bgr); upload bytes a frame {h * w * 3 // 2} "
+          f"against {FRAME_HW[0] * FRAME_HW[1] * 3}; "
+          f"{wire.stats['syncs'] / n:.3f} host syncs a frame; IoU min "
+          f"{min(ious):.4f} mean {np.mean(ious):.4f}; (calls, launches) "
+          f"{counts}", flush=True)
+    check(min(ious) > 0.75, f"wire green IoU {ious}")
+    check_launched(counts, "wire green")
+
+    plain = plain_wire_loop(wire, frames, N_SEGMENTS)
+    plain_bgs = np.where(plain[0][..., None] < 128, host_frames(frames,
+                                                                (h, w)),
+                         plain[2][:, None, None, :].astype(np.uint8))
+    for name, got, want in (("alpha", outs[0], plain[0]),
+                            ("fg", outs[1], plain[1]),
+                            ("bg", outs[2], plain_bgs)):
+        n_diff = int((got != want).sum())
+        check(n_diff == 0, f"wire green streamed vs plain loop: {name} "
+              f"differs on {n_diff} values")
+    print(f"  wire green streamed run bit-equal to the plain synchronous "
+          f"loop (alpha, fg, bg of {n} frames)", flush=True)
+    phase(f"wire green (S {N_SEGMENTS}, {n} frames, yuv420 and bgr)", t0)
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    small = {dev: FusedGreenPipeline(
+        cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
+        matting_dtype=torch.float32, seg_dtype=torch.float32, wire="yuv420",
+        device=dev).run(frames[:N_CPU_FRAMES]) for dev in ("cuda", "cpu")}
+    for k, name in enumerate(("alpha", "fg", "bg")):
+        dmax, frac = within_bound(small["cuda"][k], small["cpu"][k])
+        print(f"  wire green float32 card vs host {name}: max |diff| "
+              f"{dmax}, |diff| > 1 on {frac:.6f}", flush=True)
+        check(dmax <= 4 and frac < 1e-3,
+              f"wire green card vs host {name}: max {dmax}, frac>1 {frac}")
+    phase(f"wire green host run ({N_CPU_FRAMES} frames)", t0)
+    return counts
+
+
+def wire_fused_bg_phase(stm_weights, matting_weights):
+    """7e: fused bg as bench.py runs bg: bfloat16, S = 8 x 8 frames in
+    chunks of 4, the I420 wire and the host resize, chroma seed: frames/s
+    and the IoU bars; float32 card against host on 2 frames of 270x480,
+    the same wire. Returns the run's kernel counts."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
+
+    t0 = time.perf_counter()
+    cfg = bg_config(stm_weights, matting_weights)
+    n = N_SEGMENTS * BG_SEG_FRAMES
+    frames, gts = green_clip(n, *FRAME_HW, seed=SEED + 1)
+    pipe = FusedBgPipeline(cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
+                           wire="yuv420", device="cuda")
+    pipe.run_segmented(frames[:N_SEGMENTS], N_SEGMENTS, SEG_CHUNK)
+    torch.cuda.synchronize()
+    out, secs, counts = timed_run(pipe.run_segmented, frames, N_SEGMENTS,
+                                  SEG_CHUNK)
+    ious = gt_ious(out[0], gts, pipe.work_hw)
+    st = pipe.stats
+    print(f"  wire fused bg (bfloat16, yuv420 with the host resize, S "
+          f"{N_SEGMENTS} x {BG_SEG_FRAMES}, chunks of {SEG_CHUNK}): "
+          f"{n / secs:.3f} frames/s; {st['syncs'] / n:.3f} host syncs a "
+          f"frame; tracked {st['tracked_frames']}, seeded "
+          f"{st['seeded_frames']}; IoU frame 0 {ious[0]:.4f}, min "
+          f"{min(ious):.4f}, mean {np.mean(ious):.4f}; (calls, launches) "
+          f"{counts}", flush=True)
+    check(ious[0] > 0.8 and np.mean(ious) > 0.75,
+          f"wire fused bg IoU with the ground truth {ious}")
+    check_launched(counts, "wire fused bg",
+                   ("trimap", "morph", "flood", "attention"))
+    phase(f"wire fused bg (S {N_SEGMENTS}, {n} frames)", t0)
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    small, _ = green_clip(N_CPU_FRAMES, *BG_HOST_HW, seed=SEED)
+    runs = {dev: FusedBgPipeline(
+        cfg, BG_HOST_HW, work_long_side=BG_HOST_HW[1],
+        matting_dtype=torch.float32, stm_dtype=torch.float32,
+        seg_dtype=torch.float32, wire="yuv420", device=dev).run(small)
+        for dev in ("cuda", "cpu")}
+    dmax, frac = within_bound(runs["cuda"][0], runs["cpu"][0])
+    phase(f"wire fused bg host run ({N_CPU_FRAMES} frames at "
+          f"{BG_HOST_HW[0]}x{BG_HOST_HW[1]})", t0)
+    print(f"  wire fused bg float32 card vs host alphas: max |diff| {dmax}, "
+          f"|diff| > 1 on {frac:.6f}", flush=True)
+    check(dmax <= 4 and frac < 1e-3,
+          f"wire fused bg card vs host alphas: max {dmax}, frac>1 {frac}")
+    return counts
+
+
+def green_modular_phase(cfg, frames, gts):
+    """5e: the modular green driver (`pipeline/green.py:run`, the agents
+    frame by frame at 1080p, float32 matting) on the 8 frames, counts reset
+    just before: K1-K3 launched, IoU > 0.75 on every frame, frames/s.
+    Returns its kernel counts."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.pipeline import green
+
+    t0 = time.perf_counter()
+    green.run(cfg, frames[:2], save=False, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    res, secs, counts = timed_run(green.run, cfg, frames, save=False,
+                                  device="cuda")
+    ious = [iou(a, g) for a, g in zip(res["alphas"], gts)]
+    stages = sum(res["runtime"].values())
+    print(f"  green modular 1080p, {N_FRAMES} frames: {N_FRAMES / stages:.3f}"
+          f" frames/s over the stages ({N_FRAMES / secs:.3f} with the agents' "
+          f"build); tracking {res['tracking_count']} / {N_FRAMES}; IoU min "
+          f"{min(ious):.4f} mean {np.mean(ious):.4f}; (calls, launches) "
+          f"{counts}", flush=True)
+    check(all(a.shape == FRAME_HW for a in res["alphas"]),
+          "green modular alpha shapes")
+    check(min(ious) > 0.75, f"green modular IoU {ious}")
+    check_launched(counts, "green modular")
+    phase(f"green modular ({N_FRAMES} frames)", t0)
+    return counts
+
+
+def disk_phase(green_cfg, stm_weights, matting_weights):
+    """The drivers from disk: the 8 synthetic 1080p frames written as
+    JPEGs, then `tools/unscreen/green_torch.py --fused --segments 8 --wire
+    yuv420` and `bg_torch.py` likewise through their `main`; every
+    artifact is there and the decoded alphamasks are within mean 8 of the
+    returned alphas; frames/s with the read and the write. Runs only where
+    the JPEG codec can build (libjpeg's header and library); returns
+    whether it ran."""
+    import importlib.util
+    import tempfile
+    import numpy as np
+    from video_unscreen_tpu_torch import runtime
+
+    missing = runtime.codec_missing()
+    if missing:
+        print(f"  disk phase did not run: the JPEG codec needs libjpeg-turbo "
+              f"and this machine lacks {missing}", flush=True)
+        return False
+    t0 = time.perf_counter()
+    frames, _ = green_clip(N_FRAMES, *FRAME_HW, seed=SEED)
+    with tempfile.TemporaryDirectory(prefix="vut_disk_") as root:
+        src = Path(root, "src_img", "clip")
+        src.mkdir(parents=True)
+        runtime.encode_batch([str(src / f"frame_{i:06d}.jpg")
+                              for i in range(N_FRAMES)], np.stack(frames))
+        for mode, cfg in (("green", green_cfg),
+                          ("bg", bg_config(stm_weights, matting_weights))):
+            cfg_path = Path(root, f"{mode}.json")
+            cfg_path.write_text(json.dumps(cfg))
+            spec = importlib.util.spec_from_file_location(
+                f"{mode}_torch", ROOT / "tools" / "unscreen" /
+                f"{mode}_torch.py")
+            cli = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(cli)
+            t1 = time.perf_counter()
+            out = cli.main(["--cfg", str(cfg_path), "-vid", "clip",
+                            "--data_root", root, "--fused", "--segments",
+                            str(N_SEGMENTS), "--wire", "yuv420"])
+            secs = time.perf_counter() - t1
+            dst = Path(root, f"test_{mode}_img", "clip")
+            kinds = ("alphamask", "fg", "bg") + (
+                ("segmask",) if mode == "bg" else ())
+            for kind in kinds:
+                got = sorted(dst.glob(f"{kind}_*.jpg"))
+                check(len(got) == N_FRAMES,
+                      f"disk {mode}: {len(got)} {kind} files")
+            back = runtime.decode_batch(sorted(
+                str(p) for p in dst.glob("alphamask_*.jpg")))[..., 0]
+            err = float(np.abs(back.astype(np.float64)
+                               - np.stack(out["alphas"])).mean())
+            print(f"  disk {mode} (--fused --segments {N_SEGMENTS} --wire "
+                  f"yuv420): {N_FRAMES / secs:.3f} frames/s with the read "
+                  f"and the write; alphamask files within mean {err:.3f} "
+                  f"of the alphas", flush=True)
+            check(err < 8.0, f"disk {mode}: alphamask mean |diff| {err}")
+    phase(f"disk ({N_FRAMES} frames, green and bg)", t0)
+    return True
 
 
 def fused_bg_read_phase(device, rows):
@@ -1247,9 +1514,10 @@ def fused_bg_phase(frames, gts, stm_weights, matting_weights):
           == torch.bfloat16, "the fused bg STM is not bfloat16")
     alphas, counts = {}, None
     for k, pipe in pipes.items():
-        pipe.run(frames[:2])   # warm-up: cuDNN plans, allocator
+        pipe.run(frames[:2], **DEV_RESIZE)   # warm-up: cuDNN plans
         torch.cuda.synchronize()
-        (a, segm, fg, bgs), secs, c = timed_run(pipe.run, frames)
+        (a, segm, fg, bgs), secs, c = timed_run(pipe.run, frames,
+                                                **DEV_RESIZE)
         if k == "bf16":
             counts = c
         check(a.shape == (N_FRAMES,) + pipe.work_hw and a.dtype == np.uint8
@@ -1284,8 +1552,8 @@ def fused_bg_phase(frames, gts, stm_weights, matting_weights):
     runs = {dev: FusedBgPipeline(
         cfg, BG_HOST_HW, work_long_side=BG_HOST_HW[1],
         matting_dtype=torch.float32, stm_dtype=torch.float32,
-        seg_dtype=torch.float32, device=dev).run(small) for dev in
-        ("cuda", "cpu")}
+        seg_dtype=torch.float32, device=dev).run(small, **DEV_RESIZE)
+        for dev in ("cuda", "cpu")}
     dmax, frac = within_bound(runs["cuda"][0], runs["cpu"][0])
     phase(f"fused bg host run ({N_CPU_FRAMES} frames at {BG_HOST_HW[0]}x"
           f"{BG_HOST_HW[1]})", t0)
@@ -1303,12 +1571,13 @@ def fused_bg_segmented_run(pipe, frames, gts, label):
     import numpy as np
     import torch
     n = len(frames)
-    pipe.run_segmented(frames[:N_SEGMENTS], N_SEGMENTS, SEG_CHUNK)
+    pipe.run_segmented(frames[:N_SEGMENTS], N_SEGMENTS, SEG_CHUNK,
+                       **DEV_RESIZE)
     torch.cuda.synchronize()
     seed = pipe.seg
     before = (seed.forwards, seed.frames) if seed is not None else (0, 0)
     out, secs, counts = timed_run(pipe.run_segmented, frames, N_SEGMENTS,
-                                  SEG_CHUNK)
+                                  SEG_CHUNK, **DEV_RESIZE)
     seeded = ((seed.forwards - before[0], seed.frames - before[1])
               if seed is not None else None)
     ious = gt_ious(out[0], gts, pipe.work_hw)
@@ -1344,7 +1613,7 @@ def fused_bg_segmented_phase(pipe16, stm_weights, matting_weights):
     pipe32 = fused_bg_pipes(cfg, ("f32",), pass1_downscale=1)["f32"]
     (a_seg, _, _, _), _, _, _ = fused_bg_segmented_run(
         pipe32, frames, gts, "f32 pass 1 at 1")
-    seq = pipe32.run(frames[:BG_SEG_FRAMES])[0]
+    seq = pipe32.run(frames[:BG_SEG_FRAMES], **DEV_RESIZE)[0]
     dmax, frac = within_bound(a_seg[:BG_SEG_FRAMES], seq)
     print(f"  fused bg float32 segment 0 vs the sequential run of its "
           f"frames: max |diff| {dmax}, |diff| > 1 on {frac:.6f}", flush=True)
@@ -1472,13 +1741,13 @@ def default_paths(device):
     phase("frames", t0)
 
     t0 = time.perf_counter()
-    pipe.run(frames[:2])  # warm-up: cuDNN plans, allocator
+    pipe.run(frames[:2], **DEV_RESIZE)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     phase("pipeline warm-up (2 frames)", t0)
 
     kernels.reset_counts()
     t0 = time.perf_counter()
-    alphas, fgs, bgs = pipe.run(frames)
+    alphas, fgs, bgs = pipe.run(frames, **DEV_RESIZE)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {"green": kernels.counts()}
@@ -1500,7 +1769,7 @@ def default_paths(device):
     torch.set_num_threads(os.cpu_count() or 1)
     host = FusedGreenPipeline(cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
                               device="cpu", **f32)
-    h_alphas, _, _ = host.run(frames[:N_CPU_FRAMES])
+    h_alphas, _, _ = host.run(frames[:N_CPU_FRAMES], **DEV_RESIZE)
     dmax, frac = within_bound(alphas[:N_CPU_FRAMES], h_alphas)
     phase(f"host run ({N_CPU_FRAMES} frames)", t0)
     print(f"  card vs host alphas: max |diff| {dmax}, |diff| > 1 on "
@@ -1514,6 +1783,9 @@ def default_paths(device):
     counts["green_bf16"], pipe16 = green_bf16_phase(cfg, frames, gts, alphas)
     phase("green bfloat16", t0)
     counts["segmented"] = segmented_phase(pipe16, pipe)
+    counts["wire_green"] = wire_green_phase(cfg, pipe16)
+    del pipe16
+    counts["green_modular"] = green_modular_phase(cfg, frames, gts)
 
     counts["bg"] = bg_phases(frames, gts, stm_weights, weights)
     t0 = time.perf_counter()
@@ -1525,6 +1797,8 @@ def default_paths(device):
         pipe_bg, stm_weights, weights)
     del pipe_bg
     counts["fused_bg_schp"] = schp_phase(work, stm_weights, weights, rows)
+    counts["wire_fused_bg"] = wire_fused_bg_phase(stm_weights, weights)
+    disk_phase(cfg, stm_weights, weights)
     counts["train"] = train_phases(stm_weights)
     return counts, rows
 
@@ -1572,11 +1846,11 @@ def green_deeplab_paths(device):
     counts, alphas = {}, {}
     for k, pipe in pipes.items():
         t0 = time.perf_counter()
-        pipe.run(frames[:2])   # warm-up: cuDNN plans, allocator
+        pipe.run(frames[:2], **DEV_RESIZE)   # warm-up: cuDNN plans
         torch.cuda.synchronize()
         before = (pipe.seg.forwards, pipe.seg.frames)
-        (a, _, _), secs, counts[f"deeplab_{k}"] = timed_run(pipe.run,
-                                                            frames)
+        (a, _, _), secs, counts[f"deeplab_{k}"] = timed_run(
+            pipe.run, frames, **DEV_RESIZE)
         seeded = check_seed_log(pipe, before, f"green_deeplab {k}")
         ious = gt_ious(a, gts, pipe.work_hw)
         alphas[k] = a
@@ -1606,11 +1880,13 @@ def green_deeplab_paths(device):
     n = N_SEGMENTS * SEG_FRAMES
     frames_s, gts_s = green_clip(n, *FRAME_HW, seed=SEED + 1)
     for k, pipe in pipes.items():
-        pipe.run_segmented(frames_s[:N_SEGMENTS], N_SEGMENTS, SEG_FRAMES)
+        pipe.run_segmented(frames_s[:N_SEGMENTS], N_SEGMENTS, SEG_FRAMES,
+                           **DEV_RESIZE)
         torch.cuda.synchronize()
         before = (pipe.seg.forwards, pipe.seg.frames)
         (a, _, _), secs, counts[f"deeplab_segmented_{k}"] = timed_run(
-            pipe.run_segmented, frames_s, N_SEGMENTS, SEG_FRAMES)
+            pipe.run_segmented, frames_s, N_SEGMENTS, SEG_FRAMES,
+            **DEV_RESIZE)
         seeded = check_seed_log(pipe, before, f"green_deeplab S=8 {k}")
         ious = gt_ious(a, gts_s, pipe.work_hw)
         print(f"  run_segmented DeepLab {k}, S {N_SEGMENTS} x {SEG_FRAMES} "
@@ -1629,7 +1905,7 @@ def green_deeplab_paths(device):
     runs = {dev: FusedGreenPipeline(
         cfg, DEEPLAB_HOST_HW, work_long_side=DEEPLAB_HOST_LONG,
         matting_dtype=torch.float32, seg_dtype=torch.float32,
-        device=dev).run(small)[0] for dev in ("cuda", "cpu")}
+        device=dev).run(small, **DEV_RESIZE)[0] for dev in ("cuda", "cpu")}
     dmax, frac = within_bound(runs["cuda"], runs["cpu"])
     phase(f"DeepLab host run ({N_CPU_FRAMES} frames at "
           f"{DEEPLAB_HOST_HW[0]}x{DEEPLAB_HOST_HW[1]})", t0)

@@ -178,9 +178,16 @@ def test_run_quality(clip, runs):
     assert np.mean(mious) > 0.75, mious
 
 
-def test_run_refuses_unported_options(clip):
-    frames, _ = clip
-    with pytest.raises(NotImplementedError):
-        tbg.run(BG_TEST_CFG, frames, save=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tbg.run(BG_TEST_CFG, None, device="cpu")
+def test_run_refuses_unported_options(tmp_path):
+    """Reading the clip from disk and saving the artifacts are ported
+    (tests/test_torch_fileio.py); the driver refuses a clip directory
+    without frames, and a frame file its JPEG codec cannot read."""
+    data = {"src_img_dir": str(tmp_path), "src_img_tmpl": "*.*",
+            "dst_img_dir": str(tmp_path / "out"), "range": None}
+    cfg = dict(BG_TEST_CFG, data=data)
+    with pytest.raises(FileNotFoundError):
+        tbg.run(cfg, None, save=True, device="cpu")
+    (tmp_path / "frame_000000.png").write_bytes(b"not a jpeg")
+    with pytest.raises(ValueError, match="PNG"):
+        tbg.run(cfg, None, save=True, device="cpu")
+    assert not (tmp_path / "out").exists()

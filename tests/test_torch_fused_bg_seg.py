@@ -99,7 +99,8 @@ def segmented():
 def test_run_segmented_against_jax(segmented):
     frames, want, margins, tpipe = segmented
     before = (tpipe.seg.forwards, tpipe.seg.frames)
-    got = tpipe.run_segmented(frames, n_segments=2, chunk_size=2)
+    got = tpipe.run_segmented(frames, n_segments=2, chunk_size=2,
+                              host_downscale=False)
     for name, g, w in zip(("alpha", "segmask", "fg", "bg"), got, want):
         assert g.shape[0] == N
         if name != "segmask":

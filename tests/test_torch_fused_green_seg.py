@@ -63,7 +63,8 @@ def test_run_segmented_against_jax(pipes, clip):
     frames = make_clip(n=6)[0] if clip == "steady" else _desync_clip()
     want = jpipe.run_segmented(frames, n_segments=2, chunk_size=3,
                                host_downscale=False)
-    got = tpipe.run_segmented(frames, n_segments=2, chunk_size=3)
+    got = tpipe.run_segmented(frames, n_segments=2, chunk_size=3,
+                              host_downscale=False)
     for name, g, w in zip(("alpha", "fg", "bg"), got, want):
         assert g.shape[0] == 6
         _within_bound(g, w, f"{clip} {name}")

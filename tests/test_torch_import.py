@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: importing every module of
-`video_unscreen_tpu_torch` (the trainer's `parallel/` modules included)
-loads no JAX, flax, msgpack, cv2 or JAX-package module, `chip_smoke.py`
-and `tools/train_stm_torch.py` import none either, and the entry points
-refuse a missing card instead of quietly running on the host."""
+`video_unscreen_tpu_torch` (the trainer's `parallel/` modules, the native
+runtime and the streamer included) loads no JAX, flax, msgpack, cv2 or
+JAX-package module, `chip_smoke.py`, `tools/train_stm_torch.py` and the
+CLIs `tools/unscreen/{green,bg}_torch.py` import none either, and the
+entry points refuse a missing card instead of quietly running on the
+host."""
 import ast
 import os
 import subprocess
@@ -57,13 +59,13 @@ def test_chip_smoke_imports_nothing_of_jax():
     assert "video_unscreen_tpu_torch" in roots
 
 
-def test_port_trainer_imports_nothing_of_jax():
-    roots = _import_roots(ROOT / "tools" / "train_stm_torch.py")
+def _loads_nothing_of_jax(rel_path):
+    roots = _import_roots(ROOT / rel_path)
     assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
     assert "video_unscreen_tpu_torch" in roots
     probe = ("import importlib.util, sys\n"
              "spec = importlib.util.spec_from_file_location('t', "
-             "'tools/train_stm_torch.py')\n"
+             f"{rel_path!r})\n"
              "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
              f"print(sorted(k for k in sys.modules if k.split('.')[0] in "
              f"{set(FORBIDDEN)!r}))")
@@ -73,11 +75,30 @@ def test_port_trainer_imports_nothing_of_jax():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_port_trainer_imports_nothing_of_jax():
+    _loads_nothing_of_jax("tools/train_stm_torch.py")
+
+
+@pytest.mark.parametrize("cli", ["green_torch", "bg_torch"])
+def test_port_clis_import_nothing_of_jax(cli):
+    _loads_nothing_of_jax(f"tools/unscreen/{cli}.py")
+
+
+def _cli(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tools" / "unscreen" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.mark.parametrize("entry", ["pipeline", "run_fused", "bg_run",
                                    "stm_agent", "stm_train_state",
                                    "seg_agent", "run_segmented", "fused_bg",
-                                   "human_seg_agent"])
-def test_entry_points_refuse_missing_cuda(entry):
+                                   "human_seg_agent", "green_modular",
+                                   "green_cli", "bg_cli"])
+def test_entry_points_refuse_missing_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal path does not run")
     from tests.test_pipeline_bg import BG_TEST_CFG
@@ -87,7 +108,7 @@ def test_entry_points_refuse_missing_cuda(entry):
     from video_unscreen_tpu_torch.agents.stm import STMAgent
     from video_unscreen_tpu_torch.parallel.train_stm import \
         make_stm_train_state
-    from video_unscreen_tpu_torch.pipeline import bg
+    from video_unscreen_tpu_torch.pipeline import bg, green
     from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
     from video_unscreen_tpu_torch.pipeline.fused_green import (
         FusedGreenPipeline, run_fused)
@@ -109,6 +130,11 @@ def test_entry_points_refuse_missing_cuda(entry):
             FusedBgPipeline(BG_TEST_CFG, (96, 128), work_long_side=128)
         elif entry == "human_seg_agent":
             HumanSegAgent(layers=(1, 1, 1, 1))
+        elif entry == "green_modular":
+            green.run(TEST_CFG, frames, save=False)
+        elif entry in ("green_cli", "bg_cli"):
+            _cli(entry.replace("_cli", "_torch")).main(
+                ["-vid", "v", "--data_root", str(tmp_path)])
         else:
             make_stm_train_state()
 
@@ -117,9 +143,14 @@ def test_unported_options_raise():
     from tests.test_pipeline_bg import BG_TEST_CFG
     from tests.test_pipeline_green import TEST_CFG
     from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
-    from video_unscreen_tpu_torch.pipeline.fused_green import run_fused
-    with pytest.raises(NotImplementedError):
-        run_fused(TEST_CFG, [], save=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10a"):
+    from video_unscreen_tpu_torch.pipeline.fused_green import \
+        FusedGreenPipeline
+    with pytest.raises(NotImplementedError, match="item 12"):
         FusedBgPipeline(BG_TEST_CFG, (96, 128), work_long_side=128,
-                        wire="yuv420", device="cpu")
+                        fetch="host", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        FusedBgPipeline(BG_TEST_CFG, (96, 128), work_long_side=128,
+                        pack_d2h=True, device="cpu")
+    with pytest.raises(ValueError, match="wire='rgb'"):
+        FusedGreenPipeline(TEST_CFG, (96, 128), work_long_side=128,
+                           wire="rgb", device="cpu")

@@ -664,3 +664,31 @@ def test_bg_pipeline_card_matches_host():
         d = np.abs(a.astype(int) - b.astype(int))
         assert d.max() <= 4 and (d > 1).mean() < 1e-3, (d.max(),
                                                          (d > 1).mean())
+
+
+@cuda
+def test_chunk_stream_on_card():
+    """The pinned double-buffered upload (`parallel/streaming.py`) under a
+    slow reader: the compute stream sleeps before it reads each chunk, so
+    the host runs ahead and the worker refills buffers as fast as the
+    events allow; every chunk the compute stream reads must still hold
+    its own index (an early refill of a pinned or device buffer would
+    show)."""
+    require_cuda()
+    from video_unscreen_tpu_torch.parallel.streaming import ChunkStream
+    n_chunks, shape = 24, (4, 256, 1024)
+
+    def fill(i, out):
+        out[...] = i % 251
+        return out.shape[0]
+
+    sums = []
+    for chunk, n_valid in ChunkStream(fill, n_chunks, shape,
+                                      torch.device("cuda")):
+        assert n_valid == shape[0]
+        torch.cuda._sleep(2_000_000)  # about 1 ms of device time
+        sums.append(chunk.to(torch.int32).sum(dim=(1, 2)))
+    got = torch.stack(sums).cpu()
+    want = torch.tensor([[(i % 251) * shape[1] * shape[2]] * shape[0]
+                         for i in range(n_chunks)], dtype=torch.int32)
+    assert torch.equal(got, want)

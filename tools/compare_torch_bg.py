@@ -97,7 +97,7 @@ def run_fused(cfg, frames, hw):
         FusedBgPipeline as TPipe
     port = TPipe(cfg, hw, matting_dtype=torch.float32,
                  stm_dtype=torch.float32, seg_dtype=torch.float32,
-                 device="cpu").run(frames)[0]
+                 device="cpu").run(frames, host_downscale=False)[0]
     ref = JPipe(cfg, hw, fetch="device", pack_d2h=False,
                 matting_dtype=jnp.float32, stm_dtype=jnp.float32,
                 seg_dtype=jnp.float32).run(frames, host_downscale=False)[0]

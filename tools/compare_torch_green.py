@@ -58,7 +58,8 @@ def main():
     frames, _ = green_clip(args.frames, *hw, seed=0)
     t0 = time.perf_counter()
     port = TPipe(cfg, hw, matting_dtype=torch.float32,
-                 seg_dtype=torch.float32, device="cpu").run(frames)
+                 seg_dtype=torch.float32, device="cpu").run(
+                     frames, host_downscale=False)
     t1 = time.perf_counter()
     ref = JPipe(cfg, hw, fetch_fg="device", pack_d2h=False,
                 matting_dtype=jnp.float32, seg_dtype=jnp.float32).run(

@@ -90,7 +90,7 @@ def main():
     n, s = args.frames, args.segments
 
     def run(clip):
-        return pipe.run_segmented(clip, s, 4)
+        return pipe.run_segmented(clip, s, 4, host_downscale=False)
 
     with instrumented(pipe):
         run(frames[:max(2, s)])

@@ -1,21 +1,28 @@
 """Where the PyTorch port's green path spends a frame, on one NVIDIA card.
 
     python tools/profile_torch_green.py [--frames 8] [--warmup 2]
-        [--seed chroma|deeplab] [--segments 1]
+        [--seed chroma|deeplab] [--segments 1] [--wire bgr|yuv420]
 
 Runs `video_unscreen_tpu_torch`'s `FusedGreenPipeline` (configs/green.json,
 1080p -> 544x960, the chroma seed or, with `--seed deeplab`, the shipped
 DeepLab seed from weights/deeplab_binseg.msgpack; matting and seed in the
 pipeline's default bfloat16; `run`, or
 `run_segmented` with S segments of 4-frame chunks) on the seeded synthetic
-frames of `utils/synthetic.py:green_clip`, first three times unprofiled
+frames of `utils/synthetic.py:green_clip`. `--wire bgr` (the default)
+uploads the 1080p BGR frames and resizes them on the device
+(`host_downscale=False`); `--wire yuv420` runs bench.py's configuration:
+the host resizes each frame to 544x960 and packs it as I420, and the
+device decodes it. The run goes first three times unprofiled
 (frames/s of each run, for the run-to-run spread), then once under
 `torch.profiler`, with
 each stage wrapped in a `record_function` span, and prints per stage the device time (kernels launched inside the span) and the
 host wall time, the top device kernels, the device's busy and idle share of
 the profiled window, and the MattingUNet's operation count (counted on the
-meta device) beside its device time. Needs a card: it exits non-zero
-without one.
+meta device) beside its device time, and the host side of the upload:
+the worker's host prep (`runtime.prep_batch`) ms a chunk and a frame, the
+main thread's wait for chunks (`stream_wait`) ms a frame, and the
+host-to-device copies' device ms a frame and bytes a frame. Needs a card:
+it exits non-zero without one.
 """
 
 import argparse
@@ -34,7 +41,9 @@ from video_unscreen_tpu_torch.utils.synthetic import green_clip  # noqa
 from video_unscreen_tpu_torch.config import load_config  # noqa: E402
 from video_unscreen_tpu_torch.models.matting_unet import \
     MattingUNet  # noqa: E402
+from video_unscreen_tpu_torch import runtime  # noqa: E402
 from video_unscreen_tpu_torch.pipeline import fused_green  # noqa: E402
+from video_unscreen_tpu_torch.utils.profiling import StageTimer  # noqa
 
 STAGES = ("seed_mask", "color_filter", "object_removal", "trimap",
           "matting", "color_correct", "fg")
@@ -69,6 +78,25 @@ def instrumented(pipe):
     finally:
         for mod_attr, fn in saved.items():
             setattr(fused_green, mod_attr, fn)
+
+
+@contextlib.contextmanager
+def timed_prep(seconds):
+    """Append the host seconds of each `runtime.prep_batch` call (one a
+    chunk, in the streamer's worker) to `seconds`."""
+    saved = runtime.prep_batch
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return saved(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+    runtime.prep_batch = wrapper
+    try:
+        yield
+    finally:
+        runtime.prep_batch = saved
 
 
 def device_kernels(events, stages=STAGES):
@@ -115,6 +143,7 @@ def main():
     ap.add_argument("--seed", choices=("chroma", "deeplab"),
                     default="chroma")
     ap.add_argument("--segments", type=int, default=1)
+    ap.add_argument("--wire", choices=("bgr", "yuv420"), default="bgr")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_green: CUDA is not available", file=sys.stderr)
@@ -129,11 +158,16 @@ def main():
     cfg["vmatting"]["model_path"] = str(ROOT / "weights" /
                                         "matting_unet.msgpack")
     frames, _ = green_clip(args.frames, 1080, 1920, seed=0)
-    pipe = fused_green.FusedGreenPipeline(cfg, (1080, 1920), device="cuda")
+    pipe = fused_green.FusedGreenPipeline(cfg, (1080, 1920), wire=args.wire,
+                                          device="cuda")
     n, s = args.frames, args.segments
+    host_downscale = args.wire == "yuv420"
+    timer, prep_s = StageTimer(), []
 
     def run(clip):
-        return pipe.run_segmented(clip, s, 4) if s > 1 else pipe.run(clip)
+        return pipe.run_segmented(clip, s, 4 if s > 1 else 8,
+                                  host_downscale=host_downscale,
+                                  timer=timer)
 
     with instrumented(pipe):
         run(frames[:max(args.warmup, s)])
@@ -144,20 +178,35 @@ def main():
             run(frames)
             torch.cuda.synchronize()
             rates.append(n / (time.perf_counter() - t0))
-        print(f"seed {args.seed}, bfloat16, S {s}; unprofiled frames/s: "
+        print(f"seed {args.seed}, bfloat16, S {s}, wire {args.wire}; "
+              f"unprofiled frames/s: "
               + ", ".join(f"{r:.2f}" for r in rates))
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        timer = StageTimer()
+        with timed_prep(prep_s), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run(frames)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
 
     name = torch.cuda.get_device_name(0)
-    print(f"device: {name}; torch {torch.__version__}; {n} frames, "
-          f"wall {wall:.2f} ms ({n / wall * 1e3:.2f} frames/s)")
+    print(f"device: {name}; torch {torch.__version__}; wire {args.wire}; "
+          f"{n} frames, wall {wall:.2f} ms ({n / wall * 1e3:.2f} frames/s)")
     events = prof.events()
+    h2d = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "HtoD" in e.name]
+    h2d_ms = sum(e.time_range.elapsed_us() for e in h2d) / 1e3
+    wire_bytes = (pipe.work_hw[0] * pipe.work_hw[1] * 3 // 2
+                  if host_downscale else 1080 * 1920 * 3)
+    print(f"upload: host prep {sum(prep_s) * 1e3 / len(prep_s):.3f} ms a "
+          f"chunk ({len(prep_s)} chunks), {sum(prep_s) * 1e3 / n:.3f} ms a "
+          f"frame (worker thread); stream_wait "
+          f"{timer.times['stream_wait'] * 1e3 / n:.3f} ms a frame (main "
+          f"thread); host-to-device copies {len(h2d)}, {h2d_ms / n:.4f} "
+          f"device ms a frame; wire bytes a frame {wire_bytes}")
     print("stage            device ms/frame   host ms/frame   calls")
     device_ms = {}
     for stage in STAGES:

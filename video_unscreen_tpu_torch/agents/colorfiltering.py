@@ -7,7 +7,8 @@ from a carried `CFState`, the per-pixel mixture alpha, the adaptive
 threshold plus close/open cleanup, and the degenerate-input guards. The
 refit loop runs a fixed number of iterations; a `live` flag freezes the
 state once fg or bg runs dry, as the JAX `lax.cond` does, with selects and
-no host sync.
+no host sync. The host API of the modular green driver (`forward`,
+`is_trained`) keeps the agent's own `state`, as the JAX agent does.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import torch
 
 from ..ops import color as colorops
 from ..ops import morphology as morph
+from ..ops.geometry import get_target_size, resize
 from ..ops.gmm import GMMParams, gmm_fit_em, gmm_init, gmm_pdf
-from ..utils.device import resolve_device
+from ..utils.device import as_float, resolve_device
 
 
 class CFState(NamedTuple):
@@ -88,8 +90,9 @@ def _select_state(flag: torch.Tensor, a: CFState, b: CFState) -> CFState:
 
 class ColorFilteringAgent:
     """Same constructor surface as the JAX agent, plus `device` (the card
-    unless the caller passes "cpu"); holds no state itself (the pipeline
-    carries `CFState`)."""
+    unless the caller passes "cpu"). The fused pipelines carry a `CFState`
+    per segment through `device_forward_impl`; `forward` uses and updates
+    the agent's own `state`."""
 
     def __init__(self, input_long_side: int = 960, bg_ncomp=(3, 5, 5),
                  fg_ncomp=(10, 10, 10), max_num_samples: int = 10000,
@@ -112,6 +115,7 @@ class ColorFilteringAgent:
         self.em_iters = int(em_iters)
         self._bg_active = self._active(self.bg_ncomp)
         self._fg_active = self._active(self.fg_ncomp)
+        self.state = self.reset_gmms()
 
     def _active(self, ncomp) -> torch.Tensor:
         n = torch.tensor(ncomp, device=self.device)
@@ -119,11 +123,15 @@ class ColorFilteringAgent:
             < n[:, None]
 
     def reset_gmms(self) -> CFState:
-        """Fresh (untrained) GMM banks."""
-        return CFState(
+        """Fresh (untrained) GMM banks, also made the agent's `state`."""
+        self.state = CFState(
             bg=gmm_init(3, self._bg_active.shape[1], self._bg_active),
             fg=gmm_init(3, self._fg_active.shape[1], self._fg_active),
             trained=torch.tensor(False, device=self.device))
+        return self.state
+
+    def is_trained(self) -> bool:
+        return bool(self.state.trained)
 
     def device_forward_impl(self, img: torch.Tensor, mask: torch.Tensor,
                             iters: int, state: CFState
@@ -195,3 +203,28 @@ class ColorFilteringAgent:
         bg_color = torch.where(fg_cnt < fg_min, 0.0, bg_color)
         out_state = _select_state(degenerate, state, out_state)
         return alpha, bg_color, conf, out_state
+
+    @torch.inference_mode()
+    def forward(self, img, mask, iters: int = 1):
+        """The modular driver's step on a full-resolution BGR frame and
+        coarse mask (numpy or tensors, 0..255): at `input_long_side`, with
+        the agent's `state`. Returns (alpha uint8 (H, W), background image
+        uint8 (H, W, 3) of the screen color, confidence) on the agent's
+        device; too few fg or bg pixels in the mask return it unfiltered
+        (with the frame, or a black background) and leave the state."""
+        img = as_float(img, self.device)
+        mask = as_float(mask, self.device)
+        if int((mask > 128).sum()) < max(self.fg_ncomp) * 5:
+            return mask.to(torch.uint8), img.to(torch.uint8), 1.0
+        if int((mask < 128).sum()) < max(self.bg_ncomp) * 5:
+            return (mask.to(torch.uint8),
+                    torch.zeros(img.shape, dtype=torch.uint8,
+                                device=self.device), 1.0)
+        ori_h, ori_w = img.shape[:2]
+        work_hw = get_target_size(ori_h, ori_w, self.input_long_side)
+        alpha, bg_color, conf, self.state = self.device_forward_impl(
+            resize(img, work_hw), resize(mask, work_hw), int(iters),
+            self.state)
+        alpha = resize(alpha, (ori_h, ori_w)).clamp(0.0, 255.0)
+        bg_img = bg_color.clamp(0.0, 255.0).expand(ori_h, ori_w, 3)
+        return alpha.to(torch.uint8), bg_img.to(torch.uint8), conf

@@ -1,9 +1,9 @@
 """Color-space conversions in OpenCV 8-bit ranges on float tensors.
 
 Port of `video_unscreen_tpu/ops/color.py` (`bgr2gray`, `bgr2hsv`,
-`hsv2bgr`, `bgr2lab`): HSV with H in 0..180 and S/V in 0..255, Lab as
-L*255/100 and a/b offset by 128, so the pipeline's windows and thresholds
-carry over.
+`hsv2bgr`, `bgr2lab`, `yuv420_to_bgr`): HSV with H in 0..180 and S/V in
+0..255, Lab as L*255/100 and a/b offset by 128, so the pipeline's windows
+and thresholds carry over.
 Channels are last, as in the JAX package.
 """
 
@@ -88,3 +88,31 @@ def bgr2lab(img: torch.Tensor) -> torch.Tensor:
     a = 500.0 * (fx - fy) + 128.0
     b = 200.0 * (fy - fz) + 128.0
     return torch.stack([l_ * 255.0 / 100.0, a, b], dim=-1)
+
+
+def yuv420_to_bgr(yuv: torch.Tensor) -> torch.Tensor:
+    """I420 uint8 (..., H * 3 / 2, W), the layout of
+    `cv2.cvtColor(bgr, COLOR_BGR2YUV_I420)` (H rows of Y, then the H/2 x
+    W/2 U plane, then V), to float32 BGR 0..255 (..., H, W, 3): chroma
+    upsampled by nearest neighbour, OpenCV's studio-swing BT.601
+    coefficients."""
+    hh, w = yuv.shape[-2:]
+    h = hh * 2 // 3
+    lead = yuv.shape[:-2]
+    flat = yuv.reshape(lead + (hh * w,)).to(torch.float32)
+    q = (h // 2) * (w // 2)
+    y = flat[..., :h * w].reshape(lead + (h, w))
+
+    def chroma(plane):
+        c = plane.reshape(lead + (h // 2, w // 2))
+        return c.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+    u = chroma(flat[..., h * w:h * w + q])
+    v = chroma(flat[..., h * w + q:h * w + 2 * q])
+    c = (y - 16.0) * 1.164
+    d = u - 128.0
+    e = v - 128.0
+    r = c + 1.596 * e
+    g = c - 0.813 * e - 0.391 * d
+    b = c + 2.018 * d
+    return torch.stack([b, g, r], dim=-1).clamp(0.0, 255.0)

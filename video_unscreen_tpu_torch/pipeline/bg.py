@@ -15,8 +15,9 @@ Every stage runs on the agents' device; frames go up once each and the
 stages hand uint8 tensors to each other, with the JAX run's numpy
 truncations (`clip(0, 255).astype(uint8)`, `// 255`) as tensor casts. The
 host reads two flags per frame (the foreground gates) and the regionfill's
-convergence check. Saving artifacts and reading frames from disk are not
-ported (they need an image codec; ROADMAP.md, Queue 1, item 10).
+convergence check. The clip comes from disk unless frames are passed;
+`save` writes `segmask_`, `bg_`, `alphamask_` and `fg_*.jpg` (gray masks)
+as the JAX driver does.
 """
 
 from __future__ import annotations
@@ -34,7 +35,9 @@ from ..ops.compositing import get_bg, get_fg
 from ..ops.morphology import dilate
 from ..ops.regionfill import regionfill_solve
 from ..utils.device import resolve_device
-from .common import exist_foreground_np, remove_invalid_objects_cfg
+from ..utils.fileio import save_img
+from .common import (artifact_path, exist_foreground_np, read_frames,
+                     remove_invalid_objects_cfg)
 
 # Config keys of the `stm` section that only the fused bg pipeline reads;
 # STMAgent does not take them, so the modular pipeline drops them.
@@ -67,17 +70,22 @@ def _per_frame_background(frame: torch.Tensor,
 
 
 @torch.inference_mode()
-def run(cfg: dict, frames, save: bool = False, device="cuda") -> dict:
-    """bg mode over `frames` (a list of BGR uint8 (H, W, 3) arrays).
-    Returns {"alphas": [uint8 (H, W) numpy], "fgs": [uint8 (H, W, 3)
-    numpy], "numframes": N, "frame_seconds": [host wall seconds of each
-    frame, from its upload to the read of its foreground gate]}."""
-    if save or frames is None:
-        raise NotImplementedError(
-            "bg run: saving artifacts and reading frames from disk are not "
-            "ported yet (ROADMAP.md, Queue 1, item 10); pass frames "
-            "and save=False")
+def run(cfg: dict, frames=None, save: bool = False, device="cuda") -> dict:
+    """bg mode over `frames` (a list of BGR uint8 (H, W, 3) arrays; default:
+    the clip of `cfg["data"]` read from disk); `save` writes the artifacts
+    into `cfg["data"]["dst_img_dir"]`. Returns {"alphas": [uint8 (H, W)
+    numpy], "fgs": [uint8 (H, W, 3) numpy], "numframes": N,
+    "frame_seconds": [host wall seconds of each frame, from its upload to
+    the read of its foreground gate]}."""
     dev = resolve_device(device)
+    if frames is None:
+        frames = read_frames(cfg)
+    dst = cfg["data"]["dst_img_dir"] if save else None
+
+    def write(kind, fid, img):
+        if save:
+            save_img(artifact_path(dst, kind, fid), img.cpu().numpy())
+
     segagent, stmagent, trimapagent, vmatagent = build_bg_agents(cfg, dev)
     thr = cfg["fg_exist_thr"]
     h, w = frames[0].shape[:2]
@@ -94,6 +102,7 @@ def run(cfg: dict, frames, save: bool = False, device="cuda") -> dict:
             segmask = stmagent.forward([prev, frame], segmask)[-1]
         else:
             segmask = segagent.forward(frame)
+        write("segmask", fid, segmask)
 
         if not exist_foreground_np(segmask, thr):
             fg = torch.zeros_like(frame)
@@ -105,6 +114,7 @@ def run(cfg: dict, frames, save: bool = False, device="cuda") -> dict:
                 remove_invalid_objects_cfg(cfg, segmask))
             alpha = vmatagent.forward(frame_f, alpha_pre, trimap)
             bgimg = _per_frame_background(frame_f, alpha)
+            write("bg", fid, bgimg)
             # background-difference mask
             alphabg = bgr2gray((frame_f - bgimg.to(torch.float32)).abs())
             alphabg = torch.where(alphabg > cfg["bg_mask"]["thr"], 255.0,
@@ -117,11 +127,13 @@ def run(cfg: dict, frames, save: bool = False, device="cuda") -> dict:
             trimap = trimapagent.forward(
                 remove_invalid_objects_cfg(cfg, alpha_ensm))
             alpha = vmatagent.forward(frame_f, alpha_pre, trimap)
+            write("alphamask", fid, alpha)
             # foreground
             bgimg = torch.where((alpha == 0)[..., None], frame, bgimg)
             fg = get_fg(frame_f, alpha.to(torch.float32),
                         bgimg.to(torch.float32)).clamp(0, 255).to(
                             torch.uint8)
+            write("fg", fid, fg)
         alphas.append(alpha)
         fgs.append(fg)
         alpha_pre = alpha

@@ -1,20 +1,32 @@
 """Shared pipeline helpers (port of `video_unscreen_tpu/pipeline/common.py`):
 the location score map, config-driven object removal, the host-side
-foreground gate and artifact names; and the fused pipelines' frame resize
-on the device (`prep_frames`) and segment loop (`run_segments`)."""
+foreground gate, artifact names, reading the clip (`read_frames`) and the
+runtime report (`print_statistic`); and the fused pipelines' frame
+preparation on the device (`prep_frames`: the I420 decode, then the resize
+when the frames are not at work resolution yet) and their segment loop
+(`run_segments`: the host builds each chunk, resized on the host and packed
+for the wire, and `parallel/streaming.py` uploads it)."""
 
 from __future__ import annotations
 
 import collections
 import functools
 import os.path as osp
-from typing import Callable, Optional, Tuple
+from glob import glob
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import runtime
+from ..ops.color import yuv420_to_bgr
 from ..ops.connected import remove_invalid_objects, score_map
 from ..ops.geometry import resize_nchw
+from ..parallel.streaming import ChunkStream
+from ..utils.fileio import parallel_read_img
+from ..utils.profiling import StageTimer
+
+WIRES = ("bgr", "yuv420")
 
 
 @functools.lru_cache(maxsize=16)
@@ -67,41 +79,132 @@ def artifact_path(dst_dir: str, kind: str, fid: int) -> str:
     return osp.join(dst_dir, f"{kind}_{fid:06d}.jpg")
 
 
+def read_frames(cfg: dict) -> List[np.ndarray]:
+    """The clip of `cfg["data"]`: the files matching `src_img_tmpl` in
+    `src_img_dir`, sorted, cut to `range` when given, decoded to BGR."""
+    data = cfg["data"]
+    paths = sorted(glob(osp.join(data["src_img_dir"], data["src_img_tmpl"])))
+    if data.get("range"):
+        paths = paths[data["range"][0]:data["range"][1]]
+    if not paths:
+        raise FileNotFoundError(
+            f"no frames matching {data['src_img_tmpl']} in "
+            f"{data['src_img_dir']}")
+    return parallel_read_img(paths)
+
+
+def print_statistic(runtime_s: dict, tracking_count: int,
+                    numframes: int) -> None:
+    """Per-stage runtime report: seconds a frame of each stage."""
+    print(f"{tracking_count} / {numframes} use tracking")
+    print("-" * 10 + "runtime" + "-" * 10)
+    for key, value in runtime_s.items():
+        print(f"{key:>16s}: {value / max(numframes, 1):.3f}s")
+    print("-" * 10 + "-------" + "-" * 10)
+    print()
+
+
+def check_wire(wire: str) -> str:
+    if wire not in WIRES:
+        raise ValueError(f"wire={wire!r}: one of {WIRES}")
+    return wire
+
+
 def prep_frames(frames_full: torch.Tensor,
                 work_hw: Tuple[int, int]) -> torch.Tensor:
-    """uint8 (S, H, W, 3) on the device -> float32 at work resolution
-    (resized on the device: the JAX pipelines' `host_downscale=False`)."""
-    x = frames_full.to(torch.float32)
+    """One step's uint8 frames on the device, BGR (S, H, W, 3) or I420
+    (S, H * 3 / 2, W), -> float32 BGR (S, h, w, 3) at work resolution:
+    I420 is decoded first, then the frames are resized on the device
+    unless the host already brought them to `work_hw`."""
+    if frames_full.dim() == 3:
+        x = yuv420_to_bgr(frames_full)
+    else:
+        x = frames_full.to(torch.float32)
     if tuple(x.shape[1:3]) == tuple(work_hw):
         return x
     y = resize_nchw(x.permute(0, 3, 1, 2), work_hw)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def host_frames(frames, work_hw: Tuple[int, int]) -> np.ndarray:
+    """The frames at work resolution on the host, (N, h, w, 3) uint8,
+    resized with cv2's INTER_LINEAR (`runtime.resize_batch`)."""
+    frames = [np.ascontiguousarray(f, np.uint8) for f in frames]
+    if frames[0].shape[:2] == tuple(work_hw):
+        return np.stack(frames)
+    return runtime.resize_batch(frames, work_hw)
+
+
 def run_segments(step: Callable, carries, frames, n_segments: int,
                  chunk_size: int, device: torch.device,
-                 stats: collections.Counter) -> np.ndarray:
+                 stats: collections.Counter, wire_hw: Tuple[int, int],
+                 wire: str = "bgr", timer: Optional[StageTimer] = None
+                 ) -> Tuple[np.ndarray, ...]:
     """The fused pipelines' host loop. The clip is split into `n_segments`
     contiguous segments of ceil(N / S) frames (the tail padded with the
-    last frame) advanced in lockstep: each step uploads one uint8 frame a
-    segment, (S, H, W, 3), and `step(carries, frames)` returns (carries,
-    uint8 (S, h, w, C) outputs); the outputs are fetched once every
-    `chunk_size` steps (one sync each, counted in `stats`). Returns the
-    (N, h, w, C) outputs in clip order, trimmed to N frames."""
-    frames = list(frames)
+    last frame) advanced in lockstep. The host builds each chunk of
+    `chunk_size` steps, (steps, S, ...) uint8: every frame resized to
+    `wire_hw` (the work resolution under `host_downscale`, else its own)
+    and, for `wire="yuv420"`, packed as I420, in one C++ call a chunk;
+    `ChunkStream` uploads it behind the device's work on the last chunk.
+    `step(carries, frames)` takes one step's (S, ...) frames and returns
+    (carries, a tuple of tensors with a leading S axis); a chunk's outputs
+    are fetched together in one copy (one sync, counted in `stats`).
+    `timer` takes the stream_wait / dispatch / fetch split. Returns each
+    output as an (N, ...) numpy array in clip order, trimmed to N
+    frames."""
+    frames = [np.ascontiguousarray(f, np.uint8) for f in frames]
     n = len(frames)
     seg_len = -(-n // n_segments)
     padded = frames + [frames[-1]] * (n_segments * seg_len - n)
+    starts = list(range(0, seg_len, chunk_size))
+    i420 = check_wire(wire) == "yuv420"
+    h, w = wire_hw
+    one = (h * 3 // 2, w) if i420 else (h, w) + frames[0].shape[2:]
+
+    def fill(i: int, out: np.ndarray) -> int:
+        c0 = starts[i]
+        cn = min(chunk_size, seg_len - c0)
+        srcs = [padded[s * seg_len + c0 + t] for t in range(cn)
+                for s in range(n_segments)]
+        runtime.prep_batch(srcs, wire_hw, i420,
+                           out=out.reshape((-1,) + one)[:len(srcs)])
+        return cn
+
+    timer = timer or StageTimer()
+    stream = iter(ChunkStream(fill, len(starts),
+                              (chunk_size, n_segments) + one, device))
     chunks = []
-    for c0 in range(0, seg_len, chunk_size):
+    while True:
+        with timer.stage("stream_wait"):
+            item = next(stream, None)
+        if item is None:
+            break
+        chunk, cn = item
         outs = []
-        for t in range(c0, min(c0 + chunk_size, seg_len)):
-            batch = np.stack([np.asarray(padded[s * seg_len + t], np.uint8)
-                              for s in range(n_segments)])
-            carries, out = step(carries, torch.from_numpy(batch).to(device))
-            outs.append(out)
-        chunks.append(torch.stack(outs, dim=1).cpu().numpy())
+        with timer.stage("dispatch"):
+            for t in range(cn):
+                carries, out = step(carries, chunk[t])
+                outs.append(out)
+        with timer.stage("fetch"):
+            chunks.append(_fetch([torch.stack(o, dim=1)
+                                  for o in zip(*outs)]))
         stats["syncs"] += 1
-    # (S, seg_len, h, w, C) -> clip order, trimmed
-    return np.concatenate(chunks, axis=1).reshape(
-        (n_segments * seg_len,) + chunks[0].shape[2:])[:n]
+    # per output: (S, seg_len, ...) -> clip order, trimmed
+    return tuple(np.concatenate(parts, axis=1).reshape(
+        (n_segments * seg_len,) + parts[0].shape[2:])[:n]
+        for parts in zip(*chunks))
+
+
+def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Copy tensors of any dtypes to the host in one transfer: their bytes
+    concatenated on the device, split and reinterpreted on the host."""
+    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    host = torch.cat(flat).cpu().numpy()
+    out, at = [], 0
+    for t, f in zip(tensors, flat):
+        nbytes = f.numel()
+        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        out.append(host[at:at + nbytes].view(dtype).reshape(t.shape))
+        at += nbytes
+    return out

@@ -2,9 +2,12 @@
 stage chain on the device.
 
 Port of `video_unscreen_tpu/pipeline/fused_bg.py` (`BgCarry`,
-`FusedBgPipeline`: `run`, `run_segmented`, `_step_batched`, with the
-artifacts computed on the device and the frames resized on the device:
-the JAX package's `fetch="device"`, `host_downscale=False`). Per frame:
+`FusedBgPipeline`: `run`, `run_segmented`, `_step_batched`; `run_fused`),
+with the artifacts computed on the device: the JAX package's
+`fetch="device"`, `pack_d2h=False`. The host builds each chunk, the frames
+resized to work resolution (`host_downscale`, the default) and packed as
+BGR or I420 (`wire`), and uploads it through pinned memory behind the
+device's work (`pipeline/common.py:run_segments`). Per frame:
 
     seg: STM tracking of the previous alpha over the ring bank | the seed
          (SCHP, DeepLab or chroma) on frame 0, after a tracking loss, and
@@ -61,8 +64,10 @@ from ..ops.morphology import dilate
 from ..ops.regionfill import cg_syncs, regionfill_solve, solve_shape
 from ..ops.trimap import generate_trimap
 from ..utils.device import resolve_device
-from .common import build_score_map, prep_frames, run_segments
-from .fused_green import _build_seed_segmenter, seed_mask
+from ..utils.profiling import StageTimer, maybe_trace
+from .common import (build_score_map, check_wire, prep_frames, read_frames,
+                     run_segments)
+from .fused_green import _build_seed_segmenter, save_artifacts, seed_mask
 
 
 class BgCarry(NamedTuple):
@@ -94,9 +99,10 @@ class FusedBgPipeline:
     the STM steps and tracked frames, the ballooned frames, the seed steps
     and seeded frames, and the CG iterations; `step_tracking` holds each
     step's tracking flags and `step_seeded` the segments the seed ran on.
-    The JAX pipeline's host fetch (`fetch="host"`, `pack_d2h`), its I420
-    wire and its multi-device and offline-stage entries are not ported:
-    asking for them raises."""
+    `wire` is the upload's format, as `FusedGreenPipeline`'s. The JAX
+    pipeline's host fetch (`fetch="host"`, `pack_d2h`) and its
+    multi-device and offline-stage entries are not ported: asking for
+    them raises."""
 
     def __init__(self, cfg: dict, frame_hw: Tuple[int, int],
                  work_long_side: int = 960, use_stm_tracking: bool = True,
@@ -105,13 +111,12 @@ class FusedBgPipeline:
                  seg_dtype: torch.dtype = torch.bfloat16, wire: str = "bgr",
                  fetch: str = "auto", pass1_downscale: int = 2,
                  pack_d2h="auto", device="cuda"):
-        if wire != "bgr":
-            raise _unported(f"wire={wire!r} (the I420 upload)", "10a")
         if fetch not in ("auto", "device"):
             raise _unported(f"fetch={fetch!r} (host-side fg and bg)", "12")
         if pack_d2h not in ("auto", False):
             raise _unported("pack_d2h (the bit-packed download)", "12")
         self.device = resolve_device(device)
+        self.wire = check_wire(wire)
         self.cfg = cfg
         self.ori_hw = tuple(frame_hw)
         # one work resolution, divisible by 32 (matting) and 16 (STM)
@@ -307,15 +312,16 @@ class FusedBgPipeline:
 
     # -- per-step work -------------------------------------------------------
     def _prep_frames(self, frames_full: torch.Tensor) -> torch.Tensor:
-        """uint8 (S, H, W, 3) on the device -> float32 at work
-        resolution."""
+        """uint8 (S, H, W, 3) or I420 (S, H * 3 / 2, W) on the device ->
+        float32 BGR at work resolution."""
         return prep_frames(frames_full, self.work_hw)
 
     def _step_batched(self, carries: BgCarry, frames_full: torch.Tensor,
                       model_axis=None):
         """Advance S segments one frame: `carries` has a leading segment
-        axis S, `frames_full` is uint8 (S, H, W, 3) on the device. Returns
-        (new carries, uint8 (S, h, w, 8): alpha, segmask, fg, bg)."""
+        axis S, `frames_full` is uint8 (S, H, W, 3) or I420 (S, H * 3 / 2,
+        W) on the device. Returns (new carries, uint8 (S, h, w, 8): alpha,
+        segmask, fg, bg)."""
         if model_axis is not None:
             raise _unported("model_axis (sharding over devices)", "21")
         n_s = frames_full.shape[0]
@@ -410,28 +416,37 @@ class FusedBgPipeline:
         return new, packed.clamp(0.0, 255.0).to(torch.uint8)
 
     # -- host loop -----------------------------------------------------------
-    def run(self, frames, chunk_size: int = 4, host_downscale: bool = False):
+    def run(self, frames, chunk_size: int = 4, host_downscale: bool = True,
+            timer: StageTimer = None):
         """Run a clip of uint8 (H, W, 3) BGR frames as one segment.
 
         Returns (alphas (N, h, w), segmasks (N, h, w), fgs (N, h, w, 3),
         bgs (N, h, w, 3)) as uint8 numpy arrays at work resolution."""
-        return self.run_segmented(frames, 1, chunk_size, host_downscale)
+        return self.run_segmented(frames, 1, chunk_size, host_downscale,
+                                  timer)
 
     @torch.inference_mode()
     def run_segmented(self, frames, n_segments: int = 2,
-                      chunk_size: int = 4, host_downscale: bool = False):
+                      chunk_size: int = 4, host_downscale: bool = True,
+                      timer: StageTimer = None):
         """Split the clip into `n_segments` contiguous segments advanced in
         lockstep (`pipeline/common.py:run_segments`; segment boundaries
-        reset the carry). Returns `run`'s arrays, in clip order."""
-        if host_downscale:
-            raise _unported("host_downscale=True (a cv2-free host resize)",
-                            "10")
+        reset the carry). `host_downscale` resizes the frames to work
+        resolution on the host before the upload (else on the device);
+        `timer` takes the per-stage split. Returns `run`'s arrays, in clip
+        order."""
+        frames = list(frames)
         self.stats = collections.Counter()
         self.step_tracking, self.step_seeded, self._cg_iters = [], [], []
-        packed = run_segments(self._step_batched,
-                              self.init_carries(n_segments), frames,
-                              n_segments, chunk_size, self.device,
-                              self.stats)
+        wire_hw = self.work_hw if host_downscale else frames[0].shape[:2]
+
+        def step(carries, batch):
+            carries, packed = self._step_batched(carries, batch)
+            return carries, (packed,)
+
+        packed, = run_segments(step, self.init_carries(n_segments), frames,
+                               n_segments, chunk_size, self.device,
+                               self.stats, wire_hw, self.wire, timer)
         # read after the last fetch: the card is idle, no extra wait
         iters = torch.stack(self._cg_iters).cpu()
         self._cg_iters = []
@@ -454,25 +469,37 @@ class FusedBgPipeline:
 def run_fused(cfg: dict, frames=None, save: bool = False,
               chunk_size: int = 4, work_long_side: int = 960,
               use_stm_tracking: bool = True, segments: int = 1,
-              wire: str = "bgr", device="cuda") -> dict:
-    """bg mode on the fused path over in-memory frames; `segments > 1`
-    batches that many clip segments (`run_segmented`). Writing the JPEG
-    artifacts (`save=True`) and reading the clip from disk are not
-    ported: asking for them raises."""
-    if save:
-        raise _unported("save=True (the JPEG artifacts)", "10b")
-    if frames is None:
-        raise _unported("reading frames from disk; pass `frames`", "10b")
-    frame_list = list(frames)
+              wire: str = "bgr", profile: bool = False,
+              device="cuda") -> dict:
+    """bg mode on the fused path. `frames` defaults to the clip of
+    `cfg["data"]` read from disk; `save` writes `alphamask_`, `segmask_`,
+    `fg_` and `bg_*.jpg` at work resolution into
+    `cfg["data"]["dst_img_dir"]`; `segments > 1` batches that many clip
+    segments (`run_segmented`); `wire` is the upload's format; `profile`
+    prints the per-stage report and $VU_TRACE_DIR, when set, receives a
+    profiler trace."""
+    st = time.time()
+    frame_list = list(frames) if frames is not None else read_frames(cfg)
     h, w, _ = frame_list[0].shape
-    print(f"{len(frame_list)} frames.")
+    print(f"{len(frame_list)} frames. Reading Data Done! "
+          f"{time.time() - st:.2f}s")
     pipe = FusedBgPipeline(cfg, (h, w), work_long_side=work_long_side,
                            use_stm_tracking=use_stm_tracking, wire=wire,
                            device=device)
+    timer = StageTimer(block=True) if profile else None
     st = time.time()
-    alphas, _, _, _ = pipe.run_segmented(frame_list, segments, chunk_size)
+    with maybe_trace():
+        alphas, segmasks, fgs, bgs = pipe.run_segmented(
+            frame_list, segments, chunk_size, timer=timer)
     elapsed = time.time() - st
+    if timer is not None:
+        print(timer.report(numframes=len(frame_list)))
     print(f"fused bg: {len(frame_list)} frames in {elapsed:.2f}s "
           f"({len(frame_list) / elapsed:.2f} fps)")
+    if save:
+        save_artifacts(cfg["data"]["dst_img_dir"], (
+            ("alphamask", np.repeat(alphas[..., None], 3, axis=-1)),
+            ("segmask", np.repeat(segmasks[..., None], 3, axis=-1)),
+            ("fg", fgs), ("bg", bgs)))
     return {"alphas": list(alphas), "numframes": len(frame_list),
             "fps": len(frame_list) / elapsed}

@@ -1,17 +1,25 @@
 """Fused green mode: the whole per-frame stage chain on the device.
 
-Port of `video_unscreen_tpu/pipeline/fused_green.py` (`run` and
-`run_segmented`, fg computed on the device, BGR frames resized on the
-device: the JAX package's `fetch_fg="device"`, `host_downscale=False`):
+Port of `video_unscreen_tpu/pipeline/fused_green.py` (`run`,
+`run_segmented` and `run_fused`, fg computed on the device: the JAX
+package's `fetch_fg="device"`, `pack_d2h=False`):
 
-    host:   upload each step's uint8 frames (one per segment)
-    device: resize to work resolution ->
+    host:   build each chunk: the frames resized to work resolution
+            (`host_downscale`, the default) and packed as BGR or I420
+            (`wire`), one C++ call a chunk; a worker thread uploads it
+            through pinned memory behind the device's work
+            (`pipeline/common.py:run_segments`)
+    device: I420 -> BGR; the resize unless the host did it ->
             seg (tracking shortcut | DeepLab or chroma seed) ->
             color filter (refit every `colorfiltering_update_duration`-th
             frame, after a tracking loss, or while untrained; else predict)
             -> object removal -> trimap (displacement-adaptive band) ->
             matting UNet -> color correct -> fg un-blend
-    host:   fetch uint8 alpha, fg, bg at work resolution, once a chunk
+    host:   fetch uint8 alpha and fg and the screen color, once a chunk;
+            bg = alpha < 128 ? the frame at work resolution resized on
+            the host from the original : the screen color (as JAX's
+            `_assemble_outputs`: the device never sees the original
+            under the I420 wire)
 
 A run advances S independent clip segments in lockstep (`run` is S = 1),
 as the JAX `_step_batched` does. The JAX package compiles one `lax.scan`
@@ -39,6 +47,7 @@ frame and trimmed.
 from __future__ import annotations
 
 import collections
+import os
 import time
 from typing import List, NamedTuple, Tuple
 
@@ -54,8 +63,11 @@ from ..ops.connected import remove_invalid_objects_ds
 from ..ops.geometry import get_target_size
 from ..ops.morphology import dilate
 from ..ops.trimap import generate_trimap_withbg
+from .. import runtime
 from ..utils.device import resolve_device
-from .common import build_score_map, prep_frames, run_segments
+from ..utils.profiling import StageTimer, maybe_trace
+from .common import (artifact_path, build_score_map, check_wire,
+                     host_frames, prep_frames, read_frames, run_segments)
 
 
 class GreenCarry(NamedTuple):
@@ -99,13 +111,19 @@ class FusedGreenPipeline:
     pipeline. `stats` counts, for the last run, the steps, host syncs,
     seed steps and seeded frames, the refit tiers and the band tiers;
     `step_tracking` holds each step's tracking flags as the host read
-    them (a segment whose flag is False took the seed)."""
+    them (a segment whose flag is False took the seed).
+
+    `wire` is the upload's format: "bgr" (packed uint8 BGR) or "yuv420"
+    (I420, 1.5 bytes a pixel, decoded on the device; lossy: BT.601 4:2:0
+    as cv2 packs it)."""
 
     def __init__(self, cfg: dict, frame_hw: Tuple[int, int],
                  work_long_side: int = 960,
                  matting_dtype: torch.dtype = torch.bfloat16,
-                 seg_dtype: torch.dtype = torch.bfloat16, device="cuda"):
+                 seg_dtype: torch.dtype = torch.bfloat16, wire: str = "bgr",
+                 device="cuda"):
         self.device = resolve_device(device)
+        self.wire = check_wire(wire)
         self.cfg = cfg
         self.seg = _build_seed_segmenter(cfg.get("binseg", {}), seg_dtype,
                                          self.device)
@@ -157,15 +175,16 @@ class FusedGreenPipeline:
 
     # -- per-step work -------------------------------------------------------
     def _prep_frames(self, frames_full: torch.Tensor) -> torch.Tensor:
-        """uint8 (S, H, W, 3) on the device -> float32 at work
-        resolution."""
+        """uint8 (S, H, W, 3) or I420 (S, H * 3 / 2, W) on the device ->
+        float32 BGR at work resolution."""
         return prep_frames(frames_full, self.work_hw)
 
     def _step_batched(self, carries: List[GreenCarry],
                       frames_full: torch.Tensor):
         """Advance S segments one frame: `carries` has one carry a
-        segment, `frames_full` is uint8 (S, H, W, 3) on the device.
-        Returns (new carries, (alpha, fg, bg) uint8 (S, h, w[, 3]))."""
+        segment, `frames_full` is uint8 (S, H, W, 3) or I420 (S, H * 3 / 2,
+        W) on the device. Returns (new carries, (alpha uint8 (S, h, w), fg
+        uint8 (S, h, w, 3), screen color float32 (S, 3)))."""
         n_s = len(carries)
         frames = self._prep_frames(frames_full)
         flags = torch.stack([c.tracking for c in carries]
@@ -266,7 +285,8 @@ class FusedGreenPipeline:
         """Object removal -> trimap -> matting -> color correct -> fg, on
         (S, ...) batches.
 
-        Returns (new carries, (alpha, fg, bg) uint8 at work resolution)."""
+        Returns (new carries, (alpha, fg) uint8 at work resolution and the
+        screen color))."""
         h, w = self.work_hw
         min_fg = self.fg_exist_thr * h * w
         fg_exists = ((segmask >= 128).sum(dim=(-2, -1)) > min_fg)[:, None,
@@ -303,72 +323,96 @@ class FusedGreenPipeline:
         new_carries = [GreenCarry(alpha_pre=alpha[s], tracking=tracking[s],
                                   cf_state=cf_states[s], fid=c.fid + 1)
                        for s, c in enumerate(carries)]
-        alpha_u8 = alpha.clamp(0.0, 255.0).to(torch.uint8)
-        # bg = alpha < 128 ? the work-res frame : the screen color
-        frame_u8 = frames.round().clamp(0.0, 255.0).to(torch.uint8)
-        bg_u8 = torch.where((alpha_u8 < 128)[..., None], frame_u8,
-                            bg_px.clamp(0.0, 255.0).to(torch.uint8))
-        return new_carries, (alpha_u8, fg.clamp(0.0, 255.0).to(torch.uint8),
-                             bg_u8)
+        return new_carries, (alpha.clamp(0.0, 255.0).to(torch.uint8),
+                             fg.clamp(0.0, 255.0).to(torch.uint8), bg_color)
 
     # -- host loop -----------------------------------------------------------
-    def run(self, frames, chunk_size: int = 8):
+    def run(self, frames, chunk_size: int = 8, host_downscale: bool = True,
+            timer: StageTimer = None):
         """Run a clip of uint8 (H, W, 3) BGR frames as one segment.
 
         Returns (alphas (N, h, w), fgs (N, h, w, 3), bgs (N, h, w, 3)) as
         uint8 numpy arrays at work resolution."""
-        return self.run_segmented(frames, 1, chunk_size)
+        return self.run_segmented(frames, 1, chunk_size, host_downscale,
+                                  timer)
 
     @torch.inference_mode()
     def run_segmented(self, frames, n_segments: int = 2,
-                      chunk_size: int = 4):
+                      chunk_size: int = 4, host_downscale: bool = True,
+                      timer: StageTimer = None):
         """Split the clip into `n_segments` contiguous segments of
         ceil(N / S) frames (the tail padded with the last frame) and
         advance them in lockstep, S frames a step; outputs are fetched once
         every `chunk_size` steps. Segment boundaries reset the carry.
+        `host_downscale` resizes the frames to work resolution on the host
+        before the upload (else on the device). `timer` (a `StageTimer`)
+        takes the stream_wait / dispatch / fetch / reconstruct split.
         Returns `run`'s arrays, in clip order, trimmed to N frames."""
+        timer = timer or StageTimer()
+        frames = list(frames)
         self.stats = collections.Counter()
         self.step_tracking = []
 
         def step(carries, batch):
-            carries, (a, fg, bg) = self._step_batched(carries, batch)
-            return carries, torch.cat([a[..., None], fg, bg], dim=-1)
+            carries, (a, fg, bg_color) = self._step_batched(carries, batch)
+            return carries, (torch.cat([a[..., None], fg], dim=-1),
+                             bg_color)
 
-        packed = run_segments(step, self.init_carries(n_segments), frames,
-                              n_segments, chunk_size, self.device,
-                              self.stats)
-        return packed[..., 0], packed[..., 1:4], packed[..., 4:7]
+        wire_hw = self.work_hw if host_downscale else frames[0].shape[:2]
+        packed, bg_colors = run_segments(
+            step, self.init_carries(n_segments), frames, n_segments,
+            chunk_size, self.device, self.stats, wire_hw, self.wire, timer)
+        with timer.stage("reconstruct"):
+            alphas = packed[..., 0]
+            frames_w = host_frames(frames, self.work_hw)
+            bgs = np.where(alphas[..., None] < 128, frames_w,
+                           bg_colors[:, None, None, :].astype(np.uint8))
+        return alphas, packed[..., 1:4], bgs
+
+
+def save_artifacts(dst: str, kinds) -> None:
+    """Write each (kind, (N, h, w[, 3]) uint8 images) as
+    `<dst>/<kind>_<frame>.jpg`."""
+    os.makedirs(dst, exist_ok=True)
+    for kind, imgs in kinds:
+        runtime.encode_batch(
+            [artifact_path(dst, kind, i) for i in range(len(imgs))], imgs)
 
 
 def run_fused(cfg: dict, frames=None, save: bool = False,
               chunk_size: int = 8, work_long_side: int = 960,
-              segments: int = 1, matting_dtype: torch.dtype = torch.bfloat16,
+              segments: int = 1, wire: str = "bgr", profile: bool = False,
+              matting_dtype: torch.dtype = torch.bfloat16,
               seg_dtype: torch.dtype = torch.bfloat16,
               device="cuda") -> dict:
-    """Green-mode runner on the fused path over in-memory frames;
-    `segments > 1` batches that many clip segments (`run_segmented`).
-
-    `save=True` (the JPEG artifacts) and reading the clip from disk need an
-    image codec the port does not carry yet."""
-    if save:
-        raise NotImplementedError(
-            "save=True (alphamask/fg/bg JPEG artifacts) is not ported yet")
-    if frames is None:
-        raise NotImplementedError(
-            "reading frames from disk is not ported yet; pass `frames`")
-    frame_list = list(frames)
+    """Green-mode runner on the fused path. `frames` defaults to the clip
+    of `cfg["data"]` read from disk; `save` writes `alphamask_`, `fg_` and
+    `bg_*.jpg` at work resolution into `cfg["data"]["dst_img_dir"]`;
+    `segments > 1` batches that many clip segments (`run_segmented`);
+    `wire` is the upload's format; `profile` prints the per-stage report
+    (each stage synchronized) and $VU_TRACE_DIR, when set, receives a
+    profiler trace."""
+    st = time.time()
+    frame_list = list(frames) if frames is not None else read_frames(cfg)
     h, w, _ = frame_list[0].shape
-    print(f"{len(frame_list)} frames.")
+    print(f"{len(frame_list)} frames. Reading Data Done! "
+          f"{time.time() - st:.2f}s")
     pipe = FusedGreenPipeline(cfg, (h, w), work_long_side=work_long_side,
                               matting_dtype=matting_dtype,
-                              seg_dtype=seg_dtype, device=device)
+                              seg_dtype=seg_dtype, wire=wire, device=device)
+    timer = StageTimer(block=True) if profile else None
     st = time.time()
-    if segments > 1:
-        alphas, _, _ = pipe.run_segmented(frame_list, segments, chunk_size)
-    else:
-        alphas, _, _ = pipe.run(frame_list, chunk_size)
+    with maybe_trace():
+        alphas, fgs, bgs = pipe.run_segmented(frame_list, segments,
+                                              chunk_size, timer=timer)
     elapsed = time.time() - st
     print(f"fused green: {len(frame_list)} frames in {elapsed:.2f}s "
           f"({len(frame_list) / elapsed:.2f} fps)")
+    if timer is not None:
+        print(timer.report(numframes=len(frame_list)))
+    if save:
+        save_artifacts(cfg["data"]["dst_img_dir"], (
+            ("alphamask", np.repeat(alphas[..., None], 3, axis=-1)),
+            ("fg", fgs), ("bg", bgs)))
     return {"alphas": list(alphas), "numframes": len(frame_list),
             "fps": len(frame_list) / elapsed}

@@ -1,0 +1,243 @@
+"""The port's native host runtime (ctypes over two C++ libraries).
+
+- `loader.cpp`, the JPEG codec (the port's own copy of the JAX package's
+  `runtime/loader.cpp`, linked against libjpeg-turbo for its BGR output):
+  `probe`, `decode_batch`, `encode_batch` (BGR, or gray for 2-D images).
+- `hostprep.cpp`, host frame preparation without OpenCV or libjpeg:
+  `resize_batch` (bit-equal to `cv2.resize(..., INTER_LINEAR)` on uint8),
+  `bgr_to_i420_batch` (bit-equal to `cv2.cvtColor(...,
+  COLOR_BGR2YUV_I420)`) and `prep_batch`, both in one pass into a
+  caller's buffer (the streamer's pinned memory). `ctypes` releases the
+  GIL for each call.
+
+Each library is built at first use with its own `g++` call into
+`video_unscreen_tpu_torch/_build/`, named by a hash of its source and
+flags. A failed build raises; nothing falls back to another codec.
+`codec_missing()` says, before any build, whether this machine has
+libjpeg's header and library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import ctypes.util
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+_HERE = Path(__file__).resolve().parent
+BUILD_DIR = _HERE.parent / "_build"
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+# where g++ looks for headers unless told otherwise
+_INCLUDE_DIRS = ("/usr/include", "/usr/local/include")
+THREADS = min(8, os.cpu_count() or 1)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_libs = {}
+
+
+def _lib_path(src: Path, libs: Tuple[str, ...]) -> Path:
+    h = hashlib.sha256(" ".join((CXX,) + CXX_FLAGS + libs).encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"libvut_{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def _build(src: Path, libs: Tuple[str, ...] = ()) -> Path:
+    """Compile `src` unless its library exists; raise if g++ fails or is
+    missing."""
+    out = _lib_path(src, libs)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent or interrupted
+    # build never leaves a partial library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        try:
+            proc = subprocess.run([CXX, *CXX_FLAGS, str(src), *libs, "-o",
+                                   tmp], capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run {CXX} to build {src.name}: "
+                               f"{e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"{CXX} failed on {src.name} "
+                               f"({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def codec_missing() -> Optional[str]:
+    """None when libjpeg's header and library are on this machine, else
+    what is missing. The codec does not build without them."""
+    dirs = list(_INCLUDE_DIRS)
+    for var in ("CPATH", "CPLUS_INCLUDE_PATH", "C_INCLUDE_PATH"):
+        dirs += [d for d in os.environ.get(var, "").split(":") if d]
+    missing = []
+    if not any(Path(d, "jpeglib.h").is_file() for d in dirs):
+        missing.append(f"the header jpeglib.h (searched {', '.join(dirs)})")
+    if ctypes.util.find_library("jpeg") is None:
+        missing.append("the library libjpeg")
+    return "; ".join(missing) or None
+
+
+def _codec() -> ctypes.CDLL:
+    if "codec" not in _libs:
+        missing = codec_missing()
+        if missing:
+            raise RuntimeError(f"the JPEG codec (runtime/loader.cpp) needs "
+                               f"libjpeg-turbo; this machine lacks {missing}")
+        lib = ctypes.CDLL(str(_build(_HERE / "loader.cpp", ("-ljpeg",))))
+        lib.vu_decode_batch.restype = _I
+        lib.vu_decode_batch.argtypes = [_P, _I, _I, _I, _P, _I]
+        lib.vu_encode_batch.restype = _I
+        lib.vu_encode_batch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I]
+        lib.vu_probe.restype = _I
+        lib.vu_probe.argtypes = [ctypes.c_char_p,
+                                 ctypes.POINTER(ctypes.c_int),
+                                 ctypes.POINTER(ctypes.c_int)]
+        _libs["codec"] = lib
+    return _libs["codec"]
+
+
+def _hostprep() -> ctypes.CDLL:
+    if "hostprep" not in _libs:
+        lib = ctypes.CDLL(str(_build(_HERE / "hostprep.cpp")))
+        lib.vu_prep_batch.restype = _I
+        lib.vu_prep_batch.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I]
+        _libs["hostprep"] = lib
+    return _libs["hostprep"]
+
+
+def _c_paths(paths: Sequence[str]):
+    return (ctypes.c_char_p * len(paths))(*[os.fsencode(p) for p in paths])
+
+
+def probe(path: str) -> Optional[Tuple[int, int]]:
+    """(h, w) of a JPEG file, or None if it cannot be read as one."""
+    h, w = ctypes.c_int(), ctypes.c_int()
+    if _codec().vu_probe(os.fsencode(path), ctypes.byref(h),
+                         ctypes.byref(w)) != 0:
+        return None
+    return h.value, w.value
+
+
+def decode_batch(paths: Sequence[str],
+                 target_hw: Optional[Tuple[int, int]] = None,
+                 threads: int = 16) -> np.ndarray:
+    """Threaded JPEG decode to one (n, h, w, 3) BGR uint8 array, at the
+    first file's size unless `target_hw` is given (then resized with the
+    codec's float bilinear). Raises if a file does not decode."""
+    paths = list(paths)
+    if not paths:
+        raise ValueError("decode_batch: no paths")
+    if target_hw is None:
+        target_hw = probe(paths[0])
+        if target_hw is None:
+            raise RuntimeError(f"{paths[0]} is not a readable JPEG")
+    th, tw = target_hw
+    out = np.empty((len(paths), th, tw, 3), np.uint8)
+    failures = _codec().vu_decode_batch(_c_paths(paths), len(paths), th, tw,
+                                        out.ctypes.data, threads)
+    if failures:
+        raise RuntimeError(f"{failures} of {len(paths)} JPEG decodes failed "
+                           f"(first path {paths[0]})")
+    return out
+
+
+def encode_batch(paths: Sequence[str], imgs: np.ndarray, quality: int = 95,
+                 threads: int = 16) -> int:
+    """Threaded JPEG encode of (n, h, w, 3) BGR or (n, h, w) gray uint8
+    images. Returns the failure count (0); raises if a file was not
+    written."""
+    paths = list(paths)
+    imgs = np.ascontiguousarray(imgs, np.uint8)
+    if imgs.ndim not in (3, 4) or (imgs.ndim == 4 and imgs.shape[3] != 3):
+        raise ValueError(f"encode_batch: images of shape {imgs.shape}, want "
+                         f"(n, h, w) or (n, h, w, 3)")
+    if len(paths) != imgs.shape[0]:
+        raise ValueError(f"encode_batch: {len(paths)} paths for "
+                         f"{imgs.shape[0]} images")
+    n, h, w = imgs.shape[:3]
+    c = 1 if imgs.ndim == 3 else 3
+    failures = _codec().vu_encode_batch(_c_paths(paths), imgs.ctypes.data,
+                                        n, h, w, c, int(quality), threads)
+    if failures:
+        raise RuntimeError(f"{failures} of {n} JPEG encodes failed (first "
+                           f"path {paths[0]})")
+    return failures
+
+
+def _frame_pointers(frames: Sequence[np.ndarray]) -> Tuple[List, tuple]:
+    """Validate a batch of same-shaped contiguous uint8 images; return
+    their data pointers and shape."""
+    if not frames:
+        raise ValueError("empty batch")
+    shape = frames[0].shape
+    for f in frames:
+        if not (isinstance(f, np.ndarray) and f.dtype == np.uint8
+                and f.flags.c_contiguous and f.shape == shape):
+            raise ValueError(
+                f"host prep wants contiguous uint8 images of one shape "
+                f"{shape}; got {getattr(f, 'dtype', type(f))} "
+                f"{getattr(f, 'shape', '')}")
+    if len(shape) not in (2, 3) or (len(shape) == 3 and shape[2] not in
+                                    (1, 3)):
+        raise ValueError(f"host prep: image shape {shape}")
+    return [f.ctypes.data for f in frames], shape
+
+
+def prep_batch(frames: Sequence[np.ndarray], out_hw: Tuple[int, int],
+               i420: bool, out: Optional[np.ndarray] = None,
+               threads: int = THREADS) -> np.ndarray:
+    """Each frame resized to `out_hw` with cv2's INTER_LINEAR (copied when
+    it has that size already), then, if `i420`, converted to cv2's I420
+    layout (h * 3 / 2, w): all in one call, into `out` (n, ...) when
+    given. `frames` are contiguous uint8 (h, w), (h, w, 1) or (h, w, 3)
+    arrays of one shape (three channels for I420)."""
+    ptrs, shape = _frame_pointers(list(frames))
+    sh, sw = shape[:2]
+    c = 1 if len(shape) == 2 else shape[2]
+    dh, dw = (int(v) for v in out_hw)
+    if i420 and (c != 3 or dh % 2 or dw % 2):
+        raise ValueError(f"I420 needs 3-channel frames of even size, got "
+                         f"{shape} -> {(dh, dw)}")
+    one = (dh * 3 // 2, dw) if i420 else (dh, dw) + shape[2:]
+    want = (len(ptrs),) + one
+    if out is None:
+        out = np.empty(want, np.uint8)
+    elif out.shape != want or out.dtype != np.uint8 or \
+            not out.flags.c_contiguous:
+        raise ValueError(f"prep_batch: out {out.dtype} {out.shape}, want "
+                         f"contiguous uint8 {want}")
+    _hostprep().vu_prep_batch((ctypes.c_void_p * len(ptrs))(*ptrs),
+                              len(ptrs), sh, sw, c, dh, dw, int(bool(i420)),
+                              out.ctypes.data, int(threads))
+    return out
+
+
+def resize_batch(frames: Sequence[np.ndarray], out_hw: Tuple[int, int],
+                 out: Optional[np.ndarray] = None,
+                 threads: int = THREADS) -> np.ndarray:
+    """`cv2.resize(f, (w, h), interpolation=INTER_LINEAR)` of each uint8
+    BGR or single-plane frame, stacked: (n, h, w[, c])."""
+    return prep_batch(frames, out_hw, False, out, threads)
+
+
+def bgr_to_i420_batch(frames: Sequence[np.ndarray],
+                      out: Optional[np.ndarray] = None,
+                      threads: int = THREADS) -> np.ndarray:
+    """`cv2.cvtColor(f, COLOR_BGR2YUV_I420)` of each (h, w, 3) frame (h, w
+    even), stacked: (n, h * 3 / 2, w)."""
+    frames = list(frames)
+    hw = frames[0].shape[:2] if frames else (0, 0)
+    return prep_batch(frames, hw, True, out, threads)

@@ -1,0 +1,319 @@
+// Native data-loader runtime: threaded JPEG decode/encode + resize.
+//
+// The port's own copy of video_unscreen_tpu/runtime/loader.cpp (the
+// PyTorch package imports nothing of the JAX one), bound with ctypes by
+// video_unscreen_tpu_torch/runtime/__init__.py. Unlike the original, the
+// encoder also writes single-channel (JCS_GRAYSCALE) JPEGs, as cv2.imwrite
+// does for a 2-D image.
+//
+// Build: g++ -O3 -shared -fPIC -std=c++17 loader.cpp -ljpeg -pthread
+
+#include <cstddef>
+#include <cstdio>
+
+#include <jpeglib.h>
+
+#include <atomic>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+namespace {
+
+// Bilinear resize (half-pixel centers), BGR u8, for decode_batch's
+// target_hw. Float weights: within a few levels of cv2.INTER_LINEAR, not
+// bit-equal (hostprep.cpp has OpenCV's fixed-point scheme).
+void resize_bilinear(const uint8_t* src, int sh, int sw, uint8_t* dst,
+                     int dh, int dw) {
+  const float sy = static_cast<float>(sh) / dh;
+  const float sx = static_cast<float>(sw) / dw;
+  for (int y = 0; y < dh; ++y) {
+    float fy = (y + 0.5f) * sy - 0.5f;
+    int y0 = fy < 0 ? 0 : static_cast<int>(fy);
+    if (y0 > sh - 2) y0 = sh - 2;
+    float wy = fy - y0;
+    if (wy < 0) wy = 0;
+    for (int x = 0; x < dw; ++x) {
+      float fx = (x + 0.5f) * sx - 0.5f;
+      int x0 = fx < 0 ? 0 : static_cast<int>(fx);
+      if (x0 > sw - 2) x0 = sw - 2;
+      float wx = fx - x0;
+      if (wx < 0) wx = 0;
+      const uint8_t* p00 = src + (y0 * sw + x0) * 3;
+      const uint8_t* p01 = p00 + 3;
+      const uint8_t* p10 = p00 + sw * 3;
+      const uint8_t* p11 = p10 + 3;
+      uint8_t* out = dst + (y * dw + x) * 3;
+      for (int c = 0; c < 3; ++c) {
+        float top = p00[c] + wx * (p01[c] - p00[c]);
+        float bot = p10[c] + wx * (p11[c] - p10[c]);
+        out[c] = static_cast<uint8_t>(top + wy * (bot - top) + 0.5f);
+      }
+    }
+  }
+}
+
+// Decode one JPEG file to BGR u8. Returns 0 on success.
+int decode_one(const char* path, int target_h, int target_w, uint8_t* out) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return 1;
+  jpeg_decompress_struct cinfo;
+  jpeg_error_mgr jerr;
+  cinfo.err = jpeg_std_error(&jerr);
+  jpeg_create_decompress(&cinfo);
+  jpeg_stdio_src(&cinfo, f);
+  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
+    jpeg_destroy_decompress(&cinfo);
+    fclose(f);
+    return 2;
+  }
+  cinfo.out_color_space = JCS_EXT_BGR;  // libjpeg-turbo BGR output
+  jpeg_start_decompress(&cinfo);
+  const int sw = cinfo.output_width;
+  const int sh = cinfo.output_height;
+  std::vector<uint8_t> buf(static_cast<size_t>(sw) * sh * 3);
+  while (cinfo.output_scanline < cinfo.output_height) {
+    uint8_t* row = buf.data() + static_cast<size_t>(cinfo.output_scanline)
+                   * sw * 3;
+    jpeg_read_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  fclose(f);
+
+  if (target_h == sh && target_w == sw) {
+    std::memcpy(out, buf.data(), buf.size());
+  } else {
+    resize_bilinear(buf.data(), sh, sw, out, target_h, target_w);
+  }
+  return 0;
+}
+
+// Encode one BGR (c = 3) or gray (c = 1) u8 buffer to a JPEG file.
+// Returns 0 on success.
+int encode_one(const char* path, const uint8_t* img, int h, int w, int c,
+               int quality) {
+  FILE* f = fopen(path, "wb");
+  if (!f) return 1;
+  jpeg_compress_struct cinfo;
+  jpeg_error_mgr jerr;
+  cinfo.err = jpeg_std_error(&jerr);
+  jpeg_create_compress(&cinfo);
+  jpeg_stdio_dest(&cinfo, f);
+  cinfo.image_width = w;
+  cinfo.image_height = h;
+  cinfo.input_components = c;
+  cinfo.in_color_space = c == 1 ? JCS_GRAYSCALE : JCS_EXT_BGR;
+  jpeg_set_defaults(&cinfo);
+  jpeg_set_quality(&cinfo, quality, TRUE);
+  jpeg_start_compress(&cinfo, TRUE);
+  while (cinfo.next_scanline < cinfo.image_height) {
+    JSAMPROW row = const_cast<uint8_t*>(
+        img + static_cast<size_t>(cinfo.next_scanline) * w * c);
+    jpeg_write_scanlines(&cinfo, &row, 1);
+  }
+  jpeg_finish_compress(&cinfo);
+  jpeg_destroy_compress(&cinfo);
+  fclose(f);
+  return 0;
+}
+
+template <typename Fn>
+void parallel_for(int n, int threads, Fn fn) {
+  if (threads < 1) threads = 1;
+  std::atomic<int> next(0);
+  std::vector<std::thread> pool;
+  for (int t = 0; t < threads; ++t) {
+    pool.emplace_back([&]() {
+      int i;
+      while ((i = next.fetch_add(1)) < n) fn(i);
+    });
+  }
+  for (auto& th : pool) th.join();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode n JPEGs into out (n, target_h, target_w, 3) BGR u8.
+// Returns the number of failures; failed slots are zero-filled.
+int vu_decode_batch(const char** paths, int n, int target_h, int target_w,
+                    uint8_t* out, int threads) {
+  std::atomic<int> failures(0);
+  const size_t stride = static_cast<size_t>(target_h) * target_w * 3;
+  parallel_for(n, threads, [&](int i) {
+    if (decode_one(paths[i], target_h, target_w, out + i * stride) != 0) {
+      std::memset(out + i * stride, 0, stride);
+      failures.fetch_add(1);
+    }
+  });
+  return failures.load();
+}
+
+// Encode n u8 images (n, h, w, c), c = 3 (BGR) or 1 (gray), to paths.
+// Returns failure count.
+int vu_encode_batch(const char** paths, const uint8_t* imgs, int n, int h,
+                    int w, int c, int quality, int threads) {
+  std::atomic<int> failures(0);
+  const size_t stride = static_cast<size_t>(h) * w * c;
+  parallel_for(n, threads, [&](int i) {
+    if (encode_one(paths[i], imgs + i * stride, h, w, c, quality) != 0) {
+      failures.fetch_add(1);
+    }
+  });
+  return failures.load();
+}
+
+// Probe a JPEG's dimensions without full decode. Returns 0 on success.
+int vu_probe(const char* path, int* h, int* w) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return 1;
+  jpeg_decompress_struct cinfo;
+  jpeg_error_mgr jerr;
+  cinfo.err = jpeg_std_error(&jerr);
+  jpeg_create_decompress(&cinfo);
+  jpeg_stdio_src(&cinfo, f);
+  int ok = jpeg_read_header(&cinfo, TRUE) == JPEG_HEADER_OK;
+  if (ok) {
+    *h = cinfo.image_height;
+    *w = cinfo.image_width;
+  }
+  jpeg_destroy_decompress(&cinfo);
+  fclose(f);
+  return ok ? 0 : 2;
+}
+
+// ---------------------------------------------------------------------------
+// Foreground un-blend (fgfuncs.py:84-110 semantics): fg = clamp(img_hsv -
+// (1-alpha) * bg_hsv) converted back to BGR. Lets the host reconstruct the
+// fg artifact from (frame, alpha, bg_color) instead of shipping a full fg
+// plane over the device->host link.
+
+namespace {
+
+inline void bgr2hsv(float b, float g, float r, float* h, float* s,
+                    float* v) {
+  float mx = r > g ? (r > b ? r : b) : (g > b ? g : b);
+  float mn = r < g ? (r < b ? r : b) : (g < b ? g : b);
+  float c = mx - mn;
+  *v = mx;
+  *s = mx > 0 ? 255.0f * c / mx : 0.0f;
+  float hh = 0.0f;
+  if (c > 1e-8f) {
+    if (mx == r) hh = 60.0f * (g - b) / c;
+    else if (mx == g) hh = 120.0f + 60.0f * (b - r) / c;
+    else hh = 240.0f + 60.0f * (r - g) / c;
+    if (hh < 0) hh += 360.0f;
+  }
+  *h = hh * 0.5f;
+}
+
+inline void hsv2bgr(float h, float s, float v, float* b, float* g,
+                    float* r) {
+  h *= 2.0f;
+  s /= 255.0f;
+  float c = v * s;
+  float hp = h / 60.0f;
+  float x = c * (1.0f - std::abs(std::fmod(hp, 2.0f) - 1.0f));
+  float rr = 0, gg = 0, bb = 0;
+  int idx = static_cast<int>(hp) % 6;
+  switch (idx < 0 ? idx + 6 : idx) {
+    case 0: rr = c; gg = x; break;
+    case 1: rr = x; gg = c; break;
+    case 2: gg = c; bb = x; break;
+    case 3: gg = x; bb = c; break;
+    case 4: rr = x; bb = c; break;
+    default: rr = c; bb = x; break;
+  }
+  float m = v - c;
+  *b = bb + m;
+  *g = gg + m;
+  *r = rr + m;
+}
+
+inline uint8_t clamp_u8(float x) {
+  return x <= 0 ? 0 : (x >= 255 ? 255 : static_cast<uint8_t>(x + 0.5f));
+}
+
+}  // namespace
+
+// frames: (n, h, w, 3) BGR u8; alphas: (n, h, w) u8;
+// bg_colors: (n, 3) float BGR; out: (n, h, w, 3) BGR u8 = alpha*fg.
+int vu_get_fg_batch(const uint8_t* frames, const uint8_t* alphas,
+                    const float* bg_colors, uint8_t* out, int n, int h,
+                    int w, int threads) {
+  const size_t plane = static_cast<size_t>(h) * w;
+  parallel_for(n, threads, [&](int i) {
+    const uint8_t* frame = frames + i * plane * 3;
+    const uint8_t* alpha = alphas + i * plane;
+    uint8_t* dst = out + i * plane * 3;
+    float bh, bs, bv;
+    bgr2hsv(bg_colors[i * 3 + 0], bg_colors[i * 3 + 1],
+            bg_colors[i * 3 + 2], &bh, &bs, &bv);
+    for (size_t p = 0; p < plane; ++p) {
+      float a = alpha[p] / 255.0f;
+      float ih, is, iv;
+      bgr2hsv(frame[p * 3], frame[p * 3 + 1], frame[p * 3 + 2],
+              &ih, &is, &iv);
+      // bg image is the frame itself where alpha < 128
+      // (tools/unscreen/green.py:125: bgimg[alpha < 128] = frame)
+      float ubh = bh, ubs = bs, ubv = bv;
+      if (alpha[p] < 128) { ubh = ih; ubs = is; ubv = iv; }
+      float fh = ih - (1.0f - a) * ubh;
+      float fs = is - (1.0f - a) * ubs;
+      float fv = iv - (1.0f - a) * ubv;
+      fh = fh < 0 ? 0 : (fh > 255 ? 255 : fh);
+      fs = fs < 0 ? 0 : (fs > 255 ? 255 : fs);
+      fv = fv < 0 ? 0 : (fv > 255 ? 255 : fv);
+      float b, g, r;
+      hsv2bgr(fh, fs, fv, &b, &g, &r);
+      dst[p * 3] = clamp_u8(b);
+      dst[p * 3 + 1] = clamp_u8(g);
+      dst[p * 3 + 2] = clamp_u8(r);
+    }
+  });
+  return 0;
+}
+
+// Per-pixel-background variant (bg mode): frames (n, h, w, 3) BGR u8,
+// alphas (n, h, w) u8, bgs (n, h, w, 3) BGR u8 (the regionfilled
+// background), out (n, h, w, 3) u8 = alpha*fg. Same HSV un-blend as
+// vu_get_fg_batch but the background is an image, not a flat color —
+// reconstructs fused bg mode's fg artifact on the host from the
+// (alpha, downsampled-bg) wire payload.
+int vu_unblend_fg_batch(const uint8_t* frames, const uint8_t* alphas,
+                        const uint8_t* bgs, uint8_t* out, int n, int h,
+                        int w, int threads) {
+  const size_t plane = static_cast<size_t>(h) * w;
+  parallel_for(n, threads, [&](int i) {
+    const uint8_t* frame = frames + i * plane * 3;
+    const uint8_t* alpha = alphas + i * plane;
+    const uint8_t* bg = bgs + i * plane * 3;
+    uint8_t* dst = out + i * plane * 3;
+    for (size_t p = 0; p < plane; ++p) {
+      float a = alpha[p] / 255.0f;
+      float ih, is, iv, bh, bs, bv;
+      bgr2hsv(frame[p * 3], frame[p * 3 + 1], frame[p * 3 + 2],
+              &ih, &is, &iv);
+      bgr2hsv(bg[p * 3], bg[p * 3 + 1], bg[p * 3 + 2], &bh, &bs, &bv);
+      float fh = ih - (1.0f - a) * bh;
+      float fs = is - (1.0f - a) * bs;
+      float fv = iv - (1.0f - a) * bv;
+      fh = fh < 0 ? 0 : (fh > 255 ? 255 : fh);
+      fs = fs < 0 ? 0 : (fs > 255 ? 255 : fs);
+      fv = fv < 0 ? 0 : (fv > 255 ? 255 : fv);
+      float b, g, r;
+      hsv2bgr(fh, fs, fv, &b, &g, &r);
+      dst[p * 3] = clamp_u8(b);
+      dst[p * 3 + 1] = clamp_u8(g);
+      dst[p * 3 + 2] = clamp_u8(r);
+    }
+  });
+  return 0;
+}
+
+}  // extern "C"
