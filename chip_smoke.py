@@ -16,13 +16,14 @@ wall seconds:
      main paths' shapes, and time both with CUDA events: K1 trimap and K2
      morph bit-exact at every call the paths make (`MORPH_CALLS` of
      `ops/kernels/morph_cases.py`: 544x960, 540x960, 272x480 and
-     1080x1920; the cross, the 4x4 ellipse; 1 to 40 iterations), K2 in
-     both directions, on a soft mask, all 255, all 0, hot corners, edge
-     lines, a checkerboard and a batch of 8 (S of run_segmented) times the
-     call's planes a frame (24 for the fused bg regionfill's perimeter),
-     one launch a call, timed beside the same chain as F.max_pool2d calls
-     (held bit-exact first), the green and fused bg calls also at the
-     batch; K3 flood bit-exact (green's 272x480, bg's
+     1080x1920, 303x540, 151x270; the cross, the 4x4, 5x5 and 7x7
+     ellipses; 1 to 40 iterations), K2 in both directions, on a soft
+     mask, all 255, all 0, hot corners, edge lines, a checkerboard and the
+     call's batch (`MORPH_CALLS`: 8 planes, run_segmented's S, 24 for the
+     fused bg regionfill's perimeter, 96 for bg_offline stage 2's 32
+     frames x 3 channels), one launch a call, timed beside the same chain
+     as F.max_pool2d calls (held bit-exact first), the green, fused bg and
+     stage-2 calls also at their batch; K3 flood bit-exact (green's 272x480, bg's
      1080x1920; also on a checkerboard, a snake across every tile edge,
      the full and the empty mask, with its launches a call), K4 attention (the STM memory read, Lq 2040 x Lk
      22440, dk 128, dv 512, and one training read, Lq 64 x Lk 128) to
@@ -112,6 +113,30 @@ wall seconds:
      `bg_torch.py` (`--fused --segments 8 --wire yuv420`) through their
      `main`: every artifact written, the decoded alphamasks within mean 8
      of the returned alphas, frames/s with the read and the write;
+  10. bg_offline (`pipeline/bg_offline.py:run`, fused, chunks of 4;
+     configs/bg.json with the chroma seed, the shipped MattingUNet and STM
+     weights) on the 8 frames, stages 1, 2, 3, bfloat16 as shipped with
+     the counts reset just before: K1-K4 launched, IoU mean > 0.6 (the
+     JAX suite's bar for the mode), seconds a stage, stage 2's CG
+     iterations, frames/s over the stages; the same in float32, alpha >=
+     128 masks on BG_BF16_ALPHA_AGREE of every frame; stage 2 alone on 24
+     frames with their ground-truth masks (a hole with a boundary) in
+     chunks of 16: one K2 launch a chunk, CG iterations, card vs host at
+     270x480 within 1 level; float32 card against host on 3 frames at
+     270x480, fused (alphas and fg within the JAX bound, ema_seen equal,
+     always_bg within 1) and modular (alphas and fg within the bound);
+  10a. the replacement core (`pipeline/replace.py:compose_frames`) on
+     phase 10's alphas and fgs brought to 1080p over a seeded background,
+     with and without harmonization, ms a frame, float32 card against
+     host within the bound (neither runs K1-K4: its box filter, shift and
+     Lab toning were never TPU kernels); `BackgroundAgent.forward` with
+     each method at 1080p (work 303x540), K2 launched, card against host
+     within the bound, pcov's iterations equal;
+  10b. where libjpeg is on the machine: `tools/unscreen/bg_offline_torch
+     .py` stages 1,2,3 and then `--stages 3` (the store's resume) through
+     `main`, then `tools/replace/replace_torch.py` on the store with and
+     without `--harmonize`, every artifact written (both PNGs included);
+     else one line says why it did not run;
   8. train the STM 3 AdamW steps from weights/stm.msgpack at the trainer's
      defaults (batch 8, 128x128, clip_len 3, lr 5e-4) on the port's own
      synthetic clips, counts reset just before: every loss finite, K4, K5
@@ -145,6 +170,7 @@ with the same JSON lines (the kernels row for K1-K3).
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -186,6 +212,10 @@ SEED_GRID_HW, SEED_GRID_CROP = (320, 480), 257
 # the alpha >= 128 masks (and the seed masks) agree, on every frame
 BF16_ALPHA_AGREE, BF16_SEED_AGREE = 0.9999, 0.9995
 BG_BF16_ALPHA_AGREE = 0.997  # ~14x the share that differed when read
+# bg_offline: the stage scans' chunk (bench.py's), the frames of the
+# stage-2 run whose hole has a boundary (a pixel needs > 10 background
+# frames) and its chunk, and the frames of the card-vs-host runs
+BG_OFFLINE_CHUNK, STAGE2_FRAMES, STAGE2_CHUNK, N_OFFLINE_HOST = 4, 24, 16, 3
 # the phases older than the wire phases upload BGR and resize on the device
 # (the JAX pipelines' host_downscale=False), as when PERF.md's numbers of
 # them were read; the wire phases run bench.py's host resize and I420
@@ -261,13 +291,19 @@ def pool_chain(x, se, iters, dilate):
     and a 3x1 pool at stride 1 (their -inf padding is dilation's border;
     both hold the anchor); the 4x4 ellipse (a cross around (-1, -1) and
     the anchor) pads two rows and columns of -inf above and left, pools,
-    and takes the max with the anchor; erosion is -max_pool2d(-x). Returns
-    (result, PyTorch calls)."""
+    and takes the max with the anchor; a larger odd ellipse is the max
+    over its rows of a centred 1 x (2r + 1) pool shifted by the row's dy
+    (-inf shifted in); erosion is -max_pool2d(-x). Returns (result,
+    PyTorch calls)."""
     import torch
     import torch.nn.functional as F
+    from video_unscreen_tpu_torch.ops.kernels.morph_cases import se_offsets
     y = (x if dilate else -x)[None]
     h, w = x.shape[-2:]
     calls = 0 if dilate else 2
+    rows = {}
+    for dy, dx in se_offsets(se):
+        rows[dy] = max(rows.get(dy, 0), abs(dx))
     for _ in range(iters):
         if se == "ellipse4":
             p = F.pad(y, (2, 0, 2, 0), value=float("-inf"))
@@ -275,12 +311,24 @@ def pool_chain(x, se, iters, dilate):
             col = F.max_pool2d(p, (3, 1), stride=1)[..., :, 1:w + 1]
             y = torch.maximum(torch.maximum(y, row), col)
             calls += 5
-        else:
+        elif se in ("ellipse3", "cross3"):
             y = torch.maximum(F.max_pool2d(y, (1, 3), stride=1,
                                            padding=(0, 1)),
                               F.max_pool2d(y, (3, 1), stride=1,
                                            padding=(1, 0)))
             calls += 3
+        else:
+            reach = max(rows)
+            acc = None
+            for dy, r in sorted(rows.items()):
+                pooled = (F.max_pool2d(y, (1, 2 * r + 1), stride=1,
+                                       padding=(0, r)) if r else y)
+                # out[i] = pooled[i + dy], -inf beyond the border
+                p = F.pad(pooled, (0, 0, reach, reach), value=float("-inf"))
+                shifted = p[..., reach + dy:reach + dy + h, :]
+                acc = shifted if acc is None else torch.maximum(acc, shifted)
+                calls += 3 + (1 if r else 0)
+            y = acc
     return (y[0] if dilate else -y[0]), calls
 
 
@@ -295,12 +343,13 @@ def pool_trimap(x, se, iters):
 
 def morph_phase(device):
     """K1 and K2 at every call the paths make: bit-exact against the plain
-    versions (K2 in both directions) on a soft mask, the hard masks and a
-    batch of N_SEGMENTS times the call's planes a frame (run_segmented's
-    (S, H, W) calls; the fused bg regionfill's (3S, h, w)), one launch a
-    call; then timed beside the plain version and the max_pool2d chain
-    (itself held bit-exact first), and the green and fused bg paths' calls
-    also at the batch. Returns the rows of K1 and K2."""
+    versions (K2 in both directions) on a soft mask, the hard masks and
+    the call's batch (`MORPH_CALLS`: run_segmented's (S, H, W) calls, the
+    fused bg regionfill's (3S, h, w), bg_offline stage 2's (32 x 3, H,
+    W)), one launch a call; then timed beside the plain version and the
+    max_pool2d chain (itself held bit-exact first), and the green, fused
+    bg and stage-2 calls also at their batch. Returns the rows of K1 and
+    K2."""
     import torch
     from video_unscreen_tpu_torch.ops.kernels import morph as km
     from video_unscreen_tpu_torch.ops.kernels.morph_cases import (
@@ -317,18 +366,18 @@ def morph_phase(device):
                     max_abs_err=0.0, by_call=[])
             for k, ln in (("trimap", 80), ("morph", 89))}
     n_checked = 0
-    for i, (kernel, caller, (h, w), se, iters, planes) in enumerate(
+    for i, (kernel, caller, (h, w), se, iters, n_batch) in enumerate(
             MORPH_CALLS):
         offs = se_offsets(se)
         counter = km.TRIMAP if kernel == "trimap" else km.MORPH
         soft = torch.from_numpy(soft_mask(h, w, SEED + 10 + i)).to(device)
         hard = [torch.from_numpy(morph_hard_mask(n, h, w)).to(device)
                 for n in MORPH_HARD_MASKS]
-        # S frames of `planes`: the soft mask, the hard masks and more
-        # soft masks
+        # the call's batch: the soft mask, the hard masks and more soft
+        # masks
         batch = torch.stack([soft, *hard] + [
             torch.from_numpy(soft_mask(h, w, SEED + 100 * j + i)).to(device)
-            for j in range(N_SEGMENTS * planes - 1 - len(hard))])
+            for j in range(n_batch - 1 - len(hard))])
         before = (counter.calls, counter.launches)
         for x in [soft, *hard, batch]:
             for dil in ((True,) if kernel == "trimap" else (True, False)):
@@ -375,20 +424,27 @@ def morph_phase(device):
               f"iters={iters} ({caller}): {ms:.4f} ms, {launches:g} launch a "
               f"call (plain {plain:.4f} ms, max_pool2d chain of {n_lib} "
               f"calls {lib:.4f} ms, bound {b:.5f} ms by {by})", flush=True)
-        if caller.startswith(("green", "fused bg")):  # run_segmented's
+        # run_segmented's batches, and bg_offline stage 2's
+        if caller.startswith(("green", "fused bg", "bg_offline stage 2 mask")):
             if kernel == "trimap":
                 fn = lambda: km.trimap(batch, offs, iters)
                 plain_fn = lambda: km.trimap_plain(batch, offs, iters)
+                lib_b = lambda: pool_trimap(batch, se, iters)[0]
             else:
                 fn = lambda: km.morph(batch, offs, iters, True)
                 plain_fn = lambda: km.morph_plain(batch, offs, iters, True)
+                lib_b = lambda: pool_chain(batch, se, iters, True)[0]
             n_b = batch.shape[0]
-            entry.update(batch=n_b, batch_ms=cuda_ms(fn, 50),
+            entry.update(batch=n_b, batch_ms=cuda_ms(fn, 50 if n_b < 64
+                                                     else 10),
                          batch_plain_ms=cuda_ms(plain_fn, 1, rounds=3),
+                         batch_pool_chain_ms=cuda_ms(lib_b, 2, rounds=3),
                          batch_bound_ms=n_b * b)
             print(f"    at batch {n_b}: {entry['batch_ms']:.4f} ms, 1 "
-                  f"launch (plain {entry['batch_plain_ms']:.4f} ms, bound "
-                  f"{entry['batch_bound_ms']:.5f} ms by {by})", flush=True)
+                  f"launch (plain {entry['batch_plain_ms']:.4f} ms, "
+                  f"max_pool2d chain {entry['batch_pool_chain_ms']:.4f} ms, "
+                  f"bound {entry['batch_bound_ms']:.5f} ms by {by})",
+                  flush=True)
     # chains longer than the paths run, untimed: K1 at 20 iterations (6
     # rows a thread) and 60 (a K2 head of 20, then the fused launch), K2 at
     # 60 (two launches)
@@ -408,8 +464,8 @@ def morph_phase(device):
                        pool_chain_ms=main["pool_chain_ms"],
                        pool_chain_calls=main["pool_chain_calls"])
     print(f"  K1, K2: bit-exact in {n_checked} checks (the soft mask, "
-          f"{', '.join(MORPH_HARD_MASKS)} and a batch of {N_SEGMENTS} "
-          f"times the planes a frame at each call; "
+          f"{', '.join(MORPH_HARD_MASKS)} and the call's batch at each "
+          f"call; "
           f"K1 iters 20 and 60, K2 iters 60 on the soft mask)", flush=True)
     return rows
 
@@ -1436,6 +1492,308 @@ def disk_phase(green_cfg, stm_weights, matting_weights):
     return True
 
 
+@contextlib.contextmanager
+def float32_stage_pipelines():
+    """bg_offline builds its FusedBgPipeline with the shipped bfloat16 STM,
+    matting and seed; inside this block the class it looks up passes
+    float32 for all three (the substitution the CPU tests make)."""
+    import torch
+    from video_unscreen_tpu_torch.pipeline import fused_bg
+    base = fused_bg.FusedBgPipeline
+
+    class Float32(base):
+        def __init__(self, *args, **kw):
+            kw.update(matting_dtype=torch.float32, stm_dtype=torch.float32,
+                      seg_dtype=torch.float32)
+            super().__init__(*args, **kw)
+
+    fused_bg.FusedBgPipeline = Float32
+    try:
+        yield
+    finally:
+        fused_bg.FusedBgPipeline = base
+
+
+def offline_config(stm_weights, matting_weights):
+    """bg_config with the data section bg_offline reads (no store is
+    written: save=False)."""
+    cfg = bg_config(stm_weights, matting_weights)
+    cfg["data"] = {"dst_img_dir": "unused", "dst_vid_dir": "unused",
+                   "video_id": "smoke", "range": None}
+    return cfg
+
+
+def held_within_bound(what, got, want):
+    """uint8 card and host outputs within the JAX suite's bound."""
+    import numpy as np
+    dmax, frac = within_bound(np.asarray(got), np.asarray(want))
+    print(f"  {what}: max |diff| {dmax}, |diff| > 1 on {frac:.6f}",
+          flush=True)
+    check(dmax <= 4 and frac < 1e-3, f"{what}: max {dmax}, frac>1 {frac}")
+
+
+def bg_offline_phase(frames, gts, stm_weights, matting_weights):
+    """10. bg_offline (`pipeline/bg_offline.py:run`, fused, chunks of 4)
+    on the 8 1080p frames in bfloat16 (counts reset just before) and in
+    float32; stage 2 alone on 24 frames; float32 card against host at
+    270x480, fused and modular. Returns (kernel counts by path, the
+    bfloat16 run's result)."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.ops import kernels
+    from video_unscreen_tpu_torch.pipeline import bg_offline
+
+    from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
+
+    cfg = offline_config(stm_weights, matting_weights)
+    counts = {}
+    t0 = time.perf_counter()
+    FusedBgPipeline(cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
+                    device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kw = dict(save=False, stages=(1, 2, 3), fused=True,
+              chunk_size=BG_OFFLINE_CHUNK, device="cuda")
+    res, _, counts["bg_offline"] = timed_run(bg_offline.run, cfg, frames,
+                                             **kw)
+    alphas, fgs = np.stack(res["alphas"]), np.stack(res["fgs"])
+    check(alphas.shape == (N_FRAMES, 544, 960) and alphas.dtype == np.uint8
+          and fgs.shape == alphas.shape + (3,), "bg_offline output shapes")
+    check(res["always_bg"].shape == FRAME_HW + (3,)
+          and res["ema"][1].shape == (544, 960), "bg_offline artifacts")
+    ious = gt_ious(alphas, gts, (544, 960))
+    secs = res["seconds"]
+    print(f"  bg_offline bfloat16, {N_FRAMES} frames 1080p -> 544x960: "
+          f"{N_FRAMES / sum(secs.values()):.3f} frames/s over the three "
+          f"stages; seconds {({k: round(v, 4) for k, v in secs.items()})}; "
+          f"stage 2 CG iterations {res['stage2_cg_iters']} (every pixel "
+          f"was background in {N_FRAMES} <= 10 frames: the whole frame is "
+          f"the hole, no boundary); IoU {[round(v, 4) for v in ious]}, "
+          f"mean {np.mean(ious):.4f}; (calls, launches) "
+          f"{counts['bg_offline']}; stage 1 includes building its "
+          f"FusedBgPipeline (the weights read and copied to the card), "
+          f"{build_s:.4f} s alone", flush=True)
+    check(np.mean(ious) > 0.6, f"bg_offline IoU with the ground truth {ious}")
+    check_launched(counts["bg_offline"], "bg_offline",
+                   ("trimap", "morph", "flood", "attention"))
+    with float32_stage_pipelines():
+        res32, secs32, _ = timed_run(bg_offline.run, cfg, frames, **kw)
+    agree = agreement(res["alphas"], res32["alphas"])
+    print(f"  bg_offline float32: {N_FRAMES / secs32:.3f} frames/s; "
+          f"bfloat16 vs float32 alpha >= 128 agrees on {min(agree):.6f} of "
+          f"pixels (worst frame)", flush=True)
+    check(min(agree) >= BG_BF16_ALPHA_AGREE,
+          f"bg_offline bfloat16 vs float32 masks {agree}")
+    phase(f"bg_offline ({N_FRAMES} frames, bfloat16 and float32)", t0)
+
+    # stage 2 where the always-foreground hole has a boundary: the
+    # ground-truth masks of 24 frames, in chunks of 16 (one K2 launch a
+    # chunk, one for the hole, one for the CG perimeter)
+    t0 = time.perf_counter()
+    frames24, gts24 = green_clip(STAGE2_FRAMES, *FRAME_HW, seed=SEED + 2)
+    masks24 = [np.repeat(g.astype(np.uint8)[..., None] * 255, 3, axis=2)
+               for g in gts24]
+    (bg2, iters), secs2, counts["bg_offline_stage2"] = timed_run(
+        bg_offline._stage2, cfg, frames24, masks24, None, False,
+        chunk_size=STAGE2_CHUNK, device="cuda")
+    n_chunks = -(-STAGE2_FRAMES // STAGE2_CHUNK)
+    c2 = counts["bg_offline_stage2"]["morph"]
+    print(f"  bg_offline stage 2, {STAGE2_FRAMES} frames 1080p in chunks of "
+          f"{STAGE2_CHUNK}: {secs2:.4f} s; CG iterations {iters}; K2 "
+          f"(calls, launches) {c2}", flush=True)
+    check(c2 == (n_chunks + 2, n_chunks + 2),
+          f"stage 2 K2 {c2}: want one launch a chunk, the hole, the "
+          f"perimeter")
+    check(min(iters) > 0 and bg2.shape == FRAME_HW + (3,),
+          f"stage 2 CG iterations {iters}")
+    torch.set_num_threads(os.cpu_count() or 1)
+    small24, sgts24 = green_clip(STAGE2_FRAMES, *BG_HOST_HW, seed=SEED + 2)
+    smasks24 = [np.repeat(g.astype(np.uint8)[..., None] * 255, 3, axis=2)
+                for g in sgts24]
+    card, host = (bg_offline._stage2(cfg, small24, smasks24, None, False,
+                                     chunk_size=STAGE2_CHUNK, device=d)
+                  for d in ("cuda", "cpu"))
+    d = int(np.abs(card[0].astype(int) - host[0].astype(int)).max())
+    print(f"  stage 2 card vs host at {BG_HOST_HW[0]}x{BG_HOST_HW[1]}: "
+          f"always_bg max |diff| {d}; CG iterations {card[1]} / {host[1]}",
+          flush=True)
+    check(d <= 1, f"stage 2 card vs host always_bg {d}")
+    phase(f"bg_offline stage 2 ({STAGE2_FRAMES} frames)", t0)
+
+    t0 = time.perf_counter()
+    small, _ = green_clip(N_OFFLINE_HOST, *BG_HOST_HW, seed=SEED)
+    for fused in (True, False):
+        with float32_stage_pipelines():
+            runs = {dev: bg_offline.run(
+                cfg, small, save=False, fused=fused, chunk_size=2,
+                work_long_side=BG_HOST_HW[1], device=dev)
+                for dev in ("cuda", "cpu")}
+        form = "fused" if fused else "modular"
+        for key in ("alphas", "fgs"):
+            held_within_bound(f"bg_offline {form} card vs host {key}",
+                              np.stack(runs["cuda"][key]),
+                              np.stack(runs["cpu"][key]))
+        d = int(np.abs(runs["cuda"]["always_bg"].astype(int)
+                       - runs["cpu"]["always_bg"].astype(int)).max())
+        check(d <= 1, f"bg_offline {form} always_bg card vs host {d}")
+        if fused:
+            check(np.array_equal(runs["cuda"]["ema"][1],
+                                 runs["cpu"]["ema"][1]),
+                  "bg_offline ema_seen card vs host")
+            d_ema = int(np.abs(runs["cuda"]["ema"][0].astype(int)
+                               - runs["cpu"]["ema"][0].astype(int)).max())
+            print(f"  fused: ema_seen equal, ema_bg max |diff| {d_ema}, "
+                  f"always_bg max |diff| {d}", flush=True)
+    phase(f"bg_offline host runs ({N_OFFLINE_HOST} frames at "
+          f"{BG_HOST_HW[0]}x{BG_HOST_HW[1]}, fused and modular)", t0)
+    return counts, res
+
+
+def replace_and_agents_phase(frames, gts, offline):
+    """10a. The replacement core (`pipeline/replace.py:compose_frames`) on
+    bg_offline's alphas and fgs brought to 1080p over a seeded background,
+    with and without harmonization, and `BackgroundAgent.forward` with
+    each method at 1080p: float32 card against host within the JAX bound;
+    K2 launched in every BackgroundAgent run. Returns kernel counts by
+    path."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch import runtime
+    from video_unscreen_tpu_torch.agents.bgmodel import BackgroundAgent
+    from video_unscreen_tpu_torch.pipeline import replace
+
+    t0 = time.perf_counter()
+    counts = {}
+    up = runtime.resize_batch(offline["alphas"], FRAME_HW)
+    masks = [np.repeat(a[..., None], 3, axis=2) for a in up]
+    fgs = list(runtime.resize_batch(offline["fgs"], FRAME_HW))
+    rng = np.random.RandomState(SEED + 3)
+    yy, xx = np.mgrid[0:FRAME_HW[0], 0:FRAME_HW[1]]
+    bg = np.stack([xx * 0.1, yy * 0.2, (xx + yy) * 0.05], -1) + 30.0
+    bg = (bg + rng.uniform(0, 40, bg.shape)).clip(0, 255).astype(np.uint8)
+    # the source subject: the ground truth mirrored, so the shift is real
+    src = [np.repeat(g[:, ::-1].astype(np.uint8)[..., None] * 255, 3, 2)
+           for g in gts]
+    shift = replace.centroid_offset(src, masks, device="cuda")
+    shift_host = replace.centroid_offset(src[:N_OFFLINE_HOST],
+                                         masks[:N_OFFLINE_HOST],
+                                         device="cpu")
+    shift_card3 = replace.centroid_offset(src[:N_OFFLINE_HOST],
+                                          masks[:N_OFFLINE_HOST],
+                                          device="cuda")
+    check(np.allclose(shift_card3, shift_host, rtol=1e-4, atol=1e-3),
+          f"centroid offset card {shift_card3} vs host {shift_host}")
+    for harmonize in (False, True):
+        name = "replace_harmonized" if harmonize else "replace"
+        replace.compose_frames(fgs[:1], masks[:1], bg, shift, harmonize,
+                               "cuda")  # warm-up
+        out, secs, counts[name] = timed_run(
+            replace.compose_frames, fgs, masks, bg, shift, harmonize, "cuda")
+        print(f"  {name}, {N_FRAMES} frames 1080p, shift "
+              f"({shift[0]:.3f}, {shift[1]:.3f}): "
+              f"{secs / N_FRAMES * 1e3:.3f} ms a frame; (calls, launches) "
+              f"{counts[name]}", flush=True)
+        check(out.shape == (N_FRAMES,) + FRAME_HW + (3,), f"{name} shape")
+        host = replace.compose_frames(fgs[:N_OFFLINE_HOST],
+                                      masks[:N_OFFLINE_HOST], bg, shift,
+                                      harmonize, "cpu")
+        held_within_bound(f"{name} card vs host", out[:N_OFFLINE_HOST], host)
+    mask = gts[0].astype(np.uint8) * 255
+    for method in ("mean", "pcov", "rf"):
+        agent = BackgroundAgent(device="cuda")
+        agent.forward(frames[0], mask, method)  # warm-up
+        name = f"bgmodel_{method}"
+        got, secs, counts[name] = timed_run(agent.forward, frames[0], mask,
+                                            method)
+        host_agent = BackgroundAgent(device="cpu")
+        want = host_agent.forward(frames[0], mask, method)
+        extra = (f"; pcov iterations {agent.pcov_iters} (host "
+                 f"{host_agent.pcov_iters})" if method == "pcov" else "")
+        print(f"  BackgroundAgent {method} 1080p (work 303x540): "
+              f"{secs * 1e3:.3f} ms; (calls, launches) {counts[name]}"
+              f"{extra}", flush=True)
+        check(got.shape == FRAME_HW + (3,), f"{name} shape")
+        check(counts[name]["morph"][1] > 0, f"{name}: K2 was not launched")
+        held_within_bound(f"BackgroundAgent {method} card vs host", got,
+                          want)
+        if method == "pcov":
+            check(agent.pcov_iters == host_agent.pcov_iters,
+                  f"pcov iterations {agent.pcov_iters} vs "
+                  f"{host_agent.pcov_iters}")
+    phase("replace and BackgroundAgent at 1080p", t0)
+    return counts
+
+
+def bg_offline_disk_phase(stm_weights, matting_weights):
+    """10b. The CLIs from disk, where libjpeg is on the machine: the 8
+    frames written as JPEGs, `tools/unscreen/bg_offline_torch.py` stages
+    1,2,3 and then `--stages 3` (the resume from the store) through
+    `main`, then `tools/replace/replace_torch.py` on the store, with and
+    without `--harmonize`; every artifact written, both PNGs included.
+    Else one line says why it did not run. Returns whether it ran."""
+    import importlib.util
+    import shutil
+    import tempfile
+    import numpy as np
+    from video_unscreen_tpu_torch import runtime
+
+    missing = runtime.codec_missing()
+    if missing:
+        print(f"  bg_offline disk phase did not run: the JPEG codec needs "
+              f"libjpeg-turbo and this machine lacks {missing}", flush=True)
+        return False
+
+    def cli(rel):
+        spec = importlib.util.spec_from_file_location(
+            Path(rel).stem, ROOT / rel)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    t0 = time.perf_counter()
+    frames, _ = green_clip(N_FRAMES, *FRAME_HW, seed=SEED)
+    with tempfile.TemporaryDirectory(prefix="vut_offline_") as root:
+        src = Path(root, "src_img", "clip")
+        src.mkdir(parents=True)
+        runtime.encode_batch([str(src / f"frame_{i:06d}.jpg")
+                              for i in range(N_FRAMES)], np.stack(frames))
+        cfg_path = Path(root, "bg.json")
+        cfg_path.write_text(json.dumps(bg_config(stm_weights,
+                                                 matting_weights)))
+        offline = cli("tools/unscreen/bg_offline_torch.py")
+        args = ["--cfg", str(cfg_path), "-vid", "clip", "--data_root", root]
+        offline.main(args)
+        resumed = offline.main(args + ["--stages", "3"])
+        store = Path(root, "test_bg_step_img", "clip")
+        for kind in ("segmask", "bg", "alphamask", "fg"):
+            n = len(list(store.glob(f"{kind}_*.jpg")))
+            check(n == N_FRAMES, f"bg_offline disk: {n} {kind} files")
+        for name in ("always_bg.jpg", "ema_bg.png", "ema_seen.png"):
+            check((store / name).is_file(), f"bg_offline disk: no {name}")
+        check(len(resumed["alphas"]) == N_FRAMES, "stage-3 resume alphas")
+        rep = Path(root, "rep")
+        dirs = {"tgt": rep / "unscreenbg_img" / "out5",
+                "src": rep / "unscreen_img" / "test5",
+                "bg": rep / "unscreen_img" / "bg"}
+        for d in dirs.values():
+            d.mkdir(parents=True)
+        for f in store.glob("*_*.jpg"):
+            if f.name.startswith(("alphamask_", "fg_")):
+                shutil.copy(f, dirs["tgt"] / f.name)
+            if f.name.startswith("alphamask_"):
+                shutil.copy(f, dirs["src"] / f.name)
+        shutil.copy(store / "always_bg.jpg", dirs["bg"] / "bg_case.jpg")
+        rep_cli = cli("tools/replace/replace_torch.py")
+        for extra in ([], ["--harmonize"]):
+            rep_cli.main(["--data_root", str(rep)] + extra)
+            out = rep / "merge_test_img" / "test5_out5"
+            for kind in ("res", "compare"):
+                n = len(list(out.glob(f"{kind}_*.jpg")))
+                check(n == N_FRAMES, f"replace disk {extra}: {n} {kind}")
+    phase(f"bg_offline and replace from disk ({N_FRAMES} frames)", t0)
+    return True
+
+
 def fused_bg_read_phase(device, rows):
     """(a) K4 at the fused bg read: B segments of Lq 2040 over a ring bank
     of FUSED_BANK slots plus the previous frame (Lk 6120), the first
@@ -1799,6 +2157,12 @@ def default_paths(device):
     counts["fused_bg_schp"] = schp_phase(work, stm_weights, weights, rows)
     counts["wire_fused_bg"] = wire_fused_bg_phase(stm_weights, weights)
     disk_phase(cfg, stm_weights, weights)
+    offline_counts, offline = bg_offline_phase(frames, gts, stm_weights,
+                                               weights)
+    counts.update(offline_counts)
+    counts.update(replace_and_agents_phase(frames, gts, offline))
+    del offline
+    bg_offline_disk_phase(stm_weights, weights)
     counts["train"] = train_phases(stm_weights)
     return counts, rows
 

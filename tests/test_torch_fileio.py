@@ -6,7 +6,11 @@
 - `utils/fileio.py`: `save_img` with and without `long_side` (the resize
   is cv2's INTER_LINEAR, bit for bit: the decoded files stay within
   `tests/test_runtime.py`'s bound of the JAX `save_img`'s), gray images as
-  one-channel JPEGs, the text lists.
+  one-channel JPEGs, the text lists; the lossless PNG codec: the port's
+  files read back equal through cv2 and cv2's through the port (gray and
+  BGR), every row filter type read, `save_img` and `parallel_read_img`
+  on `.png` as cv2's IMREAD_COLOR reads; another format raises;
+  `save_video` raises, naming the item that ports it.
 - `config.py:attach_data_section` equals the JAX one; `select_device`
   names no card here; `utils/profiling.py:StageTimer.report` is the JAX
   report.
@@ -14,7 +18,9 @@
   `pipeline/bg.py:run(save=True, frames=None)` read the clip from disk and
   write every artifact kind; the decoded alphamasks are within
   `tests/test_run_fused_artifacts.py`'s bound (mean |diff| < 8) of the
-  returned alphas.
+  returned alphas;
+  the bg_offline and replacement CLIs from disk, the stage-3 resume from
+  the store among them.
 """
 import glob
 import os
@@ -68,10 +74,10 @@ def test_read_frames_against_jax(data_root, frame_range):
 def test_read_frames_refuses_other_formats(tmp_path):
     src = tmp_path / "src_img" / "c1"
     src.mkdir(parents=True)
-    cv2.imwrite(str(src / "frame_000000.png"),
+    cv2.imwrite(str(src / "frame_000000.bmp"),
                 np.zeros((8, 8, 3), np.uint8))
     cfg = tconfig.attach_data_section({}, "c1", "green", str(tmp_path))
-    with pytest.raises(ValueError, match="PNG images are not supported"):
+    with pytest.raises(ValueError, match="BMP images are not supported"):
         tcommon.read_frames(cfg)
     cfg["data"]["src_img_tmpl"] = "*.jpg"
     with pytest.raises(FileNotFoundError, match="no frames matching"):
@@ -99,8 +105,95 @@ def test_save_img_gray_and_refuses_other_formats(tmp_path):
     back = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     assert back.shape == (40, 60)
     assert np.abs(back.astype(int) - mask.astype(int)).mean() < 8.0
-    with pytest.raises(ValueError, match="PNG"):
-        tfileio.save_img(str(tmp_path / "mask.png"), mask)
+    with pytest.raises(ValueError, match="TIF"):
+        tfileio.save_img(str(tmp_path / "mask.tif"), mask)
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (37, 53, 3), (96, 128, 3)])
+def test_png_round_trip_with_cv2(tmp_path, shape):
+    """The port's PNG read back by cv2 bit for bit, and cv2's (which
+    filters its rows) read back by the port; noise and smooth ramps."""
+    rng = np.random.RandomState(len(shape))
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    ramp = ((3 * yy + 5 * xx) % 256).astype(np.uint8)
+    if len(shape) == 3:
+        ramp = np.stack([ramp, ramp // 2, 255 - ramp], -1)
+    for img in (rng.randint(0, 256, shape).astype(np.uint8), ramp):
+        ours, theirs = str(tmp_path / "t.png"), str(tmp_path / "c.png")
+        tfileio.write_png(ours, img)
+        np.testing.assert_array_equal(
+            cv2.imread(ours, cv2.IMREAD_UNCHANGED), img)
+        cv2.imwrite(theirs, img)
+        np.testing.assert_array_equal(tfileio.read_png(theirs), img)
+
+
+def _png_with_filters(img, filters):
+    """A PNG of `img` (gray or BGR uint8) whose row y uses filter type
+    filters[y % len(filters)], filtered by the PNG rules (a test-side
+    encoder independent of the reader)."""
+    import struct
+    import zlib
+    rows = img[..., ::-1] if img.ndim == 3 else img
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else 3
+    data = rows.reshape(h, -1).astype(np.int64)
+    out = bytearray()
+    prior = np.zeros(w * bpp, np.int64)
+    for y in range(h):
+        ft, cur = filters[y % len(filters)], data[y]
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])
+        if ft == 0:
+            pred = np.zeros_like(cur)
+        elif ft == 1:
+            pred = left
+        elif ft == 2:
+            pred = prior
+        elif ft == 3:
+            pred = (left + prior) // 2
+        else:
+            p = left + prior - upleft
+            pa, pb, pc = (np.abs(p - left), np.abs(p - prior),
+                          np.abs(p - upleft))
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, prior, upleft))
+        out.append(ft)
+        out += ((cur - pred) % 256).astype(np.uint8).tobytes()
+        prior = cur
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+    hdr = struct.pack(">IIBBBBB", w, h, 8, 0 if bpp == 1 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", hdr)
+            + chunk(b"IDAT", zlib.compress(bytes(out))) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("shape", [(23, 31), (23, 31, 3)])
+def test_png_reads_every_filter_type(tmp_path, shape):
+    img = np.random.RandomState(7).randint(0, 256, shape).astype(np.uint8)
+    path = tmp_path / "f.png"
+    path.write_bytes(_png_with_filters(img, (0, 1, 2, 3, 4)))
+    np.testing.assert_array_equal(cv2.imread(str(path),
+                                             cv2.IMREAD_UNCHANGED), img)
+    np.testing.assert_array_equal(tfileio.read_png(str(path)), img)
+
+
+def test_png_through_save_img_and_parallel_read_img(tmp_path):
+    """`.png` paths: written losslessly, read as cv2.IMREAD_COLOR reads
+    (a gray PNG as three equal channels); `save_video` is not ported."""
+    rng = np.random.RandomState(8)
+    gray = rng.randint(0, 256, (20, 30)).astype(np.uint8)
+    bgr = rng.randint(0, 256, (20, 30, 3)).astype(np.uint8)
+    paths = [str(tmp_path / "sub" / n) for n in ("g.png", "c.png")]
+    tfileio.save_img(paths[0], gray)
+    tfileio.save_img(paths[1], bgr)
+    got = tfileio.parallel_read_img(paths)
+    for g, p in zip(got, paths):
+        np.testing.assert_array_equal(g, cv2.imread(p, cv2.IMREAD_COLOR))
+    np.testing.assert_array_equal(got[1], bgr)
+    with pytest.raises(NotImplementedError, match="item 19"):
+        tfileio.save_video(str(tmp_path), str(tmp_path / "v.mp4"))
 
 
 def test_txt_lists(tmp_path):
@@ -184,3 +277,68 @@ def test_bg_run_from_disk_writes_artifacts(data_root):
         assert len(kinds[k]) == 2, (k, kinds[k])
     assert cv2.imread(kinds["segmask"][0], cv2.IMREAD_UNCHANGED).ndim == 2
     _check_alphamasks(kinds["alphamask"], out["alphas"])
+
+
+def _cli(rel):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(rel)[:-3], os.path.join(
+            os.path.dirname(os.path.dirname(__file__)), rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bg_offline_and_replace_clis_from_disk(data_root, tmp_path,
+                                              monkeypatch):
+    """`tools/unscreen/bg_offline_torch.py` (stages 1,2,3, then stage 3
+    alone from the store) and `tools/replace/replace_torch.py` on that
+    store, with and without `--harmonize`, through their `main`: every
+    artifact written, the PNG pair lossless as cv2 reads it, the resumed
+    alphas within mean 8 of the first run's (the store's segmasks and
+    backgrounds went through JPEG). The CLI, as JAX's, has no work-size
+    flag: the test runs `run` at the clip's own size (long side 128)."""
+    import functools
+    import json
+    import shutil
+    from video_unscreen_tpu_torch.pipeline import bg_offline
+    monkeypatch.setattr(bg_offline, "run", functools.partial(
+        bg_offline.run, work_long_side=128))
+    cfg_path = tmp_path / "bg.json"
+    cfg_path.write_text(json.dumps(BG_TEST_CFG))
+    offline = _cli("tools/unscreen/bg_offline_torch.py")
+    args = ["--cfg", str(cfg_path), "-vid", "c0", "--data_root", data_root,
+            "--device", "cpu", "--chunk", "2"]
+    first = offline.main(args)
+    resumed = offline.main(args + ["--stages", "3"])
+    store = os.path.join(data_root, "test_bg_step_img", "c0")
+    for k, paths in _kinds(store).items():
+        assert len(paths) == N, (k, paths)
+    for name in ("always_bg.jpg", "ema_bg.png", "ema_seen.png"):
+        assert os.path.isfile(os.path.join(store, name)), name
+    np.testing.assert_array_equal(
+        cv2.imread(os.path.join(store, "ema_seen.png"), cv2.IMREAD_UNCHANGED),
+        first["ema"][1])
+    assert resumed["stage2_cg_iters"] is None and len(resumed["alphas"]) == N
+    for a, b in zip(resumed["alphas"], first["alphas"]):
+        d = np.abs(a.astype(int) - b.astype(int))
+        assert d.mean() < 8.0, d.mean()
+    rep = tmp_path / "rep"
+    dirs = [rep / "unscreenbg_img" / "out5", rep / "unscreen_img" / "test5",
+            rep / "unscreen_img" / "bg"]
+    for d in dirs:
+        d.mkdir(parents=True)
+    for name in os.listdir(store):
+        if name.startswith(("alphamask_", "fg_")):
+            shutil.copy(os.path.join(store, name), dirs[0] / name)
+        if name.startswith("alphamask_"):
+            shutil.copy(os.path.join(store, name), dirs[1] / name)
+    shutil.copy(os.path.join(store, "always_bg.jpg"), dirs[2] / "bg_case.jpg")
+    replace = _cli("tools/replace/replace_torch.py")
+    for extra in ([], ["--harmonize"]):
+        replace.main(["--data_root", str(rep), "--device", "cpu"] + extra)
+        out = rep / "merge_test_img" / "test5_out5"
+        for kind in ("res", "compare"):
+            assert len(list(out.glob(f"{kind}_*.jpg"))) == N, (extra, kind)
+        assert cv2.imread(str(out / "compare_000000.jpg")).shape == (
+            96, 256, 3)

@@ -1,10 +1,11 @@
 """The PyTorch port stands alone: importing every module of
 `video_unscreen_tpu_torch` (the trainer's `parallel/` modules, the native
-runtime and the streamer included) loads no JAX, flax, msgpack, cv2 or
+runtime and the streamer, bg_offline, the replacement and the background
+and harmonization agents included) loads no JAX, flax, msgpack, cv2 or
 JAX-package module, `chip_smoke.py`, `tools/train_stm_torch.py` and the
-CLIs `tools/unscreen/{green,bg}_torch.py` import none either, and the
-entry points refuse a missing card instead of quietly running on the
-host."""
+CLIs `tools/unscreen/{green,bg,bg_offline}_torch.py` and
+`tools/replace/replace_torch.py` import none either, and the entry points
+refuse a missing card instead of quietly running on the host."""
 import ast
 import os
 import subprocess
@@ -31,6 +32,13 @@ print(len(names), ",".join(bad))
 """
 
 
+_PORT_MODULES = {
+    "video_unscreen_tpu_torch." + ".".join(
+        p.relative_to(ROOT / "video_unscreen_tpu_torch").with_suffix("")
+        .parts)
+    for p in (ROOT / "video_unscreen_tpu_torch").rglob("*.py")}
+
+
 def test_port_imports_nothing_of_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
@@ -39,6 +47,9 @@ def test_port_imports_nothing_of_jax():
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split()[0], out.stdout.strip().split(" ")[1:]
     assert int(n_modules) >= 20, out.stdout
+    for name in ("pipeline.bg_offline", "pipeline.replace",
+                 "agents.bgmodel", "agents.harmonization"):
+        assert f"video_unscreen_tpu_torch.{name}" in _PORT_MODULES
     assert bad == [] or bad == [""], f"forbidden modules loaded: {bad}"
 
 
@@ -79,15 +90,18 @@ def test_port_trainer_imports_nothing_of_jax():
     _loads_nothing_of_jax("tools/train_stm_torch.py")
 
 
-@pytest.mark.parametrize("cli", ["green_torch", "bg_torch"])
+@pytest.mark.parametrize("cli", ["unscreen/green_torch", "unscreen/bg_torch",
+                                 "unscreen/bg_offline_torch",
+                                 "replace/replace_torch"])
 def test_port_clis_import_nothing_of_jax(cli):
-    _loads_nothing_of_jax(f"tools/unscreen/{cli}.py")
+    _loads_nothing_of_jax(f"tools/{cli}.py")
 
 
 def _cli(name):
     import importlib.util
+    folder = "replace" if name.startswith("replace") else "unscreen"
     spec = importlib.util.spec_from_file_location(
-        name, ROOT / "tools" / "unscreen" / f"{name}.py")
+        name, ROOT / "tools" / folder / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -97,7 +111,10 @@ def _cli(name):
                                    "stm_agent", "stm_train_state",
                                    "seg_agent", "run_segmented", "fused_bg",
                                    "human_seg_agent", "green_modular",
-                                   "green_cli", "bg_cli"])
+                                   "green_cli", "bg_cli", "bg_offline",
+                                   "replace", "background_agent",
+                                   "harmonization_agent", "bg_offline_cli",
+                                   "replace_cli"])
 def test_entry_points_refuse_missing_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal path does not run")
@@ -108,7 +125,11 @@ def test_entry_points_refuse_missing_cuda(entry, tmp_path):
     from video_unscreen_tpu_torch.agents.stm import STMAgent
     from video_unscreen_tpu_torch.parallel.train_stm import \
         make_stm_train_state
-    from video_unscreen_tpu_torch.pipeline import bg, green
+    from video_unscreen_tpu_torch.agents.bgmodel import BackgroundAgent
+    from video_unscreen_tpu_torch.agents.harmonization import \
+        HarmonizationAgent
+    from video_unscreen_tpu_torch.pipeline import (bg, bg_offline, green,
+                                                   replace)
     from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
     from video_unscreen_tpu_torch.pipeline.fused_green import (
         FusedGreenPipeline, run_fused)
@@ -132,9 +153,21 @@ def test_entry_points_refuse_missing_cuda(entry, tmp_path):
             HumanSegAgent(layers=(1, 1, 1, 1))
         elif entry == "green_modular":
             green.run(TEST_CFG, frames, save=False)
-        elif entry in ("green_cli", "bg_cli"):
+        elif entry in ("green_cli", "bg_cli", "bg_offline_cli"):
             _cli(entry.replace("_cli", "_torch")).main(
                 ["-vid", "v", "--data_root", str(tmp_path)])
+        elif entry == "replace_cli":
+            _cli("replace_torch").main(["--data_root", str(tmp_path)])
+        elif entry == "bg_offline":
+            bg_offline.run(dict(BG_TEST_CFG, data={
+                "dst_img_dir": str(tmp_path)}), frames, save=False)
+        elif entry == "replace":
+            from types import SimpleNamespace
+            replace.run(SimpleNamespace(tgt_data_dir=str(tmp_path)))
+        elif entry == "background_agent":
+            BackgroundAgent()
+        elif entry == "harmonization_agent":
+            HarmonizationAgent()
         else:
             make_stm_train_state()
 

@@ -104,22 +104,18 @@ def _hold_call(kernel, x, offs, iters):
         assert_equal(got, want)
 
 
-# run_segmented's S (bench.py's segments)
-N_SEGMENTS = 8
-
-
 @cuda
-@pytest.mark.parametrize("kernel,caller,shape,se,iters,planes", MORPH_CALLS)
-def test_morph_kernels_on_paths(kernel, caller, shape, se, iters, planes):
-    """Every K1 and K2 call the green, bg, fused bg and training paths
-    make (`morph_cases.MORPH_CALLS`), bit-exact and one launch: on one
-    frame and on the batch run_segmented gives it (S frames of `planes`
-    planes each)."""
+@pytest.mark.parametrize("kernel,caller,shape,se,iters,batch", MORPH_CALLS)
+def test_morph_kernels_on_paths(kernel, caller, shape, se, iters, batch):
+    """Every K1 and K2 call the green, bg, fused bg, bg_offline,
+    background-model and training paths make (`morph_cases.MORPH_CALLS`),
+    bit-exact and one launch: on one plane and on the call's batch (the
+    most planes a path gives it at once, at least run_segmented's S)."""
     require_cuda()
     offs = se_offsets(se)
     _hold_call(kernel, _dev(soft_mask(*shape, seed=iters)), offs, iters)
     batch = np.stack([soft_mask(*shape, seed=iters + j)
-                      for j in range(N_SEGMENTS * planes - 2)]
+                      for j in range(batch - 2)]
                      + [morph_hard_mask("edges", *shape),
                         morph_hard_mask("checkerboard", *shape)])
     _hold_call(kernel, _dev(batch), offs, iters)

@@ -1,9 +1,9 @@
 #!/bin/bash
 # Launcher of the PyTorch port's CLIs, in tools/unscreen.sh's argument order:
-#   bash tools/unscreen_torch.sh <green|bg> <src_video_id> <device_id> [extra args]
+#   bash tools/unscreen_torch.sh <green|bg|bg_offline> <src_video_id> <device_id> [extra args]
 # <device_id> picks the card (UNSCREEN_DEVICE_ID); extra args go to
-# tools/unscreen/<script>_torch.py (for example --fused --wire yuv420, or
-# --device cpu).
+# tools/unscreen/<script>_torch.py (for example --fused --wire yuv420,
+# --stages 2,3 for bg_offline, or --device cpu).
 
 script=$1
 src=$2

@@ -1,1 +1,2 @@
-"""Pipeline stages: color filtering and matting."""
+"""Pipeline stages: seeds, colour filtering, STM, trimap, matting, the
+background model and harmonization."""

@@ -1,9 +1,9 @@
 """Color-space conversions in OpenCV 8-bit ranges on float tensors.
 
-Port of `video_unscreen_tpu/ops/color.py` (`bgr2gray`, `bgr2hsv`,
-`hsv2bgr`, `bgr2lab`, `yuv420_to_bgr`): HSV with H in 0..180 and S/V in
-0..255, Lab as L*255/100 and a/b offset by 128, so the pipeline's windows
-and thresholds carry over.
+Port of `video_unscreen_tpu/ops/color.py` (`bgr2rgb`, `bgr2gray`,
+`bgr2hsv`, `hsv2bgr`, `bgr2lab`, `yuv420_to_bgr`): HSV with H in 0..180
+and S/V in 0..255, Lab as L*255/100 and a/b offset by 128, so the
+pipeline's windows and thresholds carry over.
 Channels are last, as in the JAX package.
 """
 
@@ -20,8 +20,14 @@ _RGB2XYZ = ((0.412453, 0.357580, 0.180423),
 _XN, _ZN = 0.950456, 1.088754
 
 
+def bgr2rgb(img: torch.Tensor) -> torch.Tensor:
+    return img.flip(-1)
+
+
 def bgr2gray(img: torch.Tensor) -> torch.Tensor:
-    """cv2.COLOR_BGR2GRAY: 0.299 R + 0.587 G + 0.114 B."""
+    """cv2.COLOR_BGR2GRAY on floats: 0.299 R + 0.587 G + 0.114 B. For
+    uint8 images cv2 rounds in fixed point instead:
+    `runtime.bgr_to_gray`."""
     b, g, r = img[..., 0], img[..., 1], img[..., 2]
     return 0.299 * r + 0.587 * g + 0.114 * b
 

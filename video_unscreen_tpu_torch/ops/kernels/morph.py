@@ -90,6 +90,16 @@ def trimap_plain(x: torch.Tensor, offsets: Offsets,
 REACH = 4
 
 
+def _check_planes(x: torch.Tensor, what: str) -> None:
+    """Refuse an (H, W, C) image on either device: a channels-last stack
+    would read as H images of W x C. Its channels go to the batch axis
+    first (`permute(2, 0, 1)`)."""
+    if x.dim() == 3 and x.shape[-1] <= 4:
+        raise ValueError(f"{what}: {tuple(x.shape)} looks like a channels-"
+                         f"last (H, W, C) image; pass (B, H, W) planes, the "
+                         f"channels on the batch axis")
+
+
 def _check_input(x: torch.Tensor, offsets: Offsets, what: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: needs a CPU or CUDA tensor, got "
@@ -117,6 +127,7 @@ def morph(x: torch.Tensor, offsets: Offsets, iters: int,
           is_dilate: bool) -> torch.Tensor:
     """K2: `iters` dilations (or erosions) of the (H, W) or (B, H, W) mask
     `x`, the batch in one launch."""
+    _check_planes(x, "morph")
     if x.device.type == "cpu":
         return morph_plain(x, offsets, iters, is_dilate)
     _check_input(x, offsets, "morph")
@@ -142,6 +153,7 @@ def morph(x: torch.Tensor, offsets: Offsets, iters: int,
 def trimap(x: torch.Tensor, offsets: Offsets, iters: int) -> torch.Tensor:
     """K1: the fused dilate/erode/select trimap of the (H, W) or (B, H, W)
     mask `x`, the batch in one launch."""
+    _check_planes(x, "trimap")
     if x.device.type == "cpu":
         return trimap_plain(x, offsets, iters)
     _check_input(x, offsets, "trimap")

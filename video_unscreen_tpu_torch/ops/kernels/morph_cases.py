@@ -1,38 +1,54 @@
 """The cases K1 and K2 are held and timed on, shared by the port's tests
 and `chip_smoke.py`.
 
-`MORPH_CALLS` lists every K1 and K2 call the green, bg, fused bg and
-training paths make. The hard masks break iterated morphology at the
-image's border: all 255 and all 0 (the fill must neither grow nor erode the
-border), one hot pixel at each corner, a 1-pixel line along each edge, and
-a checkerboard (every cell differs from its four neighbours)."""
+`MORPH_CALLS` lists every K1 and K2 call the green, bg, fused bg,
+bg_offline, background-model and training paths make. The hard masks
+break iterated morphology at the image's border: all 255 and all 0 (the
+fill must neither grow nor erode the border), one hot pixel at each
+corner, a 1-pixel line along each edge, and a checkerboard (every cell
+differs from its four neighbours)."""
 
-# (kernel, caller, (h, w), SE, iters, planes). The trimap is the k3
+# (kernel, caller, (h, w), SE, iters, batch). The trimap is the k3
 # ellipse (the 5-point cross); "cross3" is regionfill's cross_offsets(3),
-# the same five cells; "ellipse4" the 4x4 ellipse, anchored at (2, 2).
-# `planes` is the planes a frame gives the call: run_segmented's S
-# segments give it a batch of S * planes (the fused bg regionfill solves
-# the 3 channels of each segment, each behind its own hole).
+# the same five cells; "ellipse<k>" the k x k ellipse, anchored at
+# (k // 2, k // 2). `batch` is the planes of the batch a call is held on:
+# the most a path gives it in one call, and at least run_segmented's S = 8
+# (S segments give a call S times its planes a frame: the fused bg
+# regionfill solves the 3 channels of each segment, each behind its own
+# hole; bg_offline's stage 2 dilates the 3 channels of a chunk of 32
+# frames in one call).
 MORPH_CALLS = (
     ("trimap", "green and fused bg trimap (ops/trimap.py:22)", (544, 960),
-     "ellipse3", 5, 1),
+     "ellipse3", 5, 8),
     ("trimap", "bg trimap (agents/trimap.py:38)", (540, 960), "ellipse3", 5,
-     1),
+     8),
     ("morph", "colour filter / seed close and open / fused bg hole "
-     "(pipeline/fused_bg.py:297)", (544, 960), "ellipse3", 2, 1),
-    ("morph", "green band tier 1", (544, 960), "ellipse3", 10, 1),
-    ("morph", "green band tier 2", (544, 960), "ellipse3", 20, 1),
-    ("morph", "green band tier 3", (544, 960), "ellipse3", 40, 1),
+     "(pipeline/fused_bg.py:297)", (544, 960), "ellipse3", 2, 8),
+    ("morph", "green band tier 1", (544, 960), "ellipse3", 10, 8),
+    ("morph", "green band tier 2", (544, 960), "ellipse3", 20, 8),
+    ("morph", "green band tier 3", (544, 960), "ellipse3", 40, 8),
     ("morph", "bg background mask (pipeline/bg.py:63)", (1080, 1920),
-     "ellipse3", 2, 1),
+     "ellipse3", 2, 8),
     ("morph", "regionfill perimeter (ops/regionfill.py:65)", (1080, 1920),
-     "cross3", 1, 1),
+     "cross3", 1, 8),
     ("morph", "bg alpha dilate (pipeline/bg.py:112)", (1080, 1920),
-     "ellipse4", 2, 1),
+     "ellipse4", 2, 8),
     ("morph", "fused bg background-difference dilate "
-     "(pipeline/fused_bg.py:392)", (544, 960), "ellipse4", 2, 1),
+     "(pipeline/fused_bg.py:392)", (544, 960), "ellipse4", 2, 8),
     ("morph", "fused bg regionfill perimeter (ops/regionfill.py:65)",
-     (272, 480), "cross3", 1, 3),
+     (272, 480), "cross3", 1, 24),
+    ("morph", "bg_offline stage 2 mask dilate, 32 frames x 3 channels "
+     "(pipeline/bg_offline.py:_stage2_accum)", (1080, 1920), "ellipse3", 2,
+     96),
+    ("morph", "bg_offline stage 2 always-fg hole "
+     "(pipeline/bg_offline.py:_stage2_finalize)", (1080, 1920), "ellipse3",
+     2, 8),
+    ("morph", "BackgroundAgent dilate (agents/bgmodel.py:_dilated)",
+     (303, 540), "ellipse5", 3, 8),
+    ("morph", "BackgroundAgent outer boundary (ops/morphology.py:"
+     "get_outer_boundary)", (303, 540), "ellipse7", 10, 8),
+    ("morph", "BackgroundAgent rf regionfill perimeter "
+     "(ops/regionfill.py:65)", (151, 270), "cross3", 1, 8),
 )
 
 MORPH_HARD_MASKS = ("full", "empty", "corners", "edges", "checkerboard")

@@ -1,1 +1,9 @@
-"""Mode pipelines; green mode with the chroma seed is ported."""
+"""Mode pipelines: green and bg (modular and fused), bg_offline and the
+person replacement."""
+
+from .green import run as run_green  # noqa: F401
+from .bg import run as run_bg  # noqa: F401
+from .bg_offline import run as run_bg_offline  # noqa: F401
+from .replace import run as run_replace  # noqa: F401
+from .fused_green import FusedGreenPipeline, run_fused  # noqa: F401
+from .fused_bg import FusedBgPipeline  # noqa: F401

@@ -2,7 +2,9 @@
 stage chain on the device.
 
 Port of `video_unscreen_tpu/pipeline/fused_bg.py` (`BgCarry`,
-`FusedBgPipeline`: `run`, `run_segmented`, `_step_batched`; `run_fused`),
+`FusedBgPipeline`: `run`, `run_segmented`, `_step_batched`, bg_offline's
+stage scans `process_chunk_stage1` and `process_chunk_stage3`;
+`run_fused`),
 with the artifacts computed on the device: the JAX package's
 `fetch="device"`, `pack_d2h=False`. The host builds each chunk, the frames
 resized to work resolution (`host_downscale`, the default) and packed as
@@ -99,10 +101,11 @@ class FusedBgPipeline:
     the STM steps and tracked frames, the ballooned frames, the seed steps
     and seeded frames, and the CG iterations; `step_tracking` holds each
     step's tracking flags and `step_seeded` the segments the seed ran on.
-    `wire` is the upload's format, as `FusedGreenPipeline`'s. The JAX
-    pipeline's host fetch (`fetch="host"`, `pack_d2h`) and its
-    multi-device and offline-stage entries are not ported: asking for
-    them raises."""
+    `wire` is the upload's format, as `FusedGreenPipeline`'s.
+    `process_chunk_stage1` and `process_chunk_stage3` are bg_offline's
+    stage scans (`pipeline/bg_offline.py`). The JAX pipeline's host fetch
+    (`fetch="host"`, `pack_d2h`) and its multi-device entry are not
+    ported: asking for them raises."""
 
     def __init__(self, cfg: dict, frame_hw: Tuple[int, int],
                  work_long_side: int = 960, use_stm_tracking: bool = True,
@@ -170,6 +173,23 @@ class FusedBgPipeline:
         self.step_tracking: List[Tuple[bool, ...]] = []
         self.step_seeded: List[Tuple[bool, ...]] = []
         self._cg_iters: List[torch.Tensor] = []
+
+    def reset_stats(self) -> None:
+        """Empty `stats`, the per-step flags and the pending CG counts."""
+        self.stats = collections.Counter()
+        self.step_tracking, self.step_seeded, self._cg_iters = [], [], []
+
+    def count_cg(self) -> None:
+        """Add the CG iterations and stopping checks of the steps run since
+        the last call to `stats` (one read of the counts)."""
+        if not self._cg_iters:
+            return
+        iters = torch.stack(self._cg_iters).cpu()
+        self._cg_iters = []
+        checks = sum(cg_syncs(i) for i in iters)
+        self.stats["cg_iters"] += int(iters.sum())
+        self.stats["cg_syncs"] += checks
+        self.stats["syncs"] += checks
 
     def init_carries(self, n_segments: int) -> BgCarry:
         """Fresh state for `n_segments` segments."""
@@ -324,9 +344,19 @@ class FusedBgPipeline:
         segmask, fg, bg)."""
         if model_axis is not None:
             raise _unported("model_axis (sharding over devices)", "21")
-        n_s = frames_full.shape[0]
         frames = self._prep_frames(frames_full)
         norms = imnormalize(frames)
+        segmask, bank = self._segment_batched(carries, frames, norms)
+        return self._post_seg(carries, frames, norms, segmask, bank)
+
+    def _segment_batched(self, carries: BgCarry, frames: torch.Tensor,
+                         norms: torch.Tensor):
+        """The segmask of each segment's frame: the STM read of the
+        previous alpha where the segment tracks, the seed where it does
+        not or the tracked mask ballooned (two flag reads, counted in
+        `stats`). Returns (segmask (S, h, w), the updated (bank_k, bank_v,
+        bank_n))."""
+        n_s = frames.shape[0]
         tracking = (carries.tracking & (carries.fid > 0)).tolist()
         self.stats["syncs"] += 1
         self.stats["steps"] += 1
@@ -367,7 +397,7 @@ class FusedBgPipeline:
             self.stats["seed_steps"] += 1
             self.stats["seeded_frames"] += len(need)
         self.step_seeded.append(tuple(seeded))
-        return self._post_seg(carries, frames, norms, segmask, bank)
+        return segmask, bank
 
     def _post_seg(self, carry: BgCarry, frames: torch.Tensor,
                   norms: torch.Tensor, segmask: torch.Tensor, bank):
@@ -436,8 +466,7 @@ class FusedBgPipeline:
         `timer` takes the per-stage split. Returns `run`'s arrays, in clip
         order."""
         frames = list(frames)
-        self.stats = collections.Counter()
-        self.step_tracking, self.step_seeded, self._cg_iters = [], [], []
+        self.reset_stats()
         wire_hw = self.work_hw if host_downscale else frames[0].shape[:2]
 
         def step(carries, batch):
@@ -447,23 +476,101 @@ class FusedBgPipeline:
         packed, = run_segments(step, self.init_carries(n_segments), frames,
                                n_segments, chunk_size, self.device,
                                self.stats, wire_hw, self.wire, timer)
-        # read after the last fetch: the card is idle, no extra wait
-        iters = torch.stack(self._cg_iters).cpu()
-        self._cg_iters = []
-        self.stats["cg_iters"] += int(iters.sum())
-        self.stats["cg_syncs"] += sum(cg_syncs(i) for i in iters)
-        self.stats["syncs"] += self.stats["cg_syncs"]
+        self.count_cg()  # after the last fetch: the card is idle
         return (packed[..., 0], packed[..., 1], packed[..., 2:5],
                 packed[..., 5:8])
 
+
+    # -- bg_offline stage scans ----------------------------------------------
+    def _stage1_step(self, carries: BgCarry, frames_full: torch.Tensor):
+        """bg_offline stage 1 for one frame of each segment: the segmask
+        (seed or STM read), the coarse pass-1 matte (zero without a
+        foreground), the per-frame background (the frame itself without a
+        foreground) and the EMA update. Returns (new carries, uint8 (S, h,
+        w, 4): segmask, bg)."""
+        frames = self._prep_frames(frames_full)
+        norms = imnormalize(frames)
+        segmask, bank = self._segment_batched(carries, frames, norms)
+        h, w = self.work_hw
+        min_fg = self.fg_exist_thr * h * w
+        fg_exists = ((segmask >= 128).sum(dim=(-2, -1)) > min_fg)[:, None,
+                                                                  None]
+        alpha = self._matting_pass(frames, carries.alpha_pre, segmask,
+                                   coarse=True)
+        alpha = torch.where(fg_exists, alpha, 0.0)
+        bgimg, bg_sol, iters = self._per_frame_background(frames, alpha,
+                                                          carries.bg_prev)
+        self._cg_iters.append(iters)
+        bgimg = torch.where(fg_exists[..., None], bgimg, frames)
+        bg_model, bg_seen = self._bg_model_update(carries, frames, alpha,
+                                                  segmask, bgimg)
+        tracking = (alpha >= 128).sum(dim=(-2, -1)) > min_fg
+        new = BgCarry(alpha_pre=alpha, tracking=tracking, frame_prev=norms,
+                      fid=carries.fid + 1, bg_prev=bg_sol, bank_k=bank[0],
+                      bank_v=bank[1], bank_n=bank[2], bg_model=bg_model,
+                      bg_seen=bg_seen)
+        packed = torch.cat([segmask[..., None], bgimg.clamp(0.0, 255.0)],
+                           dim=-1)
+        return new, packed.clamp(0.0, 255.0).to(torch.uint8)
+
+    def _stage3_step(self, carries: BgCarry, frames_full: torch.Tensor,
+                     bgimgs: torch.Tensor, segmasks: torch.Tensor):
+        """bg_offline stage 3 for one frame of each segment: the
+        background-difference mask against the fused background `bgimgs`
+        (uint8 (S, h, w, 3)) gates the stage-1 `segmasks` (uint8 (S, h,
+        w)); the first frame seeds alpha_pre from that mask; the full
+        resolution matte and the fg un-blend. Returns (new carries, uint8
+        (S, h, w, 4): alpha, fg)."""
+        frames = self._prep_frames(frames_full)
+        bgimg = bgimgs.to(torch.float32)
+        diff = bgr2gray((frames - bgimg).abs())
+        alphabg = torch.where(diff > self.bg_mask_thr, 255.0, diff)
+        alphabg = dilate(alphabg.clamp(0.0, 255.0), 4, 2)
+        alpha_ensm = segmasks.to(torch.float32) * torch.floor(
+            alphabg / 255.0)
+        alpha_pre = torch.where((carries.fid == 0)[:, None, None],
+                                alpha_ensm, carries.alpha_pre)
+        alpha = self._matting_pass(frames, alpha_pre, alpha_ensm)
+        bg_final = torch.where((alpha == 0)[..., None], frames, bgimg)
+        fg = get_fg(frames, alpha, bg_final)
+        new = carries._replace(alpha_pre=alpha, fid=carries.fid + 1)
+        packed = torch.cat([alpha[..., None], fg.clamp(0.0, 255.0)], dim=-1)
+        return new, packed.clamp(0.0, 255.0).to(torch.uint8)
+
+    def _chunk(self, x) -> torch.Tensor:
+        return torch.as_tensor(x).to(self.device)
+
+    @torch.inference_mode()
+    def process_chunk_stage1(self, carry: BgCarry, frames):
+        """bg_offline stage 1 over a chunk of one segment's frames, uint8
+        (N, h, w, 3) BGR or (N, h * 3 / 2, w) I420 at work resolution
+        (numpy or tensors). Returns (carry, uint8 (N, h, w, 4): segmask,
+        bg) on the device."""
+        frames = self._chunk(frames)
+        outs = []
+        for t in range(frames.shape[0]):
+            carry, packed = self._stage1_step(carry, frames[t:t + 1])
+            outs.append(packed)
+        return carry, torch.cat(outs)
+
+    @torch.inference_mode()
+    def process_chunk_stage3(self, carry: BgCarry, frames, bgimgs,
+                             segmasks):
+        """bg_offline stage 3 over a chunk of one segment: `frames` as
+        `process_chunk_stage1` takes them, the fused backgrounds uint8 (N,
+        h, w, 3) and the stage-1 segmasks uint8 (N, h, w). Returns (carry,
+        uint8 (N, h, w, 4): alpha, fg) on the device."""
+        frames, bgimgs, segmasks = (self._chunk(x) for x in
+                                    (frames, bgimgs, segmasks))
+        outs = []
+        for t in range(frames.shape[0]):
+            carry, packed = self._stage3_step(
+                carry, frames[t:t + 1], bgimgs[t:t + 1], segmasks[t:t + 1])
+            outs.append(packed)
+        return carry, torch.cat(outs)
+
     def process_segments(self, *args, **kwargs):
         raise _unported("process_segments (segments over devices)", "21")
-
-    def process_chunk_stage1(self, *args, **kwargs):
-        raise _unported("the bg_offline stage-1 scan", "18")
-
-    def process_chunk_stage3(self, *args, **kwargs):
-        raise _unported("the bg_offline stage-3 scan", "18")
 
 
 def run_fused(cfg: dict, frames=None, save: bool = False,

@@ -9,6 +9,8 @@
   COLOR_BGR2YUV_I420)`) and `prep_batch`, both in one pass into a
   caller's buffer (the streamer's pinned memory). `ctypes` releases the
   GIL for each call.
+- `bgr_to_gray` (numpy): `cv2.cvtColor(..., COLOR_BGR2GRAY)` on uint8,
+  bit for bit.
 
 Each library is built at first use with its own `g++` call into
 `video_unscreen_tpu_torch/_build/`, named by a hash of its source and
@@ -241,3 +243,20 @@ def bgr_to_i420_batch(frames: Sequence[np.ndarray],
     frames = list(frames)
     hw = frames[0].shape[:2] if frames else (0, 0)
     return prep_batch(frames, hw, True, out, threads)
+
+
+def bgr_to_gray(img: np.ndarray) -> np.ndarray:
+    """`cv2.cvtColor(img, COLOR_BGR2GRAY)` of a uint8 (..., 3) BGR image,
+    bit for bit: (3735 B + 19235 G + 9798 R + 16384) >> 15, the rounding
+    of the cv2 build the JAX package runs with (its Intel IPP path; equal
+    to it on every one of the 2^24 BGR triples). OpenCV's plain C path
+    rounds (1868 B + 9617 G + 4899 R + 8192) >> 14 instead, which differs
+    by 1 on 0.26% of the triples. Both give v for B = G = R = v. The float
+    `ops.color.bgr2gray` is another function: it truncates."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.shape[-1] != 3:
+        raise ValueError(f"bgr_to_gray wants uint8 (..., 3), got {img.dtype} "
+                         f"{img.shape}")
+    x = img.astype(np.int32)
+    y = 3735 * x[..., 0] + 19235 * x[..., 1] + 9798 * x[..., 2] + 16384
+    return (y >> 15).astype(np.uint8)
