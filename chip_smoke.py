@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--paths default|green_deeplab]
+    python3 chip_smoke.py [--paths default|green_deeplab|iseg]
 
 The default run reads weights/matting_unet.msgpack and weights/stm.msgpack
 only, so that one copy of the repo holds it (the DeepLab and SCHP seeds
@@ -44,6 +44,16 @@ wall seconds:
   5. run the first 2 frames again on the host (device="cpu", the plain
      versions) and hold the card's alphas to the JAX suite's bound (this
      pipeline and phase 4's are float32: matting_dtype and seg_dtype set);
+  5-eval. the evaluation protocol's device work (`pipeline/evaluate.py:
+     score_pair` and `ops/metrics.py:roi_sad`) on phase 4's alphas,
+     resized to 1080x1920, against their GTs, counts reset just before: K3
+     11 calls a frame (4 launches a call), K2 2 (one launch each); K3
+     bit-exact against plain on CONN's 11 intersections of frame 0; ms a
+     scored frame beside the device time of K3's 11 calls; a 544x960
+     prediction (the resize path) against the pre-resized pair to 1e-6;
+     two components of equal area (the smaller label wins); card against
+     host at 270x480 (2 frames and the tie), every score to 1e-4
+     relative;
   5a. the DeepLab seed (DeepLabV3+ ResNet-50, grid and flip TTA: 12 crops
      of 513x513 at 544x960) at full width with seeded weights: its time in
      float32 and in bfloat16 beside its operation count (counted on the
@@ -137,6 +147,18 @@ wall seconds:
      `main`, then `tools/replace/replace_torch.py` on the store with and
      without `--harmonize`, every artifact written (both PNGs included);
      else one line says why it did not run;
+  11. interactive segmentation on seeded weights: `ISegAgent` at its
+     shipped input_long_side 800 with flip TTA on a 1080p frame, plain and
+     BRS at each insertion point (after_aspp, after_c4, after_deeplab): ms
+     a call, L-BFGS iterations, function evaluations and host syncs; card
+     against host at input_long_side 320 (plain and one-step BRS
+     probabilities within 1e-3 and masks on >= 99.9%, 20-step BRS masks
+     on >= 99%); the MobileNetV2 DeepLab's logits at 513x513, card against
+     host within 1e-4 |want| + 1e-4 max |want|;
+  11a. the app protocol's scenario 3 (`tools/run_app_protocol_torch.py:
+     run_stm_iseg`: STM from weights/stm.msgpack through a hard cut, the
+     seeded ISeg re-seeding it, both scored), counts reset just before:
+     K3 and K4 launched, the scores finite;
   8. train the STM 3 AdamW steps from weights/stm.msgpack at the trainer's
      defaults (batch 8, 128x128, clip_len 3, lr 5e-4) on the port's own
      synthetic clips, counts reset just before: every loss finite, K4, K5
@@ -167,6 +189,13 @@ card (seed masks on >= 99.95% of the pixels, alpha >= 128 masks on
 float32 card against host on 2 frames of 270x480 (work 288x480) within the
 JAX bound, frames/s and the seed's time with the shipped weights. It ends
 with the same JSON lines (the kernels row for K1-K3).
+
+`--paths iseg` reads weights/iseg.msgpack and no other weights file: K2
+(with the roi_sad call) and K3 and K4 against their plain versions, phase
+11 with the shipped weights, the click contract of tests/test_iseg.py:
+64-96 (20 BRS steps at 128), the evaluation phase on the ISeg masks of
+the 8 frames (two clicks a frame) against their GTs, and scenario 3 with
+the shipped ISeg and seeded STM weights. Its kernels row lists K2-K4.
 """
 
 import argparse
@@ -220,6 +249,13 @@ BG_OFFLINE_CHUNK, STAGE2_FRAMES, STAGE2_CHUNK, N_OFFLINE_HOST = 4, 24, 16, 3
 # (the JAX pipelines' host_downscale=False), as when PERF.md's numbers of
 # them were read; the wire phases run bench.py's host resize and I420
 DEV_RESIZE = dict(host_downscale=False)
+EVAL_HOST_HW = (270, 480)   # evaluation card-vs-host pairs: the host's
+                            # plain labels stay short
+ISEG_LONG, ISEG_HOST_LONG = 800, 320   # ISeg: shipped, card vs host
+ISEG_MODES = ("after_aspp", "after_c4", "after_deeplab")
+ISEG_MASK_AGREE = 0.999     # card vs host, plain and one-step BRS masks
+ISEG_BRS20_AGREE = 0.99     # card vs host, 20-step BRS masks
+EVAL_RTOL = 1e-4            # card vs host scores, relative
 
 
 def check(cond, msg):
@@ -2062,6 +2098,312 @@ def schp_phase(frame, stm_weights, matting_weights, rows):
     return counts
 
 
+def scores_close(what, got, want, rtol=EVAL_RTOL):
+    """Five (or more) scores of the card against the host's: |got - want|
+    <= rtol * max(|want|, 1e-6) each; returns the largest relative
+    difference."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-6)
+    check(bool((rel <= rtol).all()), f"{what}: card {got.tolist()} vs host "
+          f"{want.tolist()} (relative {rel.tolist()})")
+    return float(rel.max())
+
+
+def tie_pair(h, w):
+    """Two components of equal area (tests/test_torch_metrics.py's tie,
+    scaled): A, a 2 x 50 bar from the top, ends after B, a 10 x 10 square,
+    so B has the smaller label and wins; A's prediction 100 leaves it at
+    threshold 0.4. Returns (gt, pred, CONN if B wins, CONN if A wins)."""
+    import numpy as np
+    gt = np.zeros((h, w), np.float32)
+    gt[0:50, 5:7] = 255.0
+    gt[10:20, 60:70] = 255.0
+    pred = gt.copy()
+    pred[0:50, 5:7] = 100.0
+    return gt, pred, 100 * (1.0 - 100.0 / 255.0) / 1000.0, 0.07
+
+
+def evaluation_phase(device, alphas, gts, rows):
+    """The evaluation protocol's device work on the green path's alphas
+    against their GTs at 1080x1920 (`pipeline/evaluate.py:score_pair` and
+    `ops/metrics.py:roi_sad`), counts reset just before: K3 11 calls a
+    frame (4 launches a call), K2 2 (one launch each); K3 bit-exact on the
+    thresholded intersections; ms a scored frame beside K3's 11 calls;
+    the resize path (a 544x960 prediction) equal to the pre-resized pair;
+    the equal-area tie; card vs host at 270x480. Returns the kernel
+    counts of the scored frames."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch import runtime
+    from video_unscreen_tpu_torch.ops import kernels
+    from video_unscreen_tpu_torch.ops import metrics as M
+    from video_unscreen_tpu_torch.ops.kernels import connected as kcc
+    from video_unscreen_tpu_torch.pipeline import evaluate
+
+    t0 = time.perf_counter()
+    gt8 = [g.astype(np.uint8) * 255 for g in gts]
+    pred8 = list(runtime.resize_batch(
+        [np.ascontiguousarray(a) for a in alphas], FRAME_HW))
+    dev_pairs = [(torch.from_numpy(g).to(device, torch.float32),
+                  torch.from_numpy(p).to(device, torch.float32))
+                 for g, p in zip(gt8, pred8)]
+
+    def score(g, p):
+        return torch.cat([evaluate.score_pair(g, p),
+                          M.roi_sad(g, p)[None]]).cpu().numpy()
+
+    score(*dev_pairs[0])   # warm-up: cuDNN's plan of the 9x9 correlation
+    torch.cuda.synchronize()
+    (card, secs, counts) = timed_run(
+        lambda: [score(g, p) for g, p in dev_pairs])
+    n = len(dev_pairs)
+    check(counts["flood"] == (11 * n, 44 * n),
+          f"evaluation: K3 (calls, launches) {counts['flood']}, want "
+          f"{(11 * n, 44 * n)}")
+    check(counts["morph"] == (2 * n, 2 * n),
+          f"evaluation: K2 (calls, launches) {counts['morph']}, want "
+          f"{(2 * n, 2 * n)}")
+    check(all(np.isfinite(c).all() for c in card), "evaluation: a score "
+          "is not finite")
+    check(all(0.0 <= c[0] <= 1.0 for c in card), "evaluation: MIOU outside "
+          "[0, 1]")
+    # K3 against its plain version on conn's 11 intersections of frame 0
+    g, p = dev_pairs[0]
+    inters = [((g / 255.0 >= float(t)) & (p / 255.0 >= float(t))).to(
+        torch.float32) for t in M.thresholds()]
+    for i, m in enumerate(inters):
+        for got, want in zip(kcc.connected_components_compact(m),
+                             kcc.cc_plain(m)):
+            check(torch.equal(got, want), f"K3 differs from plain on conn's "
+                  f"threshold {i} intersection at 1080x1920")
+    k3_ms = cuda_ms(lambda: [kcc.connected_components_compact(m)
+                             for m in inters], 5)
+    b, by = bound(11 * FRAME_HW[0] * FRAME_HW[1] * 12,
+                  11 * FRAME_HW[0] * FRAME_HW[1] * 2)
+    rows["flood"]["evaluation"] = dict(
+        calls_per_frame=11, launches_per_call=4, ms_11_calls=k3_ms,
+        bound_ms_11_calls=b, bound_by=by)
+    # the resize path: a 544x960 prediction against the 1080p GT, held to
+    # the same pair resized beforehand
+    small = runtime.resize_batch([pred8[0]], (544, 960))[0]
+    big = torch.from_numpy(runtime.resize_batch([small], FRAME_HW)[0]).to(
+        device, torch.float32)
+    scores_close("evaluation: the resize path",
+                 evaluate.evaluate_pair(gt8[0], small, device),
+                 evaluate.score_pair(dev_pairs[0][0], big).cpu().numpy(),
+                 rtol=1e-6)
+    # the equal-area tie, at 1080x1920
+    tg, tp, b_wins, a_wins = tie_pair(*FRAME_HW)
+    tie = float(M.connectivity_error(torch.from_numpy(tg).to(device),
+                                     torch.from_numpy(tp).to(device)))
+    check(abs(tie - b_wins) < 1e-5 and abs(tie - a_wins) > 5e-3,
+          f"evaluation: the tie's CONN {tie}, want {b_wins}")
+    ms_frame = secs / n * 1e3
+    phase(f"evaluation ({n} frames at {FRAME_HW[0]}x{FRAME_HW[1]})", t0)
+    print(f"  evaluation at {FRAME_HW[0]}x{FRAME_HW[1]}: {ms_frame:.2f} ms a "
+          f"scored frame (MIOU, SAD, MSE, GRAD, CONN and ROI SAD, one fetch), "
+          f"K3's 11 calls {k3_ms:.3f} ms of device time (bound {b:.4f} ms "
+          f"by {by}); mean scores {np.mean(card, axis=0).tolist()}; "
+          f"(calls, launches) {counts}; tie CONN {tie:.6f}", flush=True)
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    worst = 0.0
+    for i in range(N_CPU_FRAMES):
+        g = runtime.resize_batch([gt8[i]], EVAL_HOST_HW)[0]
+        p = runtime.resize_batch([pred8[i]], EVAL_HOST_HW)[0]
+        c = evaluate.evaluate_pair(g, p, "cuda")
+        h_ = evaluate.evaluate_pair(g, p, "cpu")
+        worst = max(worst, scores_close(f"evaluation frame {i}", c, h_))
+    tg, tp, b_wins, _ = tie_pair(*EVAL_HOST_HW)
+    c, h_ = (float(M.connectivity_error(torch.from_numpy(tg).to(d),
+                                        torch.from_numpy(tp).to(d)))
+             for d in (device, "cpu"))
+    worst = max(worst, scores_close("evaluation tie", [c], [h_]))
+    phase(f"evaluation host run ({N_CPU_FRAMES} frames and the tie at "
+          f"{EVAL_HOST_HW[0]}x{EVAL_HOST_HW[1]})", t0)
+    print(f"  evaluation card vs host: scores within {worst:.3g} relative "
+          f"(bound {EVAL_RTOL})", flush=True)
+    return counts, dict(ms_a_frame=ms_frame, k3_11_calls_ms=k3_ms,
+                        card_vs_host_rel=worst)
+
+
+def iseg_scene():
+    """tests/test_iseg.py's BRS scene without cv2: a blue ellipse on
+    bicubic noise, 128x128, and its adversarial clicks (a negative one
+    inside the subject)."""
+    import numpy as np
+    from video_unscreen_tpu_torch.parallel.data_synth import (_fill_ellipse,
+                                                              _resize_cubic)
+    rng = np.random.RandomState(3)
+    bg = _resize_cubic(rng.rand(16, 16, 3).astype(np.float32), 128,
+                       128).clip(0, 1)
+    mask = np.zeros((128, 128), np.float32)
+    _fill_ellipse(mask, (64, 64), (36, 28), 20, 0, 360, 1.0)
+    img = (mask[..., None] * np.array([0.2, 0.5, 0.8], np.float32)
+           + (1 - mask[..., None]) * bg)
+    return (img.clip(0, 1) * 255).astype(np.uint8), [(True, 64, 50),
+                                                      (False, 64, 88)]
+
+
+def timed_probs(agent, img, clicks, use_brs, reps=3):
+    """(probabilities, mean wall ms a call after one warm-up call)."""
+    import torch
+    agent.predict_probs(img, clicks, use_brs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        probs = agent.predict_probs(img, clicks, use_brs)
+    torch.cuda.synchronize()
+    return probs, (time.perf_counter() - t0) / reps * 1e3
+
+
+def iseg_phase(device, weights=None):
+    """ISegAgent at its shipped input_long_side 800 with flip TTA on a 1080p
+    frame: plain, and BRS at each insertion point (ms a call, L-BFGS
+    iterations, evaluations, host syncs); card vs host at
+    input_long_side 320 (plain and one-step BRS probabilities within 1e-3,
+    masks on >= 99.9%; 20-step BRS masks on >= 99%); the MobileNetV2
+    DeepLab's logits card vs host. `weights`: weights/iseg.msgpack, or
+    None for seeded weights. Returns its numbers."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.agents.iseg import ISegAgent
+    from video_unscreen_tpu_torch.models.deeplab import build_deeplab
+    from video_unscreen_tpu_torch.models.precision import empty_module
+    from video_unscreen_tpu_torch.parallel.train_stm import init_flax_like
+
+    t0 = time.perf_counter()
+    label = "shipped" if weights else "seeded"
+    frames, gts = green_clip(1, *FRAME_HW, seed=SEED + 2)
+    img, gt = frames[0], gts[0]
+    ys, xs = np.nonzero(gt)
+    clicks = [(True, int(ys.mean()), int(xs.mean())), (False, 80, 120)]
+    out = {"weights": label}
+    agents = {m: ISegAgent(weights, input_long_side=ISEG_LONG, with_brs=True,
+                           insertion_mode=m, device=device)
+              for m in ISEG_MODES}
+    probs, ms = timed_probs(agents["after_aspp"], img, clicks, False)
+    check(probs.shape == FRAME_HW and np.isfinite(probs).all(),
+          f"ISeg plain probabilities {probs.shape}")
+    out["plain_ms"] = ms
+    print(f"  ISeg ({label} weights) {FRAME_HW[0]}x{FRAME_HW[1]} at "
+          f"input_long_side {ISEG_LONG}, flip TTA: plain {ms:.2f} ms a call; "
+          f"mask IoU with the GT {iou((probs * 255).astype(np.uint8), gt):.4f}",
+          flush=True)
+    for m, agent in agents.items():
+        probs, ms = timed_probs(agent, img, clicks, True, reps=1)
+        check(np.isfinite(probs).all(), f"ISeg BRS {m}: not finite")
+        st = agent.brs_stats
+        check(st["iterations"] == agent.brs_maxiter
+              and st["syncs"] == st["iterations"] + st["linesearch_steps"],
+              f"ISeg BRS {m}: stats {st}")
+        out[f"brs_{m}"] = dict(ms=ms, **st)
+        print(f"  ISeg BRS {m}: {ms:.2f} ms a call; {st['iterations']} "
+              f"L-BFGS iterations, {st['evaluations']} function evaluations, "
+              f"{st['syncs']} host syncs", flush=True)
+    del agents
+    phase(f"ISeg at input_long_side {ISEG_LONG} ({label} weights)", t0)
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    agree = {}
+    for kind, brs, iters in (("plain", False, 1), ("brs1", True, 1),
+                             ("brs20", True, 20)):
+        p = {d: ISegAgent(weights, input_long_side=ISEG_HOST_LONG,
+                          brs_maxiter=iters, device=d).predict_probs(
+                              img, clicks, brs) for d in ("cuda", "cpu")}
+        diff = float(np.abs(p["cuda"] - p["cpu"]).max())
+        same = float(((p["cuda"] > 0.5) == (p["cpu"] > 0.5)).mean())
+        agree[kind] = dict(max_abs_diff=diff, mask_agree=same)
+        if kind == "brs20":
+            check(same >= ISEG_BRS20_AGREE, f"ISeg {kind} card vs host "
+                  f"masks agree on {same}")
+        else:
+            check(diff <= 1e-3 and same >= ISEG_MASK_AGREE,
+                  f"ISeg {kind} card vs host: max |diff| {diff}, masks "
+                  f"agree on {same}")
+    out["card_vs_host"] = agree
+    # the MobileNetV2 DeepLab, seeded, at the seed's 513 crop
+    net = empty_module(lambda: build_deeplab(variant="mobilenet"))
+    init_flax_like(net, torch.Generator().manual_seed(SEED))
+    net.eval()
+    x = torch.from_numpy(np.random.RandomState(SEED).randn(
+        1, 3, 513, 513).astype(np.float32))
+    with torch.no_grad():
+        want = net(x)
+        got = net.to(device)(x.to(device)).cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(bool(((got - want).abs() <= 1e-4 * want.abs()
+                + 1e-4 * scale).all()),
+          f"MobileNetV2 DeepLab card vs host: max |diff| {err} (scale "
+          f"{scale})")
+    out["mobilenet_deeplab"] = dict(max_abs_diff=err, scale=scale)
+    phase(f"ISeg card vs host (input_long_side {ISEG_HOST_LONG}) and the "
+          f"MobileNetV2 DeepLab", t0)
+    print(f"  ISeg card vs host: {agree}; MobileNetV2 DeepLab logits max "
+          f"|diff| {err:.3g} of {scale:.3g}", flush=True)
+    return out
+
+
+def click_contract_phase(weights):
+    """tests/test_iseg.py:64-96 on the card with the shipped weights: the
+    negative click inside the subject is missed by the plain prediction
+    and met after 20 BRS steps, the click-miss loss falls, and the subject
+    around the positive click stays foreground."""
+    import numpy as np
+    from video_unscreen_tpu_torch.agents.iseg import ISegAgent
+    img, clicks = iseg_scene()
+    agent = ISegAgent(weights, input_long_side=128, with_brs=True,
+                      with_flip=False, brs_maxiter=20, device="cuda")
+    p_plain = agent.predict_probs(img, clicks, use_brs=False)
+    p_brs = agent.predict_probs(img, clicks, use_brs=True)
+
+    def miss(p):
+        return (1.0 - p[64, 50]) ** 2 + p[64, 88] ** 2
+
+    mask = agent.forward(img, clicks)
+    print(f"  click contract: plain p(neg) {p_plain[64, 88]:.4f}, BRS "
+          f"p(pos) {p_brs[64, 50]:.4f} p(neg) {p_brs[64, 88]:.4f}, miss "
+          f"loss {miss(p_plain):.4f} -> {miss(p_brs):.4f}, subject kept on "
+          f"{(mask[56:72, 44:58] == 255).mean():.3f}; {agent.brs_stats}",
+          flush=True)
+    check(p_plain[64, 88] > 0.5, "click contract: the plain prediction "
+          "already meets the negative click")
+    check(p_brs[64, 50] > 0.5 and p_brs[64, 88] < 0.5,
+          "click contract: BRS does not meet the clicks")
+    check(miss(p_brs) < miss(p_plain), "click contract: BRS did not lower "
+          "the click-miss loss")
+    check((mask[56:72, 44:58] == 255).mean() > 0.8
+          and set(np.unique(mask)) <= {0, 255},
+          "click contract: the subject around the positive click is lost")
+
+
+def app_protocol_phase(stm_weights, iseg_weights):
+    """Scenario 3 of tools/run_app_protocol_torch.py on the card (STM
+    propagation through a hard cut, ISeg re-seeding, scored), counts reset
+    just before: K4 and K3 launched. Returns its counts."""
+    import importlib.util
+    import numpy as np
+    spec = importlib.util.spec_from_file_location(
+        "run_app_protocol_torch", ROOT / "tools" / "run_app_protocol_torch.py")
+    proto = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(proto)
+    t0 = time.perf_counter()
+    (rows, _), secs, counts = timed_run(
+        proto.run_stm_iseg, "cuda", stm_weights or "none",
+        iseg_weights or "none")
+    phase(f"app protocol scenario 3 (STM {'shipped' if stm_weights else 'seeded'}, "
+          f"ISeg {'shipped' if iseg_weights else 'seeded'})", t0)
+    print(f"  scenario 3: {secs:.2f} s; (calls, launches) {counts}", flush=True)
+    for name, mean, _ in rows:
+        check(np.isfinite(mean).all(), f"scenario 3 {name}: scores {mean}")
+    check_launched(counts, "scenario 3", ("flood", "attention"))
+    return counts
+
+
 def default_paths(device):
     """The default run: every phase but the DeepLab weights; returns
     (kernel counts by path, kernel rows)."""
@@ -2134,6 +2476,8 @@ def default_paths(device):
           f"{frac:.6f}", flush=True)
     check(dmax <= 4 and frac < 1e-3,
           f"card vs host alphas: max {dmax}, frac>1 {frac}")
+    counts["evaluation"], rows["evaluation"] = evaluation_phase(
+        device, alphas, gts, rows)
 
     work = pipe._prep_frames(torch.from_numpy(frames[0][None]).to(device))[0]
     rows["seed"] = seed_phase(work, weights)
@@ -2163,7 +2507,51 @@ def default_paths(device):
     counts.update(replace_and_agents_phase(frames, gts, offline))
     del offline
     bg_offline_disk_phase(stm_weights, weights)
+    rows["iseg"] = iseg_phase(device)
+    counts["app_stm_iseg"] = app_protocol_phase(str(stm_weights), None)
     counts["train"] = train_phases(stm_weights)
+    return counts, rows
+
+
+def iseg_paths(device):
+    """`--paths iseg`: interactive segmentation with the shipped
+    weights/iseg.msgpack (and no other weights file): K2-K4 against their
+    plain versions, the ISeg phase, the click contract, the evaluation of
+    ISeg's masks of the 8 green-screen frames against their GTs, and
+    scenario 3 with seeded STM weights. Returns (kernel counts by path,
+    kernel rows of K2-K4)."""
+    import numpy as np
+    from video_unscreen_tpu_torch.agents.iseg import ISegAgent
+
+    weights = ROOT / "weights" / "iseg.msgpack"
+    check(weights.is_file(), f"the ISeg weights {weights} are missing")
+    t0 = time.perf_counter()
+    rows = morph_phase(device)
+    del rows["trimap"]   # no path of this run calls K1
+    rows.update(kernel_phase(device))
+    bg_kernel_phase(device, rows)
+    phase("kernels vs plain (K2-K4)", t0)
+    rows["iseg"] = iseg_phase(device, str(weights))
+    t0 = time.perf_counter()
+    click_contract_phase(str(weights))
+    phase("click contract (shipped weights, 20 BRS steps)", t0)
+
+    t0 = time.perf_counter()
+    frames, gts = green_clip(N_FRAMES, *FRAME_HW, seed=SEED)
+    agent = ISegAgent(str(weights), input_long_side=ISEG_LONG, device=device)
+    masks = []
+    for f, g in zip(frames, gts):
+        ys, xs = np.nonzero(g)
+        masks.append(agent.forward(f, [(True, int(ys.mean()),
+                                        int(xs.mean())), (False, 80, 120)]))
+    ious = [iou(m, g) for m, g in zip(masks, gts)]
+    phase(f"ISeg masks of {N_FRAMES} frames", t0)
+    print(f"  ISeg masks (two clicks a frame) IoU with the GT: min "
+          f"{min(ious):.4f} mean {np.mean(ious):.4f}", flush=True)
+    counts = {}
+    counts["evaluation"], rows["evaluation"] = evaluation_phase(
+        device, np.stack(masks), gts, rows)
+    counts["app_stm_iseg"] = app_protocol_phase(None, str(weights))
     return counts, rows
 
 
@@ -2282,7 +2670,7 @@ def green_deeplab_paths(device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--paths", choices=("default", "green_deeplab"),
+    ap.add_argument("--paths", choices=("default", "green_deeplab", "iseg"),
                     default="default")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -2318,6 +2706,8 @@ def main(argv=None):
 
     if args.paths == "green_deeplab":
         counts, rows = green_deeplab_paths(device)
+    elif args.paths == "iseg":
+        counts, rows = iseg_paths(device)
     else:
         counts, rows = default_paths(device)
 
@@ -2340,7 +2730,10 @@ def main(argv=None):
                         launches=sum(n["launches"] for n in by_path.values()),
                         calls=sum(n["calls"] for n in by_path.values()),
                         by_path=by_path, **row))
-    print(json.dumps({k: rows[k] for k in ("seed", "schp") if k in rows}))
+        check(out[-1]["launches"] > 0, f"kernel {c.name} was launched on "
+              f"none of the paths")
+    print(json.dumps({k: rows[k] for k in ("seed", "schp", "evaluation",
+                                           "iseg") if k in rows}))
     print(f"total wall seconds: {time.perf_counter() - t_start:.1f}",
           flush=True)
     smi = subprocess.run(

@@ -168,8 +168,15 @@ def test_deeplabv3_forward():
 
 
 def test_mobilenet_variant_raises():
-    with pytest.raises(NotImplementedError, match="item 20"):
-        build_deeplab(variant="mobilenet")
+    """The MobileNetV2 variant has the V3+ head only: asking for the plain
+    V3 head raises, and the V3+ one builds (its logits are held to JAX's
+    in tests/test_torch_iseg.py)."""
+    with pytest.raises(ValueError, match="V3\\+ head only"):
+        build_deeplab(variant="mobilenet", plus=False)
+    x = torch.zeros((1, 3, 33, 47))
+    with torch.no_grad():
+        out = build_deeplab(variant="mobilenet").eval()(x)
+    assert out.shape == (1, 2, 33, 47)
 
 
 def _masks_agree(got, want, score, what):

@@ -1,11 +1,14 @@
 """The PyTorch port stands alone: importing every module of
 `video_unscreen_tpu_torch` (the trainer's `parallel/` modules, the native
-runtime and the streamer, bg_offline, the replacement and the background
-and harmonization agents included) loads no JAX, flax, msgpack, cv2 or
-JAX-package module, `chip_smoke.py`, `tools/train_stm_torch.py` and the
-CLIs `tools/unscreen/{green,bg,bg_offline}_torch.py` and
-`tools/replace/replace_torch.py` import none either, and the entry points
-refuse a missing card instead of quietly running on the host."""
+runtime and the streamer, bg_offline, the replacement, the background
+and harmonization agents, the evaluation, interactive segmentation and
+the MobileNetV2 backbone included) loads no JAX, flax, optax, msgpack, cv2
+or JAX-package module, `chip_smoke.py`, `tools/train_stm_torch.py` and the
+CLIs `tools/unscreen/{green,bg,bg_offline}_torch.py`,
+`tools/replace/replace_torch.py`, `tools/eval_torch.py`,
+`tools/make_eval_set_torch.py` and `tools/run_app_protocol_torch.py`
+import none either, and the entry points refuse a missing card instead of
+quietly running on the host."""
 import ast
 import os
 import subprocess
@@ -18,7 +21,8 @@ import torch
 from tests.torch_port_util import require_cuda  # noqa: F401 (thread cap)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "cv2", "video_unscreen_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "cv2",
+             "video_unscreen_tpu")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -48,7 +52,9 @@ def test_port_imports_nothing_of_jax():
     n_modules, bad = out.stdout.split()[0], out.stdout.strip().split(" ")[1:]
     assert int(n_modules) >= 20, out.stdout
     for name in ("pipeline.bg_offline", "pipeline.replace",
-                 "agents.bgmodel", "agents.harmonization"):
+                 "agents.bgmodel", "agents.harmonization", "ops.metrics",
+                 "pipeline.evaluate", "models.iseg", "models.mobilenetv2",
+                 "agents.iseg", "utils.visualize"):
         assert f"video_unscreen_tpu_torch.{name}" in _PORT_MODULES
     assert bad == [] or bad == [""], f"forbidden modules loaded: {bad}"
 
@@ -92,14 +98,18 @@ def test_port_trainer_imports_nothing_of_jax():
 
 @pytest.mark.parametrize("cli", ["unscreen/green_torch", "unscreen/bg_torch",
                                  "unscreen/bg_offline_torch",
-                                 "replace/replace_torch"])
+                                 "replace/replace_torch", "eval_torch",
+                                 "make_eval_set_torch",
+                                 "run_app_protocol_torch"])
 def test_port_clis_import_nothing_of_jax(cli):
     _loads_nothing_of_jax(f"tools/{cli}.py")
 
 
 def _cli(name):
     import importlib.util
-    folder = "replace" if name.startswith("replace") else "unscreen"
+    folder = ("replace" if name.startswith("replace") else
+              "" if name in ("eval_torch", "run_app_protocol_torch")
+              else "unscreen")
     spec = importlib.util.spec_from_file_location(
         name, ROOT / "tools" / folder / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
@@ -114,7 +124,9 @@ def _cli(name):
                                    "green_cli", "bg_cli", "bg_offline",
                                    "replace", "background_agent",
                                    "harmonization_agent", "bg_offline_cli",
-                                   "replace_cli"])
+                                   "replace_cli", "iseg_agent",
+                                   "evaluate_pair", "eval_run", "eval_cli",
+                                   "app_protocol_cli"])
 def test_entry_points_refuse_missing_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal path does not run")
@@ -168,6 +180,20 @@ def test_entry_points_refuse_missing_cuda(entry, tmp_path):
             BackgroundAgent()
         elif entry == "harmonization_agent":
             HarmonizationAgent()
+        elif entry == "iseg_agent":
+            from video_unscreen_tpu_torch.agents.iseg import ISegAgent
+            ISegAgent()
+        elif entry == "evaluate_pair":
+            from video_unscreen_tpu_torch.pipeline.evaluate import \
+                evaluate_pair
+            evaluate_pair(frames[0][..., 0], frames[0][..., 0])
+        elif entry == "eval_run":
+            from video_unscreen_tpu_torch.pipeline.evaluate import run
+            run({"data": {"meta_fn": str(tmp_path / "none.txt")}})
+        elif entry == "eval_cli":
+            _cli("eval_torch").main(["--data_root", str(tmp_path)])
+        elif entry == "app_protocol_cli":
+            _cli("run_app_protocol_torch").main([])
         else:
             make_stm_train_state()
 

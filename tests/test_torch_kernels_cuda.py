@@ -235,6 +235,71 @@ def test_flood_kernel_hard_masks_full_res(case):
     assert kcc.FLOOD.launches == before + FLOOD_LAUNCHES
 
 
+def _disk_pair(h, w, seed=0):
+    """A soft GT of 300 small disks and a prediction shifted by a pixel and
+    noised, 0..255 float32 with integer values: CONN's intersections are
+    unions of small components, so the plain labels settle in a few dozen
+    steps even on the host."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    gt = np.zeros((h, w), np.float32)
+    for _ in range(300):
+        cy, cx, r = rng.randint(h), rng.randint(w), rng.uniform(4, 14)
+        d = np.sqrt((yy[max(cy - 16, 0):cy + 16, max(cx - 16, 0):cx + 16]
+                     - cy) ** 2
+                    + (xx[max(cy - 16, 0):cy + 16, max(cx - 16, 0):cx + 16]
+                       - cx) ** 2)
+        sl = gt[max(cy - 16, 0):cy + 16, max(cx - 16, 0):cx + 16]
+        np.maximum(sl, np.clip((r - d) * 64.0, 0, 255), out=sl)
+    pred = np.roll(gt, (1, 1), (0, 1)) + rng.randn(h, w).astype(
+        np.float32) * 10.0
+    return np.round(gt), np.clip(np.round(pred), 0, 255)
+
+
+@cuda
+def test_flood_kernel_on_conn_intersections():
+    """K3 at the evaluation's call: CONN's 11 thresholded intersections of
+    a 1080x1920 pair, bit-exact against the plain labels, 4 launches a
+    call."""
+    require_cuda()
+    from video_unscreen_tpu_torch.ops.metrics import thresholds
+    gt, pred = (_dev(a) / 255.0 for a in _disk_pair(1080, 1920))
+    for t in thresholds():
+        m = ((gt >= float(t)) & (pred >= float(t))).to(torch.float32)
+        before = kcc.FLOOD.launches
+        for g, w in zip(kcc.connected_components_compact(m),
+                        kcc.cc_plain(m)):
+            assert_equal(g, w, f"threshold {t}")
+        assert kcc.FLOOD.launches == before + FLOOD_LAUNCHES
+
+
+@cuda
+def test_metrics_card_against_host():
+    """The evaluation's device chain (`pipeline/evaluate.py:score_pair`,
+    and `roi_sad`) on a 1080x1920 pair, card against host: every score
+    within 1e-4 relative (sums in another order; TF32 off); K3 11 calls
+    and K2 2, one launch each for K2."""
+    require_cuda()
+    from video_unscreen_tpu_torch.ops import kernels
+    from video_unscreen_tpu_torch.ops.metrics import roi_sad
+    from video_unscreen_tpu_torch.pipeline.evaluate import score_pair
+    from video_unscreen_tpu_torch.utils.device import resolve_device
+    resolve_device("cuda")   # TF32 off, as the entry points set it
+    gt, pred = _disk_pair(1080, 1920, seed=1)
+    host = torch.cat([score_pair(torch.from_numpy(gt), torch.from_numpy(pred)),
+                      roi_sad(torch.from_numpy(gt),
+                              torch.from_numpy(pred))[None]])
+    kernels.reset_counts()
+    card = torch.cat([score_pair(_dev(gt), _dev(pred)),
+                      roi_sad(_dev(gt), _dev(pred))[None]]).cpu()
+    counts = kernels.counts()
+    assert counts["flood"] == (11, 11 * FLOOD_LAUNCHES)
+    assert counts["morph"] == (2, 2)
+    rel = (card.double() - host.double()).abs() / host.double().abs().clamp_min(
+        1e-6)
+    assert bool((rel <= 1e-4).all()), (card.tolist(), host.tolist())
+
+
 MASKS = ["stm", "all", "all_but_one", "none", "random", "mid_tile",
          "last_key"]
 

@@ -9,7 +9,10 @@ Ported so far: green-screen unscreen as shipped
 (`pipeline/fused_green.py:FusedGreenPipeline`, the DeepLab or chroma
 seed), bg mode as shipped (`pipeline/fused_bg.py:FusedBgPipeline`, the
 SCHP seed and the STM ring bank) and its modular pipeline
-(`pipeline/bg.py:run`), and STM training (`parallel/train_stm.py`).
+(`pipeline/bg.py:run`), bg_offline, the person replacement, STM training
+(`parallel/train_stm.py`), the evaluation protocol
+(`pipeline/evaluate.py`) and interactive segmentation
+(`agents/iseg.py:ISegAgent`, with BRS).
 """
 
 __version__ = "0.1.0"

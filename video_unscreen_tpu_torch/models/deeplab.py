@@ -1,7 +1,8 @@
 """DeepLabV3 / V3+ segmentation nets on the dilated ResNet trunk.
 
 Port of `video_unscreen_tpu/models/deeplab.py` (`ASPPConv`, `ASPP`,
-`DeepLabV3Plus`, `DeepLabV3`, `build_deeplab`), NCHW, inference only
+`DeepLabV3Plus`, `DeepLabV3`, `DeepLabV3PlusMobileNet`, `build_deeplab`),
+NCHW, inference only
 (BatchNorm on its running statistics, dropout the identity). The seed the
 green path ships is deeplabv3plus_resnet50 at output stride 8, ASPP
 dilations (12, 24, 36), 2 classes.
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 
 from ..ops.geometry import resize_nchw
 from .batchnorm import FlaxBatchNorm2d
+from .mobilenetv2 import MobileNetV2Backbone
 from .precision import net_input
 from .resnet import ResNet
 
@@ -143,14 +145,41 @@ class DeepLabV3(nn.Module):
         return resize_nchw(self.cls_out(out), in_hw)
 
 
+class DeepLabV3PlusMobileNet(nn.Module):
+    """deeplabv3plus_mobilenet: the MobileNetV2 backbone's 24-channel
+    low-level feature projected to 48 channels, the ASPP at its
+    320-channel high-level feature, then the V3+ head as in
+    `DeepLabV3Plus`."""
+
+    def __init__(self, num_classes: int = 2, output_stride: int = 8,
+                 aspp_dilations: Sequence[int] = (12, 24, 36)):
+        super().__init__()
+        self.backbone = MobileNetV2Backbone(output_stride)
+        self.project_conv = _conv(24, 48)
+        self.project_bn = FlaxBatchNorm2d(48)
+        self.aspp = ASPP(320, aspp_dilations)
+        self.cls_conv = _conv(48 + 256, 256, 3)
+        self.cls_bn = FlaxBatchNorm2d(256)
+        self.cls_out = nn.Conv2d(256, num_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        in_hw = x.shape[-2:]
+        low, out = self.backbone(net_input(x, self.cls_out.weight.dtype))
+        low = F.relu(self.project_bn(self.project_conv(low)))
+        out = resize_nchw(self.aspp(out), low.shape[-2:])
+        out = F.relu(self.cls_bn(self.cls_conv(torch.cat([low, out], dim=1))))
+        return resize_nchw(self.cls_out(out), in_hw)
+
+
 def build_deeplab(num_classes: int = 2, variant: str = "resnet50",
                   output_stride: int = 8, plus: bool = True) -> nn.Module:
-    """deeplabv3{,plus} over resnet50 or resnet101. The MobileNetV2 variant
-    waits for its backbone (ROADMAP.md, Queue 1, item 20)."""
+    """deeplabv3{,plus} over resnet50 or resnet101, and deeplabv3plus over
+    mobilenet (MobileNetV2)."""
     if variant == "mobilenet":
-        raise NotImplementedError(
-            "the DeepLab MobileNetV2 variant needs models/mobilenetv2.py, "
-            "which is not ported yet (ROADMAP.md, Queue 1, item 20)")
+        if not plus:
+            raise ValueError("the MobileNetV2 variant has the V3+ head only")
+        return DeepLabV3PlusMobileNet(num_classes=num_classes,
+                                      output_stride=output_stride)
     layers = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}[variant]
     cls = DeepLabV3Plus if plus else DeepLabV3
     return cls(num_classes=num_classes, backbone_layers=layers,

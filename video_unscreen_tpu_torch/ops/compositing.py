@@ -1,8 +1,9 @@
 """Compositing math: chroma window, fg un-blend, bg blend-out, Lab color
-correction, foreground gate.
+correction, foreground gate, and the helpers no pipeline calls
+(`composite_fgbg`, `get_mask`, `get_fgbox`, `get_fg_naive`,
+`get_fg_with_colorremove`).
 
-Port of the green and bg paths' part of
-`video_unscreen_tpu/ops/compositing.py`.
+Port of `video_unscreen_tpu/ops/compositing.py`.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Sequence
 
 import torch
 
-from .color import bgr2hsv, bgr2lab, hsv2bgr
+from .color import bgr2gray, bgr2hsv, bgr2lab, hsv2bgr
 from .geometry import get_target_size, resize
 
 
@@ -43,6 +44,20 @@ def get_fg(img: torch.Tensor, alpha: torch.Tensor,
     bg_hsv = bgr2hsv(bg)
     a = (alpha / 255.0)[..., None]
     return hsv2bgr(torch.clamp(img_hsv - (1.0 - a) * bg_hsv, 0.0, 255.0))
+
+
+def get_fg_naive(img: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """fg = alpha * img."""
+    return img * (alpha / 255.0)[..., None]
+
+
+def get_fg_with_colorremove(img: torch.Tensor, alpha: torch.Tensor,
+                            bg: torch.Tensor,
+                            winsize: Sequence[int] = (10, 100, 120)
+                            ) -> torch.Tensor:
+    """`get_fg` with the alpha zeroed inside the chroma window of `bg`."""
+    alpha = torch.where(is_pixel_inrange(img, bg, winsize), 0.0, alpha)
+    return get_fg(img, alpha, bg)
 
 
 def get_bg(alpha: torch.Tensor, bg: torch.Tensor) -> torch.Tensor:
@@ -98,3 +113,54 @@ def color_correct(img: torch.Tensor, alpha: torch.Tensor,
         dist = torch.where(go, torch.sqrt(dist), dist)
     dist = torch.where(alpha_s == 0, 0.0, dist)
     return alpha * resize(dist, (h, w), method="nearest")
+
+
+def composite_fgbg(fg: torch.Tensor, alpha: torch.Tensor, bg: torch.Tensor,
+                   extend: bool = False) -> torch.Tensor:
+    """fg (alpha-premultiplied, 0..255) over the centre of `bg` resized to
+    cover it, alphas above 0.9 taken as 1; with `extend`, the composite
+    pasted back into the whole resized background."""
+    fg_h, fg_w = fg.shape[:2]
+    bg_h, bg_w = bg.shape[:2]
+    if float(fg_h) / fg_w > float(bg_h) / bg_w:
+        new_bg_h = fg_h
+        new_bg_w = int(float(bg_w) * new_bg_h / bg_h)
+    else:
+        new_bg_w = fg_w
+        new_bg_h = int(float(bg_h) * new_bg_w / bg_w)
+    bg_r = resize(bg, (new_bg_h, new_bg_w))
+    # the start of `jax.lax.dynamic_slice`, clamped to keep the window in
+    left = min(max(new_bg_w // 2 - fg_w // 2, 0), new_bg_w - fg_w)
+    top = min(max(new_bg_h // 2 - fg_h // 2, 0), new_bg_h - fg_h)
+    bg_roi = bg_r[top:top + fg_h, left:left + fg_w]
+    a = alpha / 255.0
+    a = torch.where(a > 0.9, 1.0, a)[..., None]
+    comp = torch.clamp(fg + bg_roi * (1.0 - a), 0.0, 255.0)
+    if extend:
+        out = bg_r.clone()
+        out[top:top + fg_h, left:left + fg_w] = comp
+        return out
+    return comp
+
+
+def get_mask(img: torch.Tensor):
+    """(mask 0/255 (H, W, 1), mask 0/1 (H, W, 1)): gray > 25."""
+    thresh = torch.where(bgr2gray(img) > 25.0, 255.0, 0.0)
+    return thresh[..., None], (thresh / 255.0)[..., None]
+
+
+def get_fgbox(fgmask: torch.Tensor, padsize: int = 5):
+    """(top, bottom, left, right) 0-d tensors: the rows and columns of the
+    foreground, padded by `padsize` and clamped to the image (top h and
+    bottom -1, before the padding, when there is no foreground)."""
+    h, w = fgmask.shape
+    rows = (fgmask > 0).any(dim=1)
+    cols = (fgmask > 0).any(dim=0)
+    ridx = torch.arange(h, device=fgmask.device)
+    cidx = torch.arange(w, device=fgmask.device)
+    top = torch.where(rows, ridx, h).min()
+    bottom = torch.where(rows, ridx, -1).max()
+    left = torch.where(cols, cidx, w).min()
+    right = torch.where(cols, cidx, -1).max()
+    return ((top - padsize).clamp_min(0), (bottom + padsize).clamp_max(h),
+            (left - padsize).clamp_min(0), (right + padsize).clamp_max(w))

@@ -2,7 +2,7 @@
 and `chip_smoke.py`.
 
 `MORPH_CALLS` lists every K1 and K2 call the green, bg, fused bg,
-bg_offline, background-model and training paths make. The hard masks
+bg_offline, background-model, training and evaluation paths make. The hard masks
 break iterated morphology at the image's border: all 255 and all 0 (the
 fill must neither grow nor erode the border), one hot pixel at each
 corner, a 1-pixel line along each edge, and a checkerboard (every cell
@@ -49,6 +49,8 @@ MORPH_CALLS = (
      "get_outer_boundary)", (303, 540), "ellipse7", 10, 8),
     ("morph", "BackgroundAgent rf regionfill perimeter "
      "(ops/regionfill.py:65)", (151, 270), "cross3", 1, 8),
+    ("morph", "evaluation roi_sad boundary band, dilate and erode "
+     "(ops/metrics.py:roi_sad)", (1080, 1920), "ellipse5", 10, 8),
 )
 
 MORPH_HARD_MASKS = ("full", "empty", "corners", "edges", "checkerboard")

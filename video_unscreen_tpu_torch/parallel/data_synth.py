@@ -1,26 +1,37 @@
-"""Synthetic training figures without cv2: the part of
-`video_unscreen_tpu/parallel/data_synth.py` that STM training reaches.
+"""Synthetic figures and clips without cv2: the part of
+`video_unscreen_tpu/parallel/data_synth.py` that STM training and the
+evaluation reach (`draw_person`, `make_nongreen_clip`,
+`render_soft_person`, `make_eval_clip` in every variant,
+`make_multishot_clip`; `make_batch` waits for the trainers).
 
-`_smooth_noise`, `_random_alpha` and `draw_person` draw from the
-`np.random.RandomState` in exactly the order the JAX package's do; no cv2
-call there consumes the generator, so one seed gives the same figures and
-only the rasterization differs. The cv2 calls are replaced by numpy:
+The figures draw from the `np.random.RandomState` in exactly the order the
+JAX package's do; no cv2 call there consumes the generator, so one seed
+gives the same figures and only the rasterization differs. The cv2 calls
+are replaced by numpy, bit-equal to the cv2 the JAX package runs with
+where a test says so:
 
 - `cv2.resize(..., INTER_CUBIC)` by `_resize_cubic` (cv2's float path:
-  Keys' cubic with a = -0.75, half-pixel centres, edge pixels repeated);
+  Keys' cubic with a = -0.75, half-pixel centres, edge pixels repeated;
+  to float32 rounding);
+- `cv2.resize(..., INTER_AREA)` at the integer supersample by
+  `_resize_area` (its block sums in cv2's order);
 - `cv2.GaussianBlur(a, (k, k), 0)` by `_gaussian_blur` (cv2's fixed
-  kernels for k = 3, 5, 7 with sigma 0, borders reflected without the edge
-  pixel, cv2's BORDER_REFLECT_101);
+  kernels for k = 3, 5, 7, borders BORDER_REFLECT_101), and with a sigma
+  by `_gaussian_blur_sigma`; `cv2.filter2D` with a 1 x k kernel by
+  `_correlate_rows` (cv2's fused multiply-adds, its scalar tail without);
 - `cv2.circle` (filled) by `_fill_circle`: the pixels within the radius,
   as cv2 fills them;
-- `cv2.ellipse` (filled) and `cv2.line` (thick) by cv2's own algorithms
-  (`ellipse2Poly`, `ThickLine`, `FillConvexPoly` and `Line2` of
-  drawing.cpp, in 16-bit fixed point), written in Python. They give cv2's
-  pixels but for a boundary pixel where a segment leaves the image (cv2
-  clips it first) and for the arc of the hair cap, which cv2 fills with
-  its general polygon filler and this with the convex one.
+- `cv2.ellipse` (filled), `cv2.line` and `cv2.polylines` by cv2's own
+  algorithms (`ellipse2Poly`, `ThickLine`, `FillConvexPoly`, `Line2`,
+  `clipLine` and `LineIterator` of drawing.cpp, in 16-bit fixed point),
+  written in Python. They give cv2's pixels but for boundary pixels where
+  a thick segment leaves the image and for the arc of the hair cap, which
+  cv2 fills with its general polygon filler and this with the convex one.
 - the integer-translation `cv2.warpAffine` of `train_stm.py` by
-  `translate` (an exact shift, zeros shifted in).
+  `translate` (an exact shift, zeros shifted in), and the float one of
+  the multi-shot clip by `_warp_translate` (cv2's float32 bilinear);
+- the JPEG round trip of the "jpeg" variant by the port's codec
+  (`runtime`, libjpeg, which the card's machine lacks).
 """
 
 from __future__ import annotations
@@ -82,6 +93,144 @@ def _gaussian_blur(img: np.ndarray, k: int) -> np.ndarray:
     return out
 
 
+def _resize_area(src: np.ndarray, ss: int) -> np.ndarray:
+    """cv2.resize(src, (w // ss, h // ss), interpolation=INTER_AREA) of a
+    float32 (h, w[, C]) image, h and w multiples of `ss`: cv2's integer
+    area path, each output the float32 sum of its ss x ss block taken row
+    by row in groups of four (its unrolled loop), times 1 / ss^2."""
+    h, w = src.shape[:2]
+    blocks = src.astype(np.float32).reshape(h // ss, ss, w // ss, ss,
+                                            *src.shape[2:])
+    terms = [blocks[:, i, :, j] for i in range(ss) for j in range(ss)]
+    total = np.zeros_like(terms[0])
+    for k in range(0, len(terms) - 3, 4):
+        total = total + (((terms[k] + terms[k + 1]) + terms[k + 2])
+                         + terms[k + 3])
+    for t in terms[len(terms) - len(terms) % 4:]:
+        total = total + t
+    return (total * np.float32(1.0 / (ss * ss))).astype(np.float32)
+
+
+def _fma32(a, b, c):
+    """float32 fused multiply-add, a * b + c rounded once (the product of
+    two float32 is exact in float64)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _reflect101(n: int, r: int) -> np.ndarray:
+    """Source indices of a row of n padded by r each side, cv2's
+    BORDER_REFLECT_101."""
+    i = np.arange(-r, n + r)
+    i = np.abs(i)
+    return np.where(i >= n, 2 * (n - 1) - i, i)
+
+
+# cv2's SIMD width in float32 lanes (AVX2): the elements of a row past the
+# last whole vector are summed by its scalar loop, without fused
+# multiply-adds
+_LANES = 8
+
+
+def _correlate_rows(img: np.ndarray, kern: np.ndarray,
+                    symmetric: bool = False,
+                    tail_axis: int = 1) -> np.ndarray:
+    """Correlation of each row of an (h, w[, C]) float32 image with a 1-D
+    kernel centred on its middle tap, BORDER_REFLECT_101, in float32 as
+    the cv2 the JAX package runs with sums it: tap by tap from the first
+    (cv2.filter2D, and sepFilter2D's row pass), or, `symmetric`, the
+    centre tap's product first and then each pair of mirrored pixels,
+    added in float32, times its tap (sepFilter2D's column pass with a
+    symmetric kernel). Its vector loop fuses each multiply-add; the
+    elements past the last whole vector of `_LANES` along `tail_axis` (a
+    row's w x C values, or, for a column pass run on the transpose, its
+    columns) take its scalar loop, which does not."""
+    r = len(kern) // 2
+    src = img.astype(np.float32)[:, _reflect101(img.shape[1], r)]
+    w = img.shape[1]
+    kern = np.asarray(kern, np.float32)
+    if symmetric:
+        taps = [(kern[r + i], src[:, r - i:r - i + w]
+                 + src[:, r + i:r + i + w]) for i in range(1, r + 1)]
+        first = kern[r] * src[:, r:r + w]
+    else:
+        taps = [(kern[i], src[:, i:i + w]) for i in range(1, len(kern))]
+        first = kern[0] * src[:, 0:w]
+    fused, plain = first, first
+    for k, x in taps:
+        fused = _fma32(k, x, fused)
+        plain = plain + k * x
+    n = img.shape[tail_axis] * (int(np.prod(img.shape[2:]))
+                                if tail_axis == 1 else 1)
+    tail = np.zeros(n, bool)
+    tail[n // _LANES * _LANES:] = True
+    if tail_axis == 1:
+        tail = tail.reshape((1,) + img.shape[1:])
+    else:
+        tail = tail.reshape((-1,) + (1,) * (img.ndim - 1))
+    return np.where(tail, plain, fused)
+
+
+def _gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
+    """cv2.getGaussianKernel(ksize, sigma, CV_32F) for sigma > 0: the taps
+    in float64, normalized, then cast to float32."""
+    x = np.arange(ksize) - (ksize - 1) * 0.5
+    t = np.exp(-0.5 / (sigma * sigma) * x * x)
+    return (t * (1.0 / t.sum())).astype(np.float32)
+
+
+def _gaussian_blur_sigma(img: np.ndarray, sigma: float) -> np.ndarray:
+    """cv2.GaussianBlur(img, (0, 0), sigma) of a 2-D float32 image: the
+    kernel size cv2 picks for float32 (round(8 sigma + 1), made odd),
+    rows, then columns with the kernel's symmetry, BORDER_REFLECT_101."""
+    ksize = int(np.rint(sigma * 4 * 2 + 1)) | 1
+    kern = _gaussian_kernel(ksize, sigma)
+    rows = _correlate_rows(img, kern)
+    return _correlate_rows(rows.T, kern, symmetric=True,
+                           tail_axis=0).T.copy()
+
+
+def _warp_translate(src: np.ndarray, tx: float, ty: float) -> np.ndarray:
+    """cv2.warpAffine(src, [[1, 0, tx], [0, 1, ty]], (w, h)) of a 2-D
+    float32 image, INTER_LINEAR, zero outside, as the cv2 the JAX package
+    runs with computes it for float images: each source coordinate x - tx
+    in float32 (the inverse matrix cast to float32), its fraction f = s -
+    floor(s), and two lerps a + f (b - a) as fused multiply-adds, along x
+    and then along y (bit-equal to it; OpenCV 4's 1/32-pixel table is not
+    used for float32 here)."""
+    h, w = src.shape
+    inv_t = (np.float32(-tx), np.float32(-ty))
+    sx = np.arange(w, dtype=np.float32) + inv_t[0]
+    sy = np.arange(h, dtype=np.float32) + inv_t[1]
+    x0, y0 = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
+    fx = (sx - x0.astype(np.float32))[None, :]
+    fy = (sy - y0.astype(np.float32))[:, None]
+    pad = np.zeros((h + 2, w + 2), np.float32)   # one ring of zeros
+    pad[1:-1, 1:-1] = src
+
+    def tap(dy, dx):
+        return pad[np.clip(y0 + dy + 1, 0, h + 1)[:, None],
+                   np.clip(x0 + dx + 1, 0, w + 1)[None, :]]
+
+    v00, v01, v10, v11 = tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
+    top = _fma32(fx, v01 - v00, v00)
+    bottom = _fma32(fx, v11 - v10, v10)
+    return _fma32(fy, bottom - top, top)
+
+
+def _jpeg_roundtrip(frame: np.ndarray, quality: int) -> np.ndarray:
+    """cv2.imdecode(cv2.imencode(".jpg", frame, quality)) through the
+    port's codec (libjpeg, as cv2's: a machine without it raises)."""
+    import os.path as osp
+    import tempfile
+
+    from .. import runtime
+    with tempfile.TemporaryDirectory() as tmp:
+        path = osp.join(tmp, "frame.jpg")
+        runtime.encode_batch([path], frame[None], quality=quality, threads=1)
+        return runtime.decode_batch([path], threads=1)[0]
+
+
 # -- rasterization: cv2's drawing.cpp, in 16-bit fixed point --------------
 _SHIFT = 16
 _ONE = 1 << _SHIFT
@@ -99,6 +248,37 @@ def _put(img: np.ndarray, pts, val) -> None:
     for x, y in pts:
         if 0 <= x < w and 0 <= y < h:
             img[y, x] = val
+
+
+def _clip_line(w: int, h: int, p1: Point, p2: Point):
+    """cv2's `clipLine` to a w x h image: (p1, p2) clipped, or None when
+    the segment misses it."""
+    (x1, y1), (x2, y2) = p1, p2
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1, c1 = a, (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2, c2 = a, (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return None if c1 | c2 else ((x1, y1), (x2, y2))
 
 
 def _line_fixed(img: np.ndarray, p1, p2, val) -> None:
@@ -229,11 +409,47 @@ def _fill_ellipse(img: np.ndarray, center: Point, axes: Point, angle: int,
     _fill_convex(img, pts, val)
 
 
+def _line8(img: np.ndarray, p1: Point, p2: Point, val) -> None:
+    """cv2.line(img, p1, p2, val) at thickness 1 (`Line`, LINE_8): the
+    segment clipped to the image, then `LineIterator`'s Bresenham walk
+    from its left end."""
+    h, w = img.shape[:2]
+    clipped = _clip_line(w, h, p1, p2)
+    if clipped is None:
+        return
+    (x1, y1), (x2, y2) = clipped
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy, sy = x2 - x1, y2 - y1, 1
+    if dy < 0:
+        dy, sy = -dy, -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err, x, y = dx - (dy + dy), x1, y1
+    pts = []
+    for _ in range(dx + 1):
+        pts.append((x, y))
+        step = err < 0
+        err += -(dy + dy) + ((dx + dx) if step else 0)
+        if vert:
+            y += sy
+            x += 1 if step else 0
+        else:
+            x += 1
+            y += sy if step else 0
+    _put(img, pts, val)
+
+
 def _thick_line(img: np.ndarray, p0: Point, p1: Point, val,
-                thickness: int) -> None:
-    """cv2.line(img, p0, p1, val, thickness) for thickness > 1: cv2's
-    `ThickLine`, a quad of half-width ceil(thickness / 2) and round caps
-    of that radius."""
+                thickness: int, caps=(True, True)) -> None:
+    """cv2's `ThickLine` (integer ends): for thickness > 1 a quad of
+    half-width ceil(thickness / 2) and, where `caps` says, round caps of
+    that radius (cv2.line caps both ends; cv2.polylines the first
+    segment's both and each later one's end); for thickness 1 `_line8`."""
+    if thickness <= 1:
+        _line8(img, p0, p1, val)
+        return
     x0, y0 = p0[0] << _SHIFT, p0[1] << _SHIFT
     x1, y1 = p1[0] << _SHIFT, p1[1] << _SHIFT
     dx, dy = (x0 - x1) / _ONE, (y1 - y0) / _ONE
@@ -245,8 +461,17 @@ def _thick_line(img: np.ndarray, p0: Point, p1: Point, val,
         _fill_convex(img, [(x0 + ex, y0 + ey), (x0 - ex, y0 - ey),
                            (x1 - ex, y1 - ey), (x1 + ex, y1 + ey)], val)
     radius = (half + _HALF) >> _SHIFT
-    _fill_circle(img, p0, radius, val)
-    _fill_circle(img, p1, radius, val)
+    for end, cap in zip((p0, p1), caps):
+        if cap:
+            _fill_circle(img, end, radius, val)
+
+
+def _polyline(img: np.ndarray, pts, val, thickness: int) -> None:
+    """cv2.polylines(img, [pts], False, val, thickness): `ThickLine` along
+    each segment, the first with both caps, later ones with their end's."""
+    for i in range(1, len(pts)):
+        _thick_line(img, tuple(pts[i - 1]), tuple(pts[i]), val, thickness,
+                    (i == 1, True))
 
 
 def translate(img: np.ndarray, tx: int, ty: int) -> np.ndarray:
@@ -288,12 +513,9 @@ def draw_person(rng: np.random.RandomState, h: int, w: int,
                 avoid_green: bool = False):
     """Articulated person-shaped figure with LIP part labels: (img (h, w, 3)
     float32 BGR 0..1, parts (h, w) int32 LIP classes). The JAX package's
-    `draw_person`, draw for draw; `hair_strands` (used only by the eval-clip
-    makers, not ported) raises."""
-    if hair_strands:
-        raise NotImplementedError(
-            "hair_strands belongs to the eval-clip makers, not ported yet "
-            "(ROADMAP.md, Queue 1 item 21)")
+    `draw_person`, draw for draw; `hair_strands` adds the thin polyline
+    wisps off the hair cap that the eval-clip makers render (soft
+    sub-pixel boundaries once downsampled)."""
     parts = np.zeros((h, w), np.int32)
     s = (scale if scale is not None
          else rng.uniform(0.35, 0.9)) * h  # body height in px
@@ -340,6 +562,21 @@ def draw_person(rng: np.random.RandomState, h: int, w: int,
     _fill_circle(parts, head_c, hr, LIP_FACE)
     _fill_ellipse(parts, (head_c[0], head_c[1] - int(0.35 * hr)),
                   (int(1.05 * hr), hr), 0, 180, 360, LIP_HAIR)
+    if hair_strands:
+        # thin wisps off the cap
+        for _ in range(rng.randint(10, 22)):
+            ang = rng.uniform(-2.6, -0.5)  # upward-ish fan
+            x0 = head_c[0] + int(np.cos(ang) * hr * 0.9)
+            y0s = head_c[1] + int(np.sin(ang) * hr * 0.9)
+            pts = [(x0, y0s)]
+            vx, vy = np.cos(ang), np.sin(ang)
+            for _seg in range(3):
+                vx += rng.uniform(-0.4, 0.4)
+                vy += rng.uniform(-0.2, 0.4)  # droop
+                step = rng.uniform(0.2, 0.55) * hr
+                pts.append((int(pts[-1][0] + vx * step),
+                            int(pts[-1][1] + vy * step)))
+            _polyline(parts, pts, LIP_HAIR, max(int(0.012 * s), 1))
 
     # paint: per-part base color x smooth texture
     img = np.zeros((h, w, 3), np.float32)
@@ -368,3 +605,179 @@ def draw_person(rng: np.random.RandomState, h: int, w: int,
         img[sel] = np.asarray(col, np.float32)
     img = (img * tex).clip(0, 1)
     return img, parts
+
+
+def make_nongreen_clip(n=5, h=96, w=128, seed=0, person_scale=0.7,
+                       walk=False):
+    """Synthetic non-green clip: a person (walking, with `walk`, a phase a
+    frame) over a textured, gradient-lit natural background, moved 2 px a
+    frame. Returns (frames uint8 BGR list, GT alphas uint8 list, part
+    maps list)."""
+    rng = np.random.RandomState(seed)
+    bg = (_smooth_noise(rng, h, w, scale=max(h // 6, 1)) * 0.85
+          + _smooth_noise(rng, h, w, scale=max(h // 24, 1)) * 0.15)
+    gy = np.linspace(0.75, 1.15, h, dtype=np.float32)[:, None, None]
+    bg = (bg * gy).clip(0, 1)
+    frames, gts, parts_list = [], [], []
+    state = rng.get_state()
+    for t in range(n):
+        rng.set_state(state)  # the same person each frame...
+        phase = (2.0 * np.pi * t / 8.0) if walk else None
+        person, parts = draw_person(rng, h, w, scale=person_scale,
+                                    phase=phase)
+        shift = int(round(2.0 * t))  # ...moved across the frames
+        person = np.roll(person, shift, axis=1)
+        parts = np.roll(parts, shift, axis=1)
+        alpha = (parts > 0).astype(np.float32)
+        img = alpha[..., None] * person + (1 - alpha[..., None]) * bg
+        img = img + np.random.RandomState(seed + 100 + t).randn(
+            h, w, 3).astype(np.float32) * 0.015
+        frames.append((img.clip(0, 1) * 255).astype(np.uint8))
+        gts.append((alpha * 255).astype(np.uint8))
+        parts_list.append(parts)
+    return frames, gts, parts_list
+
+
+def render_soft_person(rng: np.random.RandomState, h: int, w: int,
+                       ss: int = 4, **kw):
+    """A person drawn at `ss` times the size, with hair wisps, and
+    area-downsampled: the hard part labels become a soft alpha with
+    sub-pixel boundaries. Returns (img (h, w, 3), alpha (h, w)) float32."""
+    img_hi, parts_hi = draw_person(rng, h * ss, w * ss,
+                                   hair_strands=True, **kw)
+    alpha_hi = (parts_hi > 0).astype(np.float32)
+    return _resize_area(img_hi, ss), _resize_area(alpha_hi, ss)
+
+
+EVAL_VARIANTS = ("plain", "motion_blur", "shadow", "jpeg", "occluder",
+                 "two_person")
+
+
+def make_eval_clip(kind: str = "green", n: int = 12, h: int = 288,
+                   w: int = 512, seed: int = 0, ss: int = 4,
+                   variant: str = "plain"):
+    """Evaluation clip: a walking person with soft hair-wisp boundaries
+    over a gradient-lit green screen ("green") or a textured natural
+    background ("natural"). `variant` adds a degradation of real footage:
+    "motion_blur" (the person layer blurred along its displacement),
+    "shadow" (a soft offset shadow on the background), "jpeg" (the
+    composite through JPEG at quality 40-60), "occluder" (a static pillar
+    in front, cut out of the GT) or "two_person" (a second, smaller
+    walker behind, in counter-phase; the GT is the union). Returns (frames
+    uint8 BGR list, GT soft alphas uint8 list)."""
+    if variant not in EVAL_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: {EVAL_VARIANTS}")
+    rng = np.random.RandomState(seed)
+    gy = np.linspace(rng.uniform(0.75, 0.95), rng.uniform(1.0, 1.2), h,
+                     dtype=np.float32)[:, None, None]
+    if kind == "green":
+        bg = np.zeros((h, w, 3), np.float32)
+        bg[...] = (rng.uniform(0.1, 0.3), rng.uniform(0.55, 0.8),
+                   rng.uniform(0.15, 0.35))
+        bg += _smooth_noise(rng, h, w, 16) * 0.08
+    else:
+        # two octaves: coarse structure and mild fine detail
+        bg = (_smooth_noise(rng, h, w, scale=max(h // 6, 1)) * 0.85
+              + _smooth_noise(rng, h, w, scale=max(h // 24, 1)) * 0.15)
+    bg = (bg * gy).clip(0, 1)
+    scale = rng.uniform(0.55, 0.8)
+    state = rng.get_state()
+
+    if variant == "occluder":
+        # a static pillar in the walker's path, never green
+        px0 = int(w * rng.uniform(0.45, 0.55))
+        pw = int(w * rng.uniform(0.05, 0.09))
+        pillar_mask = np.zeros((h, w), np.float32)
+        pillar_mask[:, px0:px0 + pw] = 1.0
+        pillar_color = np.array([rng.uniform(0.3, 0.6),
+                                 rng.uniform(0.1, 0.25),
+                                 rng.uniform(0.3, 0.6)], np.float32)
+        pillar = (pillar_color[None, None]
+                  * (0.8 + 0.4 * _smooth_noise(rng, h, w, 12)))
+    if variant == "two_person":
+        scale2 = scale * rng.uniform(0.55, 0.75)
+        seed2 = rng.randint(1 << 31)
+    jpeg_q = int(rng.uniform(40, 60))
+
+    frames, gts = [], []
+    prev_cx = None
+    for t in range(n):
+        rng.set_state(state)  # the same body, another pose and place
+        cxf = 0.32 + 0.36 * t / max(n - 1, 1)
+        img, alpha = render_soft_person(rng, h, w, ss=ss, scale=scale,
+                                        phase=2.0 * np.pi * t / 8.0,
+                                        cx_frac=cxf,
+                                        avoid_green=(kind == "green"))
+        if variant == "motion_blur":
+            # a box blur along the displacement since the last frame
+            dx = 0 if prev_cx is None else int(round((cxf - prev_cx) * w))
+            ksz = min(max(abs(dx), 1), max(w // 40, 3)) * 2 + 1
+            kern = np.full(ksz, 1.0 / ksz, np.float32)
+            img = _correlate_rows(img, kern)
+            alpha = _correlate_rows(alpha, kern)
+            prev_cx = cxf
+        if variant == "two_person":
+            rng2 = np.random.RandomState(seed2)
+            cxf2 = 0.72 - 0.3 * t / max(n - 1, 1)  # walks the other way
+            img2, alpha2 = render_soft_person(
+                rng2, h, w, ss=ss, scale=scale2,
+                phase=np.pi + 2.0 * np.pi * t / 8.0, cx_frac=cxf2,
+                avoid_green=(kind == "green"))
+            # person 1 in front of person 2
+            img = (alpha[..., None] * img
+                   + (1 - alpha[..., None]) * alpha2[..., None] * img2)
+            alpha = np.maximum(alpha, alpha2)
+        comp_bg = bg
+        if variant == "shadow":
+            sh = np.roll(alpha, (int(0.04 * h), int(0.06 * w)), (0, 1))
+            sh = _gaussian_blur_sigma(sh, max(h / 72.0, 1.0))
+            comp_bg = bg * (1.0 - 0.45 * sh[..., None])
+        comp = alpha[..., None] * img + (1 - alpha[..., None]) * comp_bg
+        if variant == "occluder":
+            comp = (pillar_mask[..., None] * pillar
+                    + (1 - pillar_mask[..., None]) * comp)
+            alpha = alpha * (1.0 - pillar_mask)
+        comp = comp + np.random.RandomState(seed + 500 + t).randn(
+            h, w, 3).astype(np.float32) * 0.01
+        frame = (comp.clip(0, 1) * 255).astype(np.uint8)
+        if variant == "jpeg":
+            frame = _jpeg_roundtrip(frame, jpeg_q)
+        frames.append(frame)
+        gts.append((alpha * 255).astype(np.uint8))
+    return frames, gts
+
+
+def make_multishot_clip(n_shots: int = 2, frames_per_shot: int = 8,
+                        h: int = 128, w: int = 128, seed: int = 5):
+    """Multi-shot clip for the STM propagation and ISeg correction
+    protocol: in each shot a flat-colour ellipse drifts over its own
+    textured background, and a hard cut (a new background, subject and
+    place) separates the shots. Returns (frames uint8 BGR, GT masks uint8
+    {0, 255}, the indices where a shot after the first begins)."""
+    frames, masks, cuts = [], [], []
+    for s in range(n_shots):
+        rng = np.random.RandomState(seed + 37 * s)
+        small = rng.rand(16, 16, 3).astype(np.float32)
+        bg = _resize_cubic(small, h, w).clip(0, 1)
+        fg_color = rng.uniform(0.2, 0.8, 3).astype(np.float32)
+        cx = int(rng.uniform(0.25, 0.75) * w)
+        cy = int(rng.uniform(0.35, 0.65) * h)
+        ax = int(rng.uniform(0.12, 0.2) * w)
+        ay = int(rng.uniform(0.18, 0.28) * h)
+        ang = rng.uniform(0, 180)
+        vx, vy = rng.uniform(1.5, 3.5), rng.uniform(0.5, 2.0)
+        base = np.zeros((h, w), np.float32)
+        # cv2.ellipse rounds its angle to whole degrees
+        _fill_ellipse(base, (cx, cy), (ax, ay), int(np.rint(ang)), 0, 360,
+                      1.0)
+        if s > 0:
+            cuts.append(len(frames))
+        for t in range(frames_per_shot):
+            alpha = _warp_translate(base, float(np.float32(vx * t)),
+                                    float(np.float32(vy * t)))
+            img = (alpha[..., None] * fg_color
+                   + (1 - alpha[..., None]) * bg)
+            img += rng.randn(h, w, 3).astype(np.float32) * 0.02
+            frames.append((img.clip(0, 1) * 255).astype(np.uint8))
+            masks.append((alpha > 0.5).astype(np.uint8) * 255)
+    return frames, masks, cuts

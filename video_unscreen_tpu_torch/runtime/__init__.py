@@ -2,7 +2,9 @@
 
 - `loader.cpp`, the JPEG codec (the port's own copy of the JAX package's
   `runtime/loader.cpp`, linked against libjpeg-turbo for its BGR output):
-  `probe`, `decode_batch`, `encode_batch` (BGR, or gray for 2-D images).
+  `probe`, `decode_batch`, `decode_gray_batch` (libjpeg's grayscale
+  output, as cv2's IMREAD_GRAYSCALE), `encode_batch` (BGR, or gray for
+  2-D images).
 - `hostprep.cpp`, host frame preparation without OpenCV or libjpeg:
   `resize_batch` (bit-equal to `cv2.resize(..., INTER_LINEAR)` on uint8),
   `bgr_to_i420_batch` (bit-equal to `cv2.cvtColor(...,
@@ -101,6 +103,8 @@ def _codec() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build(_HERE / "loader.cpp", ("-ljpeg",))))
         lib.vu_decode_batch.restype = _I
         lib.vu_decode_batch.argtypes = [_P, _I, _I, _I, _P, _I]
+        lib.vu_decode_gray_batch.restype = _I
+        lib.vu_decode_gray_batch.argtypes = [_P, _I, _I, _I, _P, _I]
         lib.vu_encode_batch.restype = _I
         lib.vu_encode_batch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I]
         lib.vu_probe.restype = _I
@@ -153,6 +157,28 @@ def decode_batch(paths: Sequence[str],
     if failures:
         raise RuntimeError(f"{failures} of {len(paths)} JPEG decodes failed "
                            f"(first path {paths[0]})")
+    return out
+
+
+def decode_gray_batch(paths: Sequence[str], threads: int = 16) -> np.ndarray:
+    """Threaded JPEG decode to one (n, h, w) gray uint8 array, at the first
+    file's size: libjpeg's grayscale output, the luma plane of a colour
+    file, which is what `cv2.imread(..., IMREAD_GRAYSCALE)` reads (not the
+    BGR decode's `bgr_to_gray`). Raises if a file does not decode or has
+    another size."""
+    paths = list(paths)
+    if not paths:
+        raise ValueError("decode_gray_batch: no paths")
+    hw = probe(paths[0])
+    if hw is None:
+        raise RuntimeError(f"{paths[0]} is not a readable JPEG")
+    out = np.empty((len(paths),) + hw, np.uint8)
+    failures = _codec().vu_decode_gray_batch(_c_paths(paths), len(paths),
+                                             *hw, out.ctypes.data, threads)
+    if failures:
+        raise RuntimeError(f"{failures} of {len(paths)} gray JPEG decodes "
+                           f"failed (first path {paths[0]}; all must be "
+                           f"{hw[0]}x{hw[1]})")
     return out
 
 

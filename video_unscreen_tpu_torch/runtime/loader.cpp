@@ -56,8 +56,12 @@ void resize_bilinear(const uint8_t* src, int sh, int sw, uint8_t* dst,
   }
 }
 
-// Decode one JPEG file to BGR u8. Returns 0 on success.
-int decode_one(const char* path, int target_h, int target_w, uint8_t* out) {
+// Decode one JPEG file to BGR u8 (channels 3) or to libjpeg's grayscale
+// output (channels 1: the luma plane of a colour file, as cv2.imread's
+// IMREAD_GRAYSCALE reads it; only at the file's own size). Returns 0 on
+// success.
+int decode_one(const char* path, int target_h, int target_w, int channels,
+               uint8_t* out) {
   FILE* f = fopen(path, "rb");
   if (!f) return 1;
   jpeg_decompress_struct cinfo;
@@ -70,14 +74,22 @@ int decode_one(const char* path, int target_h, int target_w, uint8_t* out) {
     fclose(f);
     return 2;
   }
-  cinfo.out_color_space = JCS_EXT_BGR;  // libjpeg-turbo BGR output
+  if (channels == 1 &&
+      (static_cast<int>(cinfo.image_height) != target_h ||
+       static_cast<int>(cinfo.image_width) != target_w)) {
+    jpeg_destroy_decompress(&cinfo);
+    fclose(f);
+    return 3;
+  }
+  // libjpeg-turbo BGR output, or the grayscale one
+  cinfo.out_color_space = channels == 1 ? JCS_GRAYSCALE : JCS_EXT_BGR;
   jpeg_start_decompress(&cinfo);
   const int sw = cinfo.output_width;
   const int sh = cinfo.output_height;
-  std::vector<uint8_t> buf(static_cast<size_t>(sw) * sh * 3);
+  std::vector<uint8_t> buf(static_cast<size_t>(sw) * sh * channels);
   while (cinfo.output_scanline < cinfo.output_height) {
     uint8_t* row = buf.data() + static_cast<size_t>(cinfo.output_scanline)
-                   * sw * 3;
+                   * sw * channels;
     jpeg_read_scanlines(&cinfo, &row, 1);
   }
   jpeg_finish_decompress(&cinfo);
@@ -146,7 +158,25 @@ int vu_decode_batch(const char** paths, int n, int target_h, int target_w,
   std::atomic<int> failures(0);
   const size_t stride = static_cast<size_t>(target_h) * target_w * 3;
   parallel_for(n, threads, [&](int i) {
-    if (decode_one(paths[i], target_h, target_w, out + i * stride) != 0) {
+    if (decode_one(paths[i], target_h, target_w, 3, out + i * stride) !=
+        0) {
+      std::memset(out + i * stride, 0, stride);
+      failures.fetch_add(1);
+    }
+  });
+  return failures.load();
+}
+
+// Decode n JPEGs of h x w into out (n, h, w) gray u8, libjpeg's grayscale
+// output (a colour file's luma plane, as cv2.imread(..., IMREAD_GRAYSCALE)
+// gives it). Returns the number of failures (a file of another size
+// fails); failed slots are zero-filled.
+int vu_decode_gray_batch(const char** paths, int n, int h, int w,
+                         uint8_t* out, int threads) {
+  std::atomic<int> failures(0);
+  const size_t stride = static_cast<size_t>(h) * w;
+  parallel_for(n, threads, [&](int i) {
+    if (decode_one(paths[i], h, w, 1, out + i * stride) != 0) {
       std::memset(out + i * stride, 0, stride);
       failures.fetch_add(1);
     }

@@ -23,11 +23,12 @@ by name: conv kernels HWIO -> OIHW, BatchNorm as above (flax's eps 1e-5
 kept by the modules), flax's auto-names taken by order: `Bottleneck_3` ->
 `blocks.3`, `Conv_2` -> `convs.2`, `BatchNorm_1` -> `bns.1`, `ResBlock_0`
 -> `resblocks.0`, `Refine_1` -> `refines.1`, `ASPPConv_2` -> `branches.2`,
-`_ABN_1` -> `abns.1`; explicit names (`encoder_q`, `stem_conv1`, `kv_m`,
-`cls_out`, `layer3_17`, ...) stay. `load_stm`, `load_deeplab` and
-`load_schp` read a msgpack file (or take a tree) and map it so, for
-`models/stm.py:STM`, `models/deeplab.py` and
-`models/human_parse.py:SCHPHumanParser`.
+`_ABN_1` -> `abns.1`, `InvertedResidual_4` -> `irs.4`; explicit names
+(`encoder_q`, `stem_conv1`, `kv_m`, `cls_out`, `layer3_17`, ...) stay.
+`load_stm`, `load_deeplab`, `load_schp` and `load_iseg` read a msgpack
+file (or take a tree) and map it so, for `models/stm.py:STM`,
+`models/deeplab.py` (MobileNetV2 variant included),
+`models/human_parse.py:SCHPHumanParser` and `models/iseg.py:DistMapsModel`.
 
 `save_stm` is its inverse: it writes an STM's `params` and `batch_stats`
 in the layout flax's `to_bytes` writes (maps of strings, each array an
@@ -180,7 +181,8 @@ def load_matting_unet(source) -> Dict[str, torch.Tensor]:
 # flax auto-name prefix -> the port's ModuleList attribute
 _AUTO_NAMES = {"Conv": "convs", "BatchNorm": "bns", "Bottleneck": "blocks",
                "BasicBlock": "blocks", "ResBlock": "resblocks",
-               "Refine": "refines", "ASPPConv": "branches", "_ABN": "abns"}
+               "Refine": "refines", "ASPPConv": "branches", "_ABN": "abns",
+               "InvertedResidual": "irs"}
 _AUTO_RE = re.compile(r"^(_?[A-Za-z]+)_(\d+)$")
 
 
@@ -233,8 +235,20 @@ def load_stm(source) -> Dict[str, torch.Tensor]:
 
 
 # DeepLab's and SCHP's trees map by the same names (`ASPPConv_1` ->
-# `branches.1`, `_ABN_0` -> `abns.0`; `cls_out` keeps its bias)
+# `branches.1`, `_ABN_0` -> `abns.0`, the MobileNetV2 variant's
+# `InvertedResidual_3` -> `irs.3`; `cls_out` keeps its bias)
 load_deeplab = load_schp = load_stm
+
+
+def load_iseg(source) -> Dict[str, torch.Tensor]:
+    """state_dict for `models/iseg.py:DistMapsModel` from a flax msgpack
+    path (weights/iseg.msgpack) or a variables tree (a seeded
+    `DistMapsModel.init`). The compact `SepConvHead`'s auto-names map by
+    order (`Conv_3` -> `convs.3`, `BatchNorm_1` -> `bns.1`), and a
+    depthwise kernel (kh, kw, 1, C) becomes the (C, 1, kh, kw) weight of a
+    `groups=C` conv by the same HWIO -> OIHW transpose as any other."""
+    tree = source if isinstance(source, dict) else read_msgpack(source)
+    return state_dict_from_variables(tree)
 
 
 _FLAX_AUTO = {v: k for k, v in _AUTO_NAMES.items() if k != "BasicBlock"}

@@ -175,6 +175,29 @@ def parallel_read_img(paths: Sequence[str],
     return out
 
 
+def _png_rgb_to_gray(bgr: np.ndarray) -> np.ndarray:
+    """libpng's `png_set_rgb_to_gray(png, 1, 0.299, 0.587)`, which cv2
+    asks for when it reads a colour PNG as gray: a pixel with R = G = B
+    keeps R; any other gets (9797 R + 19234 G + 3737 B) >> 15, the
+    coefficients truncated to 15 bits and the sum truncated (not cvtColor's
+    rounding)."""
+    x = bgr.astype(np.int32)
+    b, g, r = x[..., 0], x[..., 1], x[..., 2]
+    mixed = (9797 * r + 19234 * g + 3737 * b) >> 15
+    return np.where((r == g) & (r == b), r, mixed).astype(np.uint8)
+
+
+def read_gray(path: str) -> np.ndarray:
+    """An image file as (h, w) gray uint8, as `cv2.imread(path,
+    IMREAD_GRAYSCALE)` reads it: a JPEG through the codec's grayscale
+    output (a colour file's luma plane), a gray PNG as it is, a colour PNG
+    through libpng's conversion (`_png_rgb_to_gray`)."""
+    if _image_format(path) == "jpeg":
+        return runtime.decode_gray_batch([path], threads=1)[0]
+    img = read_png(path)
+    return img if img.ndim == 2 else _png_rgb_to_gray(img)
+
+
 def save_img(path: str, img: np.ndarray, long_side: int = -1) -> None:
     """Write a BGR (h, w, 3) or gray (h, w) uint8 image as a JPEG or a PNG
     (by the extension), its long side first brought down to `long_side`
