@@ -1,10 +1,11 @@
 """The PyTorch port stands alone: importing every module of
-`video_unscreen_tpu_torch` (the trainer's `parallel/` modules, the native
+`video_unscreen_tpu_torch` (the trainers' `parallel/` modules, the native
 runtime and the streamer, bg_offline, the replacement, the background
 and harmonization agents, the evaluation, interactive segmentation and
-the MobileNetV2 backbone included) loads no JAX, flax, optax, msgpack, cv2
-or JAX-package module, `chip_smoke.py`, `tools/train_stm_torch.py` and the
-CLIs `tools/unscreen/{green,bg,bg_offline}_torch.py`,
+the MobileNetV2 backbone, the four other trainers and the dropout
+included) loads no JAX, flax, optax, msgpack, cv2 or JAX-package module,
+`chip_smoke.py`, `tools/train_{stm,matting,binseg,human,iseg}_torch.py`
+and the CLIs `tools/unscreen/{green,bg,bg_offline}_torch.py`,
 `tools/replace/replace_torch.py`, `tools/eval_torch.py`,
 `tools/make_eval_set_torch.py` and `tools/run_app_protocol_torch.py`
 import none either, and the entry points refuse a missing card instead of
@@ -54,7 +55,9 @@ def test_port_imports_nothing_of_jax():
     for name in ("pipeline.bg_offline", "pipeline.replace",
                  "agents.bgmodel", "agents.harmonization", "ops.metrics",
                  "pipeline.evaluate", "models.iseg", "models.mobilenetv2",
-                 "agents.iseg", "utils.visualize"):
+                 "agents.iseg", "utils.visualize", "parallel.train",
+                 "parallel.train_seg", "parallel.train_human",
+                 "parallel.train_iseg", "models.dropout"):
         assert f"video_unscreen_tpu_torch.{name}" in _PORT_MODULES
     assert bad == [] or bad == [""], f"forbidden modules loaded: {bad}"
 
@@ -96,6 +99,11 @@ def test_port_trainer_imports_nothing_of_jax():
     _loads_nothing_of_jax("tools/train_stm_torch.py")
 
 
+@pytest.mark.parametrize("family", ["matting", "binseg", "human", "iseg"])
+def test_port_trainers_import_nothing_of_jax(family):
+    _loads_nothing_of_jax(f"tools/train_{family}_torch.py")
+
+
 @pytest.mark.parametrize("cli", ["unscreen/green_torch", "unscreen/bg_torch",
                                  "unscreen/bg_offline_torch",
                                  "replace/replace_torch", "eval_torch",
@@ -126,7 +134,9 @@ def _cli(name):
                                    "harmonization_agent", "bg_offline_cli",
                                    "replace_cli", "iseg_agent",
                                    "evaluate_pair", "eval_run", "eval_cli",
-                                   "app_protocol_cli"])
+                                   "app_protocol_cli", "matting_train_state",
+                                   "seg_train_state", "human_train_state",
+                                   "iseg_train_state"])
 def test_entry_points_refuse_missing_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal path does not run")
@@ -194,6 +204,25 @@ def test_entry_points_refuse_missing_cuda(entry, tmp_path):
             _cli("eval_torch").main(["--data_root", str(tmp_path)])
         elif entry == "app_protocol_cli":
             _cli("run_app_protocol_torch").main([])
+        elif entry == "matting_train_state":
+            from video_unscreen_tpu_torch.parallel.train import \
+                make_train_state
+            make_train_state()
+        elif entry == "seg_train_state":
+            from video_unscreen_tpu_torch.parallel.train_seg import \
+                make_seg_train_state
+            make_seg_train_state()
+        elif entry == "human_train_state":
+            from video_unscreen_tpu_torch.models.human_parse import \
+                SCHPHumanParser
+            from video_unscreen_tpu_torch.parallel.train_human import \
+                make_human_train_state
+            make_human_train_state(model=SCHPHumanParser(
+                20, layers=(1, 1, 1, 1)))
+        elif entry == "iseg_train_state":
+            from video_unscreen_tpu_torch.parallel.train_iseg import \
+                make_iseg_train_state
+            make_iseg_train_state()
         else:
             make_stm_train_state()
 

@@ -45,6 +45,7 @@ from video_unscreen_tpu.parallel import train_stm as jts
 from video_unscreen_tpu.utils.checkpoint import load_variables
 from video_unscreen_tpu_torch.models.batchnorm import FlaxBatchNorm2d
 from video_unscreen_tpu_torch.parallel import train_stm as ts
+from video_unscreen_tpu_torch.parallel.train import make_optimizer
 from video_unscreen_tpu_torch.utils.checkpoint import (_leaves, _module_path,
                                                        load_stm, save_stm)
 
@@ -98,7 +99,7 @@ def run():
     p_loss = ts.stm_loss(port, ts.batch_to_device(batch, "cpu"))
     p_loss.backward()
     stepped = ts.make_stm_train_state("cpu", init_from=variables)
-    optimizer, scheduler = ts.make_optimizer(stepped, LR, STEPS)
+    optimizer, scheduler = make_optimizer(stepped, LR, STEPS)
     step_loss = ts.make_stm_train_step(stepped, optimizer, scheduler)(batch)
     return dict(loss=float(loss), stats=_np(stats), grads=_np(grads),
                 new_params=_np(new_params), port=port, p_loss=p_loss,

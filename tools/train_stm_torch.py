@@ -19,9 +19,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from video_unscreen_tpu_torch.parallel.train import make_optimizer  # noqa
 from video_unscreen_tpu_torch.parallel.train_stm import (  # noqa: E402
-    make_clip_batch, make_optimizer, make_stm_train_state,
-    make_stm_train_step)
+    make_clip_batch, make_stm_train_state, make_stm_train_step)
 from video_unscreen_tpu_torch.utils.checkpoint import save_stm  # noqa
 
 

@@ -34,7 +34,7 @@ from ..models.precision import convs_to, empty_module
 from ..ops.chroma import chroma_segment
 from ..ops.geometry import (imnormalize, inv_pad_resize, pad_resize,
                             resize_nchw, warp_matrices, warp_planes)
-from ..parallel.train_stm import init_flax_like
+from ..parallel.train import init_flax_like
 from ..utils.checkpoint import load_deeplab, load_schp
 from ..utils.device import as_float, resolve_device
 

@@ -36,7 +36,7 @@ from ..models.iseg import INSERTION_MODES, DistMapsModel
 from ..models.precision import empty_module
 from ..ops.geometry import (get_target_size, imnormalize, inv_pad_resize,
                             pad_resize)
-from ..parallel.train_stm import init_flax_like
+from ..parallel.train import init_flax_like
 from ..utils.checkpoint import load_iseg
 from ..utils.device import as_float, resolve_device
 

@@ -21,7 +21,7 @@ from ..models.matting_unet import MattingUNet
 from ..models.precision import convs_to, empty_module
 from ..ops.geometry import (get_target_size, imnormalize, inv_pad_resize,
                             pad_resize)
-from ..parallel.train_stm import init_flax_like
+from ..parallel.train import init_flax_like
 from ..utils.checkpoint import load_matting_unet
 from ..utils.device import as_float, resolve_device
 

@@ -2,9 +2,13 @@
 
 Port of `video_unscreen_tpu/models/deeplab.py` (`ASPPConv`, `ASPP`,
 `DeepLabV3Plus`, `DeepLabV3`, `DeepLabV3PlusMobileNet`, `build_deeplab`),
-NCHW, inference only
-(BatchNorm on its running statistics, dropout the identity). The seed the
-green path ships is deeplabv3plus_resnet50 at output stride 8, ASPP
+NCHW. In eval mode, which every inference path uses, BatchNorm runs on
+its running statistics and the ASPP's dropout is the identity; in train
+mode (`parallel/train_seg.py`, and `parallel/train_iseg.py` through the
+ISeg's ASPP) BatchNorm takes the batch statistics and the ASPP output
+goes through flax's `Dropout(0.1)` (`models/dropout.py`: kept elements
+scaled by 1 / 0.9, the mask from the train step's generator). The seed
+the green path ships is deeplabv3plus_resnet50 at output stride 8, ASPP
 dilations (12, 24, 36), 2 classes.
 
 Submodules carry flax's names, so `utils/checkpoint.py:load_deeplab` maps
@@ -37,6 +41,7 @@ import torch.nn.functional as F
 
 from ..ops.geometry import resize_nchw
 from .batchnorm import FlaxBatchNorm2d
+from .dropout import FlaxDropout
 from .mobilenetv2 import MobileNetV2Backbone
 from .precision import net_input
 from .resnet import ResNet
@@ -63,8 +68,9 @@ class ASPP(nn.Module):
     """Atrous spatial pyramid pooling: a 1x1 branch, one ASPPConv per
     dilation and the image-pooling branch (spatial mean, 1x1 conv and BN on
     the 1x1 map, broadcast back), concatenated and projected by a 1x1
-    conv. flax creates Conv_0 (the 1x1 branch), the ASPPConvs, Conv_1 (the
-    pooling branch) and Conv_2 (the projection) in that order."""
+    conv, then dropout (train mode only). flax creates Conv_0 (the 1x1
+    branch), the ASPPConvs, Conv_1 (the pooling branch) and Conv_2 (the
+    projection) in that order."""
 
     def __init__(self, cin: int, dilations: Sequence[int] = (12, 24, 36),
                  channels: int = 256):
@@ -75,6 +81,7 @@ class ASPP(nn.Module):
         self.bns = nn.ModuleList(FlaxBatchNorm2d(channels) for _ in range(3))
         self.branches = nn.ModuleList(ASPPConv(cin, d, channels)
                                       for d in dilations)
+        self.dropout = FlaxDropout(0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, _, h, w = x.shape
@@ -83,7 +90,8 @@ class ASPP(nn.Module):
         pooled = x.mean(dim=(2, 3), keepdim=True)
         pooled = F.relu(self.bns[1](self.convs[1](pooled)))
         outs.append(pooled.expand(n, pooled.shape[1], h, w))
-        return F.relu(self.bns[2](self.convs[2](torch.cat(outs, dim=1))))
+        out = F.relu(self.bns[2](self.convs[2](torch.cat(outs, dim=1))))
+        return self.dropout(out)
 
 
 def _dilation(output_stride: int):

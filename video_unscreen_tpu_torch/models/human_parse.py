@@ -1,12 +1,16 @@
 """SCHP human parser (LIP, 20 classes): bg mode's seed segmenter.
 
-Port of `video_unscreen_tpu/models/human_parse.py`, NCHW, inference only
-(BatchNorm on its running statistics, dropout the identity): a deep stem
-(three 3x3 convolutions, BN and ReLU, then a 3x3/2 max-pool), the dilated
-ResNet-101 stages on `models/resnet.py:Bottleneck` (layer4 at stride 1,
-dilation 2: output stride 16), the PSP context module, the edge branch
-over the stage 1-3 features, the parsing decoder and the fusion head. The
-logits come out at 1/4 of the input, in float32.
+Port of `video_unscreen_tpu/models/human_parse.py`, NCHW. In eval mode,
+which every inference path uses, BatchNorm runs on its running statistics
+and the fusion head's dropout is the identity; in train mode
+(`parallel/train_human.py`) BatchNorm takes the batch statistics and the
+fused features go through flax's `Dropout(0.1)` (`models/dropout.py`).
+The net: a deep stem (three 3x3 convolutions, BN and ReLU, then a 3x3/2
+max-pool), the dilated ResNet-101 stages on `models/resnet.py:Bottleneck`
+(layer4 at stride 1, dilation 2: output stride 16), the PSP context
+module, the edge branch over the stage 1-3 features, the parsing decoder
+and the fusion head. The logits come out at 1/4 of the input, in float32
+(float64 for a float64 net).
 
 The edge and parsing heads' own logits (the edge module's `conv4`,
 `conv5` and the decoder's last convolution) do not reach the fusion
@@ -39,6 +43,7 @@ import torch.nn.functional as F
 
 from ..ops.geometry import resize_nchw
 from .batchnorm import FlaxBatchNorm2d
+from .dropout import FlaxDropout
 from .precision import net_input
 from .resnet import Bottleneck
 
@@ -60,13 +65,19 @@ class _ABN(nn.Module):
         return F.leaky_relu(self.bns[0](x), 0.01)
 
 
+def _at_least_f32(x: torch.Tensor) -> torch.dtype:
+    """float32 for a bfloat16 or float32 tensor; float64 stays."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _resize_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """`jax.image.resize(..., "linear")` with its default antialiasing
     (the module docstring)."""
     if x.shape[-2] <= h and x.shape[-1] <= w:
         return resize_nchw(x, (h, w))
-    return F.interpolate(x.float(), size=(h, w), mode="bilinear",
-                         align_corners=False, antialias=True).to(x.dtype)
+    return F.interpolate(x.to(_at_least_f32(x)), size=(h, w),
+                         mode="bilinear", align_corners=False,
+                         antialias=True).to(x.dtype)
 
 
 class PSPModule(nn.Module):
@@ -134,9 +145,9 @@ class DecoderModule(nn.Module):
 
 
 class SCHPHumanParser(nn.Module):
-    """(N, 3, H, W) normalized RGB -> (N, num_classes, h, w) float32
-    fusion logits at 1/4 of the input (the stem's and the pool's strides:
-    119x119 at 473x473)."""
+    """(N, 3, H, W) normalized RGB -> (N, num_classes, h, w) fusion logits
+    at 1/4 of the input (the stem's and the pool's strides: 119x119 at
+    473x473), float32 (float64 for a float64 net)."""
 
     def __init__(self, num_classes: int = 20,
                  layers: Sequence[int] = (3, 4, 23, 3)):
@@ -164,6 +175,7 @@ class SCHPHumanParser(nn.Module):
         self.edge = EdgeModule()
         self.fusion_conv1 = _conv(1024, 256)
         self.abns = nn.ModuleList([_ABN(256)])
+        self.dropout = FlaxDropout(0.1)
         self.fusion_out = _conv(256, num_classes, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -186,8 +198,9 @@ class SCHPHumanParser(nn.Module):
 
     def heads(self, x2, x3, x4, x5) -> torch.Tensor:
         """PSP, the parsing decoder, the edge branch and the fusion head
-        on the stage outputs: the float32 fusion logits."""
+        on the stage outputs: the fusion logits, at least float32."""
         parsing_fea = self.decoder(self.psp(x5), x2)
         edge_fea = self.edge(x2, x3, x4)
         fused = self.fusion_conv1(torch.cat([parsing_fea, edge_fea], dim=1))
-        return self.fusion_out(self.abns[0](fused)).float()
+        out = self.fusion_out(self.dropout(self.abns[0](fused)))
+        return out.to(_at_least_f32(out))

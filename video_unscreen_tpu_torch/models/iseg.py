@@ -1,7 +1,9 @@
 """Interactive-segmentation model: DistMaps + DeepLabV3+ + SepConvHead.
 
 Port of `video_unscreen_tpu/models/iseg.py` (`dist_maps`, `SepConvHead`,
-`BRSDeepLabV3Plus`, `DistMapsModel`), NCHW, inference only. Clicks become
+`BRSDeepLabV3Plus`, `DistMapsModel`), NCHW; eval mode for inference and
+BRS, train mode (`parallel/train_iseg.py`) with BatchNorm's batch
+statistics and the ASPP's dropout (`models/deeplab.py`). Clicks become
 min-distance tanh(2 sqrt(d^2)) maps, fused with the RGB input by a 1x1
 conv block, fed to a DeepLabV3+ variant (ResNet-50 trunk without
 dilation, the stage-1 skip projected to 32 channels, ASPP with 128
@@ -60,9 +62,10 @@ def nearest_dist(points: torch.Tensor, h: int, w: int,
                  norm_radius: float = 260.0) -> torch.Tensor:
     """sqrt of `nearest_sq_dist`, correctly rounded to float32 as XLA's
     is: the root is taken in float64 and rounded once (torch's float32
-    sqrt on the CPU is off by an ulp on ~0.7% of its inputs)."""
+    sqrt on the CPU is off by an ulp on ~0.7% of its inputs); float64
+    clicks keep float64 (a float64 net's maps)."""
     return torch.sqrt(nearest_sq_dist(points, h, w, norm_radius).double()
-                      ).to(torch.float32)
+                      ).to(torch.promote_types(points.dtype, torch.float32))
 
 
 def dist_maps(points: torch.Tensor, h: int, w: int,

@@ -12,6 +12,14 @@ Port of `video_unscreen_tpu/ops/geometry.py` on (H, W[, C]) tensors:
 - `affine_warp_axis_aligned` (the SCHP seed's person-box warp) is two
   products with resampling matrices built on the host in float64 and cast
   to float32, as in the JAX package.
+- `affine_warp` is the general 2x3 warp (bilinear, zero fill), the inverse
+  taken from the matrix in float32 on the tensor's device and each output
+  sampled as `jax.scipy.ndimage.map_coordinates(order=1, mode="constant")`
+  does: four corners weighted (1 - f) or f along y and x, a corner outside
+  the image counting 0, summed in map_coordinates' order. No path of the
+  port calls it (the seed uses the axis-aligned form); `get_affine_params`
+  builds its person-box matrices, and `remove_blackborder` and
+  `add_blackborder` crop and restore all-zero borders, on the host.
 """
 
 from __future__ import annotations
@@ -185,3 +193,91 @@ def affine_warp_axis_aligned(img: torch.Tensor, matrix: np.ndarray,
         return warp_planes(img, ay, ax)
     x = img.movedim(-1, -3)               # channels before H, W
     return warp_planes(x, ay, ax).movedim(-3, -1)
+
+
+def remove_blackborder(img: np.ndarray, location=None):
+    """Crop the all-zero border rows and columns of a host image: (crop,
+    (top, left, bottom, right)); with `location` given, just that crop. An
+    image with no nonzero row or column comes back whole."""
+    h, w = img.shape[:2]
+    if location is not None:
+        t, left, b, r = location
+        return img[t:b, left:r]
+    rows = img.reshape(h, -1).sum(axis=1)
+    cols = np.moveaxis(img, 1, 0).reshape(w, -1).sum(axis=1)
+    t = int(np.argmax(rows > 0)) if (rows > 0).any() else 0
+    b = h - int(np.argmax(rows[::-1] > 0)) if (rows > 0).any() else h
+    left = int(np.argmax(cols > 0)) if (cols > 0).any() else 0
+    r = w - int(np.argmax(cols[::-1] > 0)) if (cols > 0).any() else w
+    if left >= r or t >= b:
+        return img, (0, 0, h, w)
+    return img[t:b, left:r], (t, left, b, r)
+
+
+def add_blackborder(img: np.ndarray, ori_size, location) -> np.ndarray:
+    """Inverse of `remove_blackborder`: `img` placed at `location` in zeros
+    of `ori_size` (h, w)."""
+    t, left, b, r = location
+    ori_h, ori_w = ori_size
+    out = np.zeros((ori_h, ori_w) + img.shape[2:], img.dtype)
+    out[t:b, left:r] = img
+    return out
+
+
+def get_affine_params(center_xy, src_size, dst_hw,
+                      inv: bool = False) -> np.ndarray:
+    """The float32 2x3 matrix that scales a `src_size` (w, h) box centred at
+    `center_xy` to fill `dst_hw`: src -> dst pixel coordinates, or dst ->
+    src with `inv`."""
+    cx, cy = float(center_xy[0]), float(center_xy[1])
+    sw, sh = float(src_size[0]), float(src_size[1])
+    dh, dw = int(dst_hw[0]), int(dst_hw[1])
+    scale_x, scale_y = dw / sw, dh / sh
+    if not inv:   # p_dst = S (p_src - c) + d / 2
+        return np.array([[scale_x, 0.0, dw / 2.0 - scale_x * cx],
+                         [0.0, scale_y, dh / 2.0 - scale_y * cy]],
+                        np.float32)
+    return np.array([[1.0 / scale_x, 0.0, cx - dw / (2.0 * scale_x)],
+                     [0.0, 1.0 / scale_y, cy - dh / (2.0 * scale_y)]],
+                    np.float32)
+
+
+def affine_warp(img: torch.Tensor, matrix,
+                out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Warp an (H, W[, C]) image by a 2x3 affine `matrix` (src -> dst, as
+    cv2.warpAffine): output(p) = input(M^-1 p), bilinear, zero outside;
+    float32 out (the module docstring)."""
+    m = torch.as_tensor(np.asarray(matrix), dtype=torch.float32,
+                        device=img.device)
+    a, b, tx = m[0, 0], m[0, 1], m[0, 2]
+    c, d, ty = m[1, 0], m[1, 1], m[1, 2]
+    det = a * d - b * c
+    ia, ib, ic, id_ = d / det, -b / det, -c / det, a / det
+    itx = -(ia * tx + ib * ty)
+    ity = -(ic * tx + id_ * ty)
+    out_h, out_w = int(out_hw[0]), int(out_hw[1])
+    gy = torch.arange(out_h, dtype=torch.float32, device=img.device)[:, None]
+    gx = torch.arange(out_w, dtype=torch.float32, device=img.device)[None]
+    src_x = ia * gx + ib * gy + itx
+    src_y = ic * gx + id_ * gy + ity
+    in_h, in_w = img.shape[:2]
+    x = img.to(torch.float32)
+
+    def taps(coord, size):
+        lower = torch.floor(coord)
+        upper_w = coord - lower
+        i = lower.to(torch.int64)
+        return [(i, 1 - upper_w), (i + 1, upper_w)]
+
+    out = None
+    for yi, wy in taps(src_y, in_h):
+        for xi, wx in taps(src_x, in_w):
+            valid = (yi >= 0) & (yi < in_h) & (xi >= 0) & (xi < in_w)
+            v = x[yi.clamp(0, in_h - 1), xi.clamp(0, in_w - 1)]
+            if x.dim() == 3:
+                valid, wgt = valid[..., None], (wy * wx)[..., None]
+            else:
+                wgt = wy * wx
+            term = wgt * torch.where(valid, v, 0.0)
+            out = term if out is None else out + term
+    return out

@@ -2,7 +2,7 @@
 `video_unscreen_tpu/parallel/data_synth.py` that STM training and the
 evaluation reach (`draw_person`, `make_nongreen_clip`,
 `render_soft_person`, `make_eval_clip` in every variant,
-`make_multishot_clip`; `make_batch` waits for the trainers).
+`make_multishot_clip`) and the matting trainer's `make_batch`.
 
 The figures draw from the `np.random.RandomState` in exactly the order the
 JAX package's do; no cv2 call there consumes the generator, so one seed
@@ -15,10 +15,17 @@ where a test says so:
   to float32 rounding);
 - `cv2.resize(..., INTER_AREA)` at the integer supersample by
   `_resize_area` (its block sums in cv2's order);
+- `cv2.resize(..., INTER_LINEAR)` of float32 images by `_resize_linear`
+  (cv2's float path: a + f (b - a) with fused multiply-adds, x then y;
+  bit-equal) and `INTER_NEAREST` by `_resize_nearest` (bit-equal);
 - `cv2.GaussianBlur(a, (k, k), 0)` by `_gaussian_blur` (cv2's fixed
   kernels for k = 3, 5, 7, borders BORDER_REFLECT_101), and with a sigma
   by `_gaussian_blur_sigma`; `cv2.filter2D` with a 1 x k kernel by
-  `_correlate_rows` (cv2's fused multiply-adds, its scalar tail without);
+  `_correlate_rows` (cv2's fused multiply-adds, its scalar tail without),
+  with a k x k kernel by `_filter2d` (its nonzero taps, likewise);
+- `cv2.dilate`/`cv2.erode` with the 3x3 ellipse by the port's morphology
+  (`ops/morphology.py` on a CPU tensor: K2's plain version, borders
+  ignored as cv2 ignores them; bit-equal);
 - `cv2.circle` (filled) by `_fill_circle`: the pixels within the radius,
   as cv2 fills them;
 - `cv2.ellipse` (filled), `cv2.line` and `cv2.polylines` by cv2's own
@@ -27,18 +34,22 @@ where a test says so:
   written in Python. They give cv2's pixels but for boundary pixels where
   a thick segment leaves the image and for the arc of the hair cap, which
   cv2 fills with its general polygon filler and this with the convex one.
-- the integer-translation `cv2.warpAffine` of `train_stm.py` by
-  `translate` (an exact shift, zeros shifted in), and the float one of
-  the multi-shot clip by `_warp_translate` (cv2's float32 bilinear);
+- the integer-translation `cv2.warpAffine` of `train_stm.py` and of
+  `make_batch` by `translate` (an exact shift, zeros shifted in), and the
+  float one of the multi-shot clip by `_warp_translate` (cv2's float32
+  bilinear);
 - the JPEG round trip of the "jpeg" variant by the port's codec
   (`runtime`, libjpeg, which the card's machine lacks).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
+
+from ..ops.morphology import dilate, erode
 
 Point = Tuple[int, int]
 
@@ -121,9 +132,7 @@ def _fma32(a, b, c):
 def _reflect101(n: int, r: int) -> np.ndarray:
     """Source indices of a row of n padded by r each side, cv2's
     BORDER_REFLECT_101."""
-    i = np.arange(-r, n + r)
-    i = np.abs(i)
-    return np.where(i >= n, 2 * (n - 1) - i, i)
+    return _pad_index(n, r, r)
 
 
 # cv2's SIMD width in float32 lanes (AVX2): the elements of a row past the
@@ -160,15 +169,89 @@ def _correlate_rows(img: np.ndarray, kern: np.ndarray,
     for k, x in taps:
         fused = _fma32(k, x, fused)
         plain = plain + k * x
-    n = img.shape[tail_axis] * (int(np.prod(img.shape[2:]))
-                                if tail_axis == 1 else 1)
+    return np.where(_scalar_tail(img.shape, tail_axis), plain, fused)
+
+
+def _scalar_tail(shape, tail_axis: int = 1) -> np.ndarray:
+    """Where cv2's scalar loop takes over from its vectors of `_LANES`: the
+    elements past the last whole vector of a row's w x C values
+    (`tail_axis` 1), or of the columns (0, a column pass run on the
+    transpose); broadcastable to `shape`."""
+    n = shape[tail_axis] * (int(np.prod(shape[2:])) if tail_axis == 1
+                            else 1)
     tail = np.zeros(n, bool)
     tail[n // _LANES * _LANES:] = True
     if tail_axis == 1:
-        tail = tail.reshape((1,) + img.shape[1:])
-    else:
-        tail = tail.reshape((-1,) + (1,) * (img.ndim - 1))
-    return np.where(tail, plain, fused)
+        return tail.reshape((1,) + tuple(shape[1:]))
+    return tail.reshape((-1,) + (1,) * (len(shape) - 1))
+
+
+def _filter2d(img: np.ndarray, kern: np.ndarray) -> np.ndarray:
+    """cv2.filter2D(img, -1, kern) of an (h, w[, C]) float32 image with a
+    float32 k x k kernel, anchor at (k // 2, k // 2) (an even k too),
+    BORDER_REFLECT_101: cv2's direct sum over the kernel's nonzero taps in
+    row-major order, the vector loop fusing each multiply-add and the
+    scalar tail not (`_correlate_rows`). Bit-equal to the cv2 the JAX
+    package runs with for k <= 11; from k = 12 (144 taps) cv2 sums by DFT,
+    which this differs from by float32 rounding (~2e-7)."""
+    k = kern.shape[0]
+    a = k // 2
+    h, w = img.shape[:2]
+    ys = _pad_index(h, a, k - 1 - a)
+    xs = _pad_index(w, a, k - 1 - a)
+    src = img.astype(np.float32)[ys][:, xs]
+    taps = [(kern[y, x], src[y:y + h, x:x + w])
+            for y, x in zip(*np.nonzero(kern))]
+    first = taps[0][0] * taps[0][1]
+    fused, plain = first, first
+    for c, x in taps[1:]:
+        fused = _fma32(c, x, fused)
+        plain = plain + c * x
+    return np.where(_scalar_tail(img.shape), plain, fused)
+
+
+def _pad_index(n: int, before: int, after: int) -> np.ndarray:
+    """Source indices of a row of n padded by `before` and `after`,
+    BORDER_REFLECT_101."""
+    i = np.abs(np.arange(-before, n + after))
+    return np.where(i >= n, 2 * (n - 1) - i, i)
+
+
+def _linear_taps(n_dst: int, n_src: int):
+    """(i0, i1, f) of cv2's float INTER_LINEAR along one axis: the source
+    coordinate (d + 0.5) / (n_dst / n_src) - 0.5 in float64, i0 its floor
+    and f = s - i0 rounded to float32, both clamped to the edge pixels."""
+    s = (np.arange(n_dst) + 0.5) * (1.0 / (n_dst / n_src)) - 0.5
+    i0 = np.floor(s).astype(np.int64)
+    f = (s - i0).astype(np.float32)
+    f[(i0 < 0) | (i0 >= n_src - 1)] = 0.0
+    i0 = np.clip(i0, 0, n_src - 1)
+    return i0, np.minimum(i0 + 1, n_src - 1), f
+
+
+def _resize_linear(src: np.ndarray, h: int, w: int) -> np.ndarray:
+    """cv2.resize(src, (w, h)) (INTER_LINEAR) of an (sh, sw[, C]) float32
+    image, bit-equal to the cv2 the JAX package runs with: along x, then
+    along y, each output a + f (b - a) as a fused multiply-add."""
+    x0, x1, fx = _linear_taps(w, src.shape[1])
+    y0, y1, fy = _linear_taps(h, src.shape[0])
+    extra = (None,) * (src.ndim - 2)
+    fx = fx[(None, slice(None)) + extra]
+    fy = fy[(slice(None), None) + extra]
+    s = src.astype(np.float32)
+    rows = _fma32(fx, s[:, x1] - s[:, x0], s[:, x0])
+    return _fma32(fy, rows[y1] - rows[y0], rows[y0])
+
+
+def _resize_nearest(src: np.ndarray, h: int, w: int) -> np.ndarray:
+    """cv2.resize(src, (w, h), interpolation=INTER_NEAREST): the source
+    index floor(d * (1 / (n_dst / n_src))) in float64, as cv2 computes it
+    (an exact floor(d * n_src / n_dst) differs on some sizes)."""
+    def index(n_dst, n_src):
+        return np.minimum(np.floor(np.arange(n_dst) * (
+            1.0 / (n_dst / n_src))).astype(np.int64), n_src - 1)
+
+    return src[index(h, src.shape[0])][:, index(w, src.shape[1])]
 
 
 def _gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
@@ -781,3 +864,92 @@ def make_multishot_clip(n_shots: int = 2, frames_per_shot: int = 8,
             frames.append((img.clip(0, 1) * 255).astype(np.uint8))
             masks.append((alpha > 0.5).astype(np.uint8) * 255)
     return frames, masks, cuts
+
+
+def _motion_blur_kernel(blur_len: int, ang: float) -> np.ndarray:
+    """The matting batch's directional line kernel: one tap a column on
+    the line through the centre at angle `ang`, normalized."""
+    kern = np.zeros((blur_len, blur_len), np.float32)
+    c = (blur_len - 1) / 2.0
+    for i in range(blur_len):
+        y = int(round(c + (i - c) * np.tan(ang)))
+        if 0 <= y < blur_len:
+            kern[y, i] = 1.0
+    kern /= max(kern.sum(), 1.0)
+    return kern
+
+
+def make_batch(rng: np.random.RandomState, batch: int,
+               hw: Tuple[int, int] = (128, 128),
+               imagenet_norm: bool = True) -> Dict[str, np.ndarray]:
+    """The MattingUNet's training batch, the JAX package's `make_batch`
+    draw for draw: a person (soft or hard-edged) or a blob over a green,
+    textured or noise background, 30% motion-blurred with its alpha, the
+    GT trimap from a 3x3-ellipse dilate/erode band (wider when blurred),
+    the previous alpha a shifted GT (or 0 for a clip's first frame).
+    Returns NHWC numpy: {"img": (B, h, w, 3) RGB (ImageNet-normalized),
+    "alpha_pre": (B, h, w, 1), "trimap": (B, h, w, 3) one-hot (0 bg, 1
+    unknown, 2 fg), "alpha_gt": (B, h, w)}."""
+    h, w = hw
+    imgs, alpha_pres, trimaps, gts = [], [], [], []
+    mean = np.array([0.485, 0.456, 0.406], np.float32)
+    std = np.array([0.229, 0.224, 0.225], np.float32)
+    for _ in range(batch):
+        r_bg = rng.rand()
+        if r_bg < 0.3:
+            bg = np.zeros((h, w, 3), np.float32)
+            bg[...] = (rng.uniform(0.05, 0.35), rng.uniform(0.5, 0.9),
+                       rng.uniform(0.1, 0.4))
+            bg += _smooth_noise(rng, h, w, 16) * 0.1
+        elif r_bg < 0.7:
+            coarse = max(h // rng.choice([4, 6, 8]), 1)
+            bg = (_smooth_noise(rng, h, w, scale=coarse) * 0.85
+                  + _smooth_noise(rng, h, w, scale=max(h // 24, 1)) * 0.15)
+            gy = np.linspace(rng.uniform(0.6, 1.0), rng.uniform(0.9, 1.3),
+                             h, dtype=np.float32)[:, None, None]
+            bg = (bg * gy).clip(0, 1)
+        else:
+            bg = _smooth_noise(rng, h, w)
+        r_fg = rng.rand()
+        if r_fg < 0.35:
+            fg, alpha = render_soft_person(rng, h, w, ss=2)
+        elif r_fg < 0.65:
+            fg, parts = draw_person(rng, h, w)
+            alpha = (parts > 0).astype(np.float32)
+        else:
+            fg = _smooth_noise(rng, h, w, scale=4)
+            alpha = _random_alpha(rng, h, w)
+        blur_len = 0
+        if rng.rand() < 0.3:
+            blur_len = int(rng.uniform(3, max(w // 12, 6)))
+            kern = _motion_blur_kernel(blur_len, rng.uniform(-0.35, 0.35))
+            fg = _filter2d(fg, kern)
+            alpha = _filter2d(alpha, kern)
+
+        img = alpha[..., None] * fg + (1 - alpha[..., None]) * bg
+        img += rng.randn(h, w, 3).astype(np.float32) * 0.02
+        img = img.clip(0, 1)
+
+        hard = torch.from_numpy((alpha > 0.5).astype(np.float32))
+        iters = rng.randint(2, 6) + blur_len // 2
+        dil = dilate(hard, 3, iters).numpy()
+        ero = erode(hard, 3, iters).numpy()
+        tri_cls = np.ones((h, w), np.int32)  # unknown
+        tri_cls[ero > 0] = 2
+        tri_cls[dil == 0] = 0
+        trimap = np.eye(3, dtype=np.float32)[tri_cls]
+
+        shift = rng.randint(-3, 4, size=2)
+        alpha_pre = translate(alpha, int(shift[1]), int(shift[0]))
+        if rng.rand() < 0.2:
+            alpha_pre = np.zeros_like(alpha)
+
+        rgb = img[..., ::-1]
+        if imagenet_norm:
+            rgb = (rgb - mean) / std
+        imgs.append(rgb)
+        alpha_pres.append(alpha_pre[..., None])
+        trimaps.append(trimap)
+        gts.append(alpha)
+    return {"img": np.stack(imgs), "alpha_pre": np.stack(alpha_pres),
+            "trimap": np.stack(trimaps), "alpha_gt": np.stack(gts)}

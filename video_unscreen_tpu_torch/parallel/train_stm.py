@@ -6,25 +6,22 @@ T-1 against the whole bank) and the train step, without the mesh. The
 memory read is `models/stm.py:memory_read`, so on the card a step runs K4
 forward and K5 and K6 backward once per batch item. The optimizer is the
 JAX tool's `optax.adamw(cosine_decay_schedule(lr, steps),
-weight_decay=1e-5)`: `torch.optim.AdamW` with the same betas, eps and
-weight decay (torch's default decay is 1e-2), and optax's closed-form
-cosine as a `LambdaLR` (the recursive `CosineAnnealingLR` drifts from it).
+weight_decay=1e-5)`, `parallel/train.py:make_optimizer`, which the other
+trainers share, as they share the initialization (`make_state`).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.stm import STM
 from ..utils.checkpoint import load_stm
-from ..utils.device import resolve_device
 from .data_synth import _random_alpha, _smooth_noise, draw_person, translate
+from .train import make_state
 
 
 def make_clip_batch(rng: np.random.RandomState, batch: int,
@@ -152,52 +149,13 @@ def stm_loss(model: STM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     return F.cross_entropy(logits, target)
 
 
-def init_flax_like(model: nn.Module, generator: torch.Generator) -> None:
-    """flax's initial distributions: convolution kernels lecun-normal (a
-    normal truncated at two standard deviations, scaled to variance
-    1/fan_in, fan_in = input channels x kernel taps, for a transposed
-    convolution too), biases 0; BatchNorm scale 1, bias 0, mean 0, var 1."""
-    # the standard deviation of N(0, 1) truncated to [-2, 2]
-    trunc_std = 0.87962566103423978
-    for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
-            # weights (out, in, kh, kw); transposed (in, out, kh, kw)
-            fan_in = (mod.weight[:, 0] if isinstance(mod, nn.ConvTranspose2d)
-                      else mod.weight[0]).numel()
-            std = math.sqrt(1.0 / fan_in) / trunc_std
-            with torch.no_grad():
-                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std,
-                                      2 * std, generator=generator)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-        elif isinstance(mod, nn.BatchNorm2d):
-            mod.reset_parameters()
-
-
 def make_stm_train_state(device="cuda", seed: int = 0,
                          init_from=None) -> STM:
     """The STM on `device` ("cuda" unless the caller asks for "cpu") in
     train mode: flax's initialization from a `torch.Generator` seeded with
     `seed`, or the variables of a flax msgpack checkpoint
-    (`utils/checkpoint.py:load_stm`)."""
-    device = resolve_device(device)
-    model = STM()
-    if init_from is not None:
-        model.load_state_dict(load_stm(init_from))
-    else:
-        init_flax_like(model, torch.Generator().manual_seed(seed))
-    return model.to(device).train()
-
-
-def make_optimizer(model: nn.Module, lr: float, steps: int):
-    """(AdamW, LambdaLR) as `optax.adamw(cosine_decay_schedule(lr, steps),
-    weight_decay=1e-5)`: step t uses lr * 0.5 (1 + cos(pi min(t, steps) /
-    steps)), from t = 0."""
-    opt = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8, weight_decay=1e-5)
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda t: 0.5 * (1 + math.cos(math.pi * min(t, steps) / steps)))
-    return opt, sched
+    (`utils/checkpoint.py:load_stm`); `parallel/train.py:make_state`."""
+    return make_state(STM(), device, seed, init_from, load_stm)
 
 
 def make_stm_train_step(model: STM, optimizer, scheduler

@@ -30,11 +30,17 @@ file (or take a tree) and map it so, for `models/stm.py:STM`,
 `models/deeplab.py` (MobileNetV2 variant included),
 `models/human_parse.py:SCHPHumanParser` and `models/iseg.py:DistMapsModel`.
 
-`save_stm` is its inverse: it writes an STM's `params` and `batch_stats`
-in the layout flax's `to_bytes` writes (maps of strings, each array an
-ext type 1 `(shape, dtype_name, raw_bytes)`), which `read_msgpack` and the
-JAX package's `utils/checkpoint.py:load_variables` read. Torch's
-`num_batches_tracked` is not written.
+`save_variables` is their inverse for every family: it writes a model's
+`params` and `batch_stats` in the layout flax's `to_bytes` writes (maps
+of strings, each array an ext type 1 `(shape, dtype_name, raw_bytes)`),
+which `read_msgpack` and the JAX package's `utils/checkpoint.py:
+load_variables` read. Conv weights OIHW go back to HWIO kernels (a
+depthwise (C, 1, kh, kw) weight to (kh, kw, 1, C)), a transposed conv's
+(in, out, kh, kw) weight back to flax's unflipped (kh, kw, in, out)
+kernel, BatchNorm `weight`/`bias`/`running_mean`/`running_var` to
+`scale`/`bias` and `batch_stats` `mean`/`var`, every parameter the
+module holds (SCHP's unused head convolutions included); torch's
+`num_batches_tracked` is not written. `save_stm` is its call for the STM.
 """
 
 from __future__ import annotations
@@ -251,17 +257,27 @@ def load_iseg(source) -> Dict[str, torch.Tensor]:
     return state_dict_from_variables(tree)
 
 
-_FLAX_AUTO = {v: k for k, v in _AUTO_NAMES.items() if k != "BasicBlock"}
+# the port's ModuleList attribute -> flax's auto-name prefix; a `blocks`
+# list holds ResNet blocks, named after their class (`Bottleneck_3`,
+# `BasicBlock_1`)
+_FLAX_AUTO = {v: k for k, v in _AUTO_NAMES.items() if v != "blocks"}
 
 
-def _flax_path(module: str) -> Tuple[str, ...]:
+def _flax_path(model: torch.nn.Module, module: str) -> Tuple[str, ...]:
     """`encoder_q.blocks.3.convs.1` -> (encoder_q, Bottleneck_3, Conv_1):
-    `_module_path` backwards (the STM's blocks are bottlenecks)."""
-    parts, out = module.split("."), []
+    `_module_path` backwards, a block list's entries named by their
+    class."""
+    parts, out, seen = module.split(".") if module else [], [], []
     while parts:
         name = parts.pop(0)
-        if name in _FLAX_AUTO and parts and parts[0].isdigit():
-            out.append(f"{_FLAX_AUTO[name]}_{parts.pop(0)}")
+        seen.append(name)
+        if (name in _FLAX_AUTO or name == "blocks") and parts \
+                and parts[0].isdigit():
+            idx = parts.pop(0)
+            seen.append(idx)
+            prefix = (_FLAX_AUTO[name] if name != "blocks" else
+                      type(model.get_submodule(".".join(seen))).__name__)
+            out.append(f"{prefix}_{idx}")
         else:
             out.append(name)
     return tuple(out)
@@ -316,40 +332,59 @@ def _pack(obj: Any, out: bytearray) -> None:
         raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
 
 
-def save_stm(path: Union[str, os.PathLike], model: torch.nn.Module) -> None:
-    """Write `models/stm.py:STM`'s variables as a flax msgpack file (the
-    inverse of `load_stm`): conv weights OIHW -> HWIO kernels, BatchNorm
-    `weight`/`bias` -> `scale`/`bias`, `running_mean`/`running_var` ->
-    `batch_stats` `mean`/`var`, all float32; `num_batches_tracked` is
-    dropped. The file is written whole under a temporary name, then
-    renamed."""
+def _flax_leaf(mod: torch.nn.Module, leaf: str, arr: np.ndarray
+               ) -> Tuple[str, str, np.ndarray]:
+    """(collection, flax leaf name, array) of one torch entry of `mod`."""
+    if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+        names = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+                 "running_mean": ("batch_stats", "mean"),
+                 "running_var": ("batch_stats", "var")}
+        if leaf in names:
+            return names[leaf] + (arr,)
+    elif isinstance(mod, torch.nn.ConvTranspose2d) and leaf == "weight":
+        # (in, out, kh, kw) -> flax's unflipped (kh, kw, in, out) kernel
+        return "params", "kernel", arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+    elif isinstance(mod, torch.nn.Conv2d) and leaf == "weight":
+        return "params", "kernel", arr.transpose(2, 3, 1, 0)
+    elif isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)) \
+            and leaf == "bias":
+        return "params", "bias", arr
+    raise ValueError(f"no flax leaf for {type(mod).__name__}.{leaf}")
+
+
+def variables_tree(model: torch.nn.Module) -> Dict[str, dict]:
+    """The flax variables tree ({"params": ..., "batch_stats": ...}, float32
+    numpy leaves) of a port model: the inverse of the `load_*` maps."""
     tree: Dict[str, dict] = {"params": {}, "batch_stats": {}}
-    leaf_names = {"running_mean": ("batch_stats", "mean"),
-                  "running_var": ("batch_stats", "var")}
-    for key, t in model.state_dict().items():
-        mod, leaf = key.rsplit(".", 1)
-        arr = t.detach().cpu().numpy().astype(np.float32)
-        if leaf == "num_batches_tracked":
-            continue
-        if leaf in leaf_names:
-            coll, name = leaf_names[leaf]
-        elif leaf == "weight":
-            coll, name = "params", "kernel" if arr.ndim == 4 else "scale"
-            if arr.ndim == 4:
-                arr = arr.transpose(2, 3, 1, 0)
-        elif leaf == "bias":
-            coll, name = "params", "bias"
-        else:
-            raise ValueError(f"unexpected state entry {key}")
-        node = tree[coll]
-        for part in _flax_path(mod):
-            node = node.setdefault(part, {})
-        node[name] = np.ascontiguousarray(arr)
+    for mod_name, mod in model.named_modules():
+        entries = list(mod.named_parameters(recurse=False)) + [
+            (n, b) for n, b in mod.named_buffers(recurse=False)
+            if n != "num_batches_tracked"]
+        for leaf, t in entries:
+            arr = t.detach().to("cpu", torch.float32).numpy()
+            coll, name, arr = _flax_leaf(mod, leaf, arr)
+            node = tree[coll]
+            for part in _flax_path(model, mod_name):
+                node = node.setdefault(part, {})
+            node[name] = np.ascontiguousarray(arr)
+    return tree
+
+
+def save_variables(path: Union[str, os.PathLike],
+                   model: torch.nn.Module) -> None:
+    """Write a port model's variables (`variables_tree`) as a flax msgpack
+    file, whole under a temporary name, then renamed."""
     buf = bytearray()
-    _pack(tree, buf)
+    _pack(variables_tree(model), buf)
     path = os.fspath(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(buf)
     os.replace(tmp, path)
+
+
+def save_stm(path: Union[str, os.PathLike], model: torch.nn.Module) -> None:
+    """`save_variables` of `models/stm.py:STM` (the inverse of
+    `load_stm`)."""
+    save_variables(path, model)
