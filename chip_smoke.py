@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--paths default|green_deeplab|iseg|train]
+    python3 chip_smoke.py [--paths default|green_deeplab|iseg|train|ranks]
 
 The default run reads weights/matting_unet.msgpack and weights/stm.msgpack
 only, so that one copy of the repo holds it (the DeepLab and SCHP seeds
@@ -117,6 +117,21 @@ wall seconds:
      chunks of 4, the I420 wire and the host resize: frames/s, IoU > 0.8 on
      frame 0 and > 0.75 on average, K1-K4 launched; float32 card against
      host on 2 frames of 270x480 with the same wire;
+  13. segments over ranks (after 7e): the kernel library built above,
+     two ranks spawned (`parallel/launch.py`) over `gloo`, both on the
+     one card with their collectives on CUDA tensors: green (float32,
+     chroma seed) and fused bg (bfloat16, STM on) `process_segments` of
+     S = 4 segments x 2 frames at 1080p -> 544x960 on (data 2, model 1),
+     counts reset in each rank just before its timed call: every rank's
+     gathered outputs bit-equal to this process running the same two
+     blocks, K1-K3 launched on every rank and K4 on every bg rank,
+     frames/s by rank and overall; the DeepLab seed (seeded weights, 12
+     crops of 513 at 544x960, float32) split over (data 1, model 2):
+     scores within 1e-4 of the unsharded, masks equal wherever |p_fg -
+     p_bg| > 1e-3, ms a call by rank; then one NCCL rank: green on the
+     (1, 1) mesh, bit-equal to this process; the card's name and power
+     limit beside each line; a rank that fails, dies or outlives the
+     deadline fails the run;
   7f. disk, where libjpeg is on the machine (`runtime.codec_missing()`,
      decided before the phase; else one line says why it did not run): the
      8 frames written as JPEGs, then `tools/unscreen/green_torch.py` and
@@ -210,6 +225,9 @@ with the same JSON lines (the kernels row for K1-K3).
 
 `--paths train` runs only the build and phase 12 (no weights file); its
 kernels row is empty, since the trainers launch none of K1-K6.
+
+`--paths ranks` runs the build, K1-K4 against their plain versions and
+phase 13 alone (the matting and STM weights).
 
 `--paths iseg` reads weights/iseg.msgpack and no other weights file: K2
 (with the roi_sad call) and K3 and K4 against their plain versions, phase
@@ -2679,6 +2697,239 @@ def app_protocol_phase(stm_weights, iseg_weights):
     return counts
 
 
+# segments over ranks: S x L 1080p frames; two gloo ranks share the card
+RANK_SEGMENTS, RANK_SEG_LEN, N_RANKS = 4, 2, 2
+RANKS_TIMEOUT = 420   # the parent's deadline for a spawn, seconds
+
+
+def rank_clip():
+    """The phase's (S, L, 1080, 1920, 3) uint8 segments, made from a seed
+    (each rank makes its own copy)."""
+    import numpy as np
+    frames, _ = green_clip(RANK_SEGMENTS * RANK_SEG_LEN, *FRAME_HW,
+                           seed=SEED + 3)
+    return np.stack(frames).reshape(RANK_SEGMENTS, RANK_SEG_LEN, *FRAME_HW,
+                                    3)
+
+
+def ranks_pipe(kind):
+    """The phase's pipelines: green float32 with the chroma seed (the
+    default run's phase-4 configuration) or fused bg as shipped (bfloat16,
+    STM on) with the chroma seed, at 1080p -> 544x960 on the card."""
+    import torch
+    from video_unscreen_tpu_torch.config import load_config
+    from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
+    from video_unscreen_tpu_torch.pipeline.fused_green import \
+        FusedGreenPipeline
+    weights = ROOT / "weights" / "matting_unet.msgpack"
+    if kind == "bg":
+        cfg = bg_config(ROOT / "weights" / "stm.msgpack", weights)
+        return FusedBgPipeline(cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
+                               device="cuda")
+    cfg = load_config(str(ROOT / "configs" / "green.json"))
+    cfg["binseg"] = {"type": "chroma"}
+    cfg["vmatting"]["model_path"] = str(weights)
+    return FusedGreenPipeline(cfg, FRAME_HW, work_long_side=WORK_LONG_SIDE,
+                              matting_dtype=torch.float32,
+                              seg_dtype=torch.float32, device="cuda")
+
+
+def cudnn_exact():
+    """cuDNN's deterministic algorithms, for runs held bit for bit: its
+    default float32 transposed convolution (the MattingUNet's upsampling)
+    sums with atomics, and two runs of one process then differ at about
+    one pixel in 10^7 (one fg value of S = 4 x 2 frames at 544x960)."""
+    import torch
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+def timed_segments(pipe, mesh, segments):
+    """`process_segments` after a one-step warm-up (cuDNN plans), the
+    counts reset just before the timed call and read just after; returns
+    (outputs in numpy, seconds, kernel counts)."""
+    import torch
+    pipe.process_segments(mesh, segments[:, :1])
+    torch.cuda.synchronize()
+    outs, secs, counts = timed_run(pipe.process_segments, mesh, segments)
+    return [o.cpu().numpy() for o in outs], secs, counts
+
+
+def segments_rank(rank, n_ranks):
+    """One gloo rank of the phase, on cuda:0 beside the other: green and
+    fused bg `process_segments` on (data n, model 1), and the DeepLab
+    seed's scores on (data 1, model n) (seeded weights, 12 crops of 513
+    at 544x960), split over the model axis; cuDNN deterministic."""
+    with cudnn_exact():
+        return _segments_rank(n_ranks)
+
+
+def _segments_rank(n_ranks):
+    import torch
+    from video_unscreen_tpu_torch.agents.binseg import SegAgent
+    from video_unscreen_tpu_torch.parallel.mesh import make_mesh
+
+    segments = rank_clip()
+    by_data = make_mesh(n_ranks, model_parallel=1)
+    by_model = make_mesh(n_ranks)
+    check(by_model.shape == {"data": 1, "model": n_ranks},
+          f"make_mesh({n_ranks}) is {by_model.shape}")
+    green = ranks_pipe("green")
+    out = {"green": timed_segments(green, by_data, segments)}
+    frame = green._prep_frames(torch.from_numpy(segments[0, :1]).cuda())
+    seg = SegAgent(device="cuda", seed=SEED)
+    axis = by_model.axis("model")
+    seg.predict_scores(frame, axis)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = seg.predict_scores(frame, axis)
+    torch.cuda.synchronize()
+    out["deeplab"] = (scores.cpu().numpy(), time.perf_counter() - t0)
+    del green, seg
+    out["bg"] = timed_segments(ranks_pipe("bg"), by_data, segments)
+    return out
+
+
+def nccl_rank(rank):
+    """The NCCL rank: green `process_segments` on the (1, 1) mesh of a
+    one-rank NCCL job (the gathers run over NCCL)."""
+    from video_unscreen_tpu_torch.parallel.mesh import make_mesh
+    with cudnn_exact():
+        return timed_segments(ranks_pipe("green"), make_mesh(1),
+                              rank_clip())
+
+
+def one_process_blocks(pipe, segments, n_data):
+    """The blocks of `segments` that the ranks of a data axis of `n_data`
+    take, each run by `process_segments` on this process's one-rank mesh
+    (no process group: from `init_carries` through `_step_batched`, no
+    collective), cuDNN deterministic as the ranks run; in numpy."""
+    import numpy as np
+    from video_unscreen_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(1)
+    with cudnn_exact():
+        blocks = [[o.cpu().numpy() for o in pipe.process_segments(mesh, b)]
+                  for b in np.split(segments, n_data)]
+    return [np.concatenate(o) for o in zip(*blocks)]
+
+
+def check_ranks_equal(what, got, want):
+    import numpy as np
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{what} output {i}: {g.shape} {g.dtype}, want {w.shape} "
+              f"{w.dtype}")
+        if not np.array_equal(g, w):
+            d = np.abs(g.astype(np.float64) - w.astype(np.float64))
+            raise RuntimeError(f"{what} output {i} differs from the one-"
+                               f"process run: max |diff| {d.max()} on "
+                               f"{int((d > 0).sum())} values")
+
+
+def ranks_phase(device):
+    """13: segments over ranks. (a) two `gloo` ranks sharing the card,
+    their collectives on CUDA tensors: green (float32, chroma seed) and
+    fused bg (bfloat16, STM on, the shipped STM weights) `process_segments`
+    of S = 4 segments x 2 frames at 1080p -> 544x960 on (data 2, model
+    1), each rank's gathered outputs bit-equal to this process running the
+    same two blocks; the DeepLab seed (seeded weights, 12 crops of 513 at
+    544x960, float32) split over (data 1, model 2), each rank's scores
+    within 1e-4 of the unsharded scores and the masks equal wherever
+    |p_fg - p_bg| > 1e-3; K1-K3 launched on every rank, and K4 on every bg
+    rank. (b) one NCCL rank: green on the (1, 1) mesh, equal to this
+    process's run. Returns (kernel counts by rank path, the phase's
+    numbers)."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.agents.binseg import SegAgent
+    from video_unscreen_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    card = smi_line()
+    got = run_ranks(segments_rank, N_RANKS, (N_RANKS,), backend="gloo",
+                    timeout=RANKS_TIMEOUT, collective_timeout=300,
+                    threads=2)
+    spawn_s = time.perf_counter() - t0
+    phase(f"segments over {N_RANKS} gloo ranks on one card", t0)
+
+    t0 = time.perf_counter()
+    segments = rank_clip()
+    n_frames = RANK_SEGMENTS * RANK_SEG_LEN
+    counts, report = {}, {"card": card, "gloo_wall_s": spawn_s}
+    for kind, names in (("green", ("trimap", "morph", "flood")),
+                        ("bg", ("trimap", "morph", "flood", "attention"))):
+        pipe = ranks_pipe(kind)
+        want = one_process_blocks(pipe, segments, N_RANKS)
+        del pipe
+        fps = []
+        for r, res in enumerate(got):
+            outs, secs, c = res[kind]
+            check_ranks_equal(f"{kind} rank {r}", outs, want)
+            check_launched(c, f"{kind} rank {r}", names)
+            counts[f"ranks_{kind}_r{r}"] = c
+            fps.append(n_frames / N_RANKS / secs)
+        overall = n_frames / max(res[kind][1] for res in got)
+        report[kind] = {"fps_by_rank": fps, "fps": overall}
+        print(f"  {kind} over {N_RANKS} gloo ranks on one card, S "
+              f"{RANK_SEGMENTS} x {RANK_SEG_LEN} frames at 1080p -> "
+              f"544x960: bit-equal to one process; frames/s by rank "
+              f"{[round(f, 3) for f in fps]}, overall {overall:.3f}; (calls,"
+              f" launches) by rank "
+              f"{[counts[f'ranks_{kind}_r{r}'] for r in range(N_RANKS)]}; "
+              f"{card}", flush=True)
+
+    pipe = ranks_pipe("green")
+    frame = pipe._prep_frames(torch.from_numpy(segments[0, :1]).cuda())
+    del pipe
+    seg = SegAgent(device="cuda", seed=SEED)
+    seg.predict_scores(frame)   # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    whole = seg.predict_scores(frame)
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t1
+    whole = whole.cpu().numpy()
+    sure = np.abs(whole[..., 1] - whole[..., 0]) > 1e-3
+    errs = []
+    for r, res in enumerate(got):
+        scores, _ = res["deeplab"]
+        err = float(np.abs(scores - whole).max())
+        errs.append(err)
+        check(err <= 1e-4 * max(1.0, float(np.abs(whole).max())),
+              f"DeepLab rank {r}: sharded scores max |diff| {err}")
+        same = scores.argmax(-1) == whole.argmax(-1)
+        check(bool(same[sure].all()), f"DeepLab rank {r}: masks differ "
+              f"where |p_fg - p_bg| > 1e-3")
+    ms = [1e3 * res["deeplab"][1] for res in got]
+    report["deeplab"] = {"ms_by_rank": ms, "ms_one_process": 1e3 * whole_s,
+                         "max_abs_err": max(errs)}
+    print(f"  DeepLab seed (seeded weights, 12 crops of 513 at 544x960, "
+          f"float32) over {N_RANKS} model ranks: scores max |diff| "
+          f"{max(errs):.3g} from the unsharded, masks equal on all "
+          f"{int(sure.sum())} decided pixels; ms a call by rank "
+          f"{[round(m, 2) for m in ms]}, one process {1e3 * whole_s:.2f}; "
+          f"{card}", flush=True)
+    del seg
+    phase("segments over ranks: one-process references", t0)
+
+    t0 = time.perf_counter()
+    (outs, secs, c), = run_ranks(nccl_rank, 1, backend="nccl",
+                                 timeout=RANKS_TIMEOUT)
+    pipe = ranks_pipe("green")
+    check_ranks_equal("green NCCL rank", outs,
+                      one_process_blocks(pipe, segments, 1))
+    del pipe
+    check_launched(c, "green NCCL rank")
+    counts["ranks_nccl_green_r0"] = c
+    report["nccl_green"] = {"fps": n_frames / secs,
+                            "wall_s": time.perf_counter() - t0}
+    print(f"  green on a one-rank NCCL mesh: bit-equal to one process; "
+          f"{n_frames / secs:.3f} frames/s; (calls, launches) {c}; {card}",
+          flush=True)
+    phase("segments over one NCCL rank", t0)
+    return counts, report
+
+
 def default_paths(device):
     """The default run: every phase but the DeepLab weights; returns
     (kernel counts by path, kernel rows)."""
@@ -2775,6 +3026,8 @@ def default_paths(device):
     del pipe_bg
     counts["fused_bg_schp"] = schp_phase(work, stm_weights, weights, rows)
     counts["wire_fused_bg"] = wire_fused_bg_phase(stm_weights, weights)
+    ranks_counts, rows["ranks"] = ranks_phase(device)
+    counts.update(ranks_counts)
     disk_phase(cfg, stm_weights, weights)
     offline_counts, offline = bg_offline_phase(frames, gts, stm_weights,
                                                weights)
@@ -2786,6 +3039,18 @@ def default_paths(device):
     counts["app_stm_iseg"] = app_protocol_phase(str(stm_weights), None)
     counts["train"] = train_phases(stm_weights)
     counts.update(trainers_phases())
+    return counts, rows
+
+
+def ranks_paths(device):
+    """`--paths ranks`: K1-K4 against their plain versions, then phase 13
+    alone. Returns (kernel counts by rank path, kernel rows of K1-K4)."""
+    t0 = time.perf_counter()
+    rows = morph_phase(device)
+    rows.update(kernel_phase(device))
+    bg_kernel_phase(device, rows)
+    phase("kernels vs plain (K1-K4)", t0)
+    counts, rows["ranks"] = ranks_phase(device)
     return counts, rows
 
 
@@ -2947,7 +3212,7 @@ def green_deeplab_paths(device):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", choices=("default", "green_deeplab", "iseg",
-                                        "train"), default="default")
+                                        "train", "ranks"), default="default")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
@@ -2986,6 +3251,8 @@ def main(argv=None):
         counts, rows = iseg_paths(device)
     elif args.paths == "train":
         counts, rows = trainers_phases(), {}
+    elif args.paths == "ranks":
+        counts, rows = ranks_paths(device)
     else:
         counts, rows = default_paths(device)
 
@@ -3011,7 +3278,7 @@ def main(argv=None):
         check(out[-1]["launches"] > 0, f"kernel {c.name} was launched on "
               f"none of the paths")
     print(json.dumps({k: rows[k] for k in ("seed", "schp", "evaluation",
-                                           "iseg") if k in rows}))
+                                           "iseg", "ranks") if k in rows}))
     print(f"total wall seconds: {time.perf_counter() - t_start:.1f}",
           flush=True)
     card = smi_line()

@@ -2,14 +2,16 @@
 `video_unscreen_tpu_torch` (the trainers' `parallel/` modules, the native
 runtime and the streamer, bg_offline, the replacement, the background
 and harmonization agents, the evaluation, interactive segmentation and
-the MobileNetV2 backbone, the four other trainers and the dropout
-included) loads no JAX, flax, optax, msgpack, cv2 or JAX-package module,
-`chip_smoke.py`, `tools/train_{stm,matting,binseg,human,iseg}_torch.py`
-and the CLIs `tools/unscreen/{green,bg,bg_offline}_torch.py`,
+the MobileNetV2 backbone, the four other trainers and the dropout, the
+mesh, the rank launcher and the multi-rank dry run included) loads no
+JAX, flax, optax, msgpack, cv2 or JAX-package module, `chip_smoke.py`,
+`tools/train_{stm,matting,binseg,human,iseg}_torch.py` and the CLIs
+`tools/unscreen/{green,bg,bg_offline}_torch.py`,
 `tools/replace/replace_torch.py`, `tools/eval_torch.py`,
-`tools/make_eval_set_torch.py` and `tools/run_app_protocol_torch.py`
-import none either, and the entry points refuse a missing card instead of
-quietly running on the host."""
+`tools/make_eval_set_torch.py`, `tools/run_app_protocol_torch.py` and
+`tools/unscreen_parallel_torch.py` import none either, and the entry
+points (`FrameStreamer` and the dry run among them) refuse a missing card
+instead of quietly running on the host."""
 import ast
 import os
 import subprocess
@@ -57,7 +59,8 @@ def test_port_imports_nothing_of_jax():
                  "pipeline.evaluate", "models.iseg", "models.mobilenetv2",
                  "agents.iseg", "utils.visualize", "parallel.train",
                  "parallel.train_seg", "parallel.train_human",
-                 "parallel.train_iseg", "models.dropout"):
+                 "parallel.train_iseg", "models.dropout", "parallel.mesh",
+                 "parallel.launch", "parallel.dryrun"):
         assert f"video_unscreen_tpu_torch.{name}" in _PORT_MODULES
     assert bad == [] or bad == [""], f"forbidden modules loaded: {bad}"
 
@@ -108,7 +111,8 @@ def test_port_trainers_import_nothing_of_jax(family):
                                  "unscreen/bg_offline_torch",
                                  "replace/replace_torch", "eval_torch",
                                  "make_eval_set_torch",
-                                 "run_app_protocol_torch"])
+                                 "run_app_protocol_torch",
+                                 "unscreen_parallel_torch"])
 def test_port_clis_import_nothing_of_jax(cli):
     _loads_nothing_of_jax(f"tools/{cli}.py")
 
@@ -136,7 +140,8 @@ def _cli(name):
                                    "evaluate_pair", "eval_run", "eval_cli",
                                    "app_protocol_cli", "matting_train_state",
                                    "seg_train_state", "human_train_state",
-                                   "iseg_train_state"])
+                                   "iseg_train_state", "frame_streamer",
+                                   "dryrun"])
 def test_entry_points_refuse_missing_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal path does not run")
@@ -219,6 +224,13 @@ def test_entry_points_refuse_missing_cuda(entry, tmp_path):
                 make_human_train_state
             make_human_train_state(model=SCHPHumanParser(
                 20, layers=(1, 1, 1, 1)))
+        elif entry == "frame_streamer":
+            from video_unscreen_tpu_torch.parallel import FrameStreamer
+            FrameStreamer(frames)
+        elif entry == "dryrun":
+            from video_unscreen_tpu_torch.parallel.dryrun import \
+                dryrun_inference
+            dryrun_inference(2)
         elif entry == "iseg_train_state":
             from video_unscreen_tpu_torch.parallel.train_iseg import \
                 make_iseg_train_state

@@ -10,7 +10,9 @@ host (`_crop_grid`); the crops of every frame, flipped ones mirrored, go
 through ONE forward as one batch; the softmax is taken in float32, flipped
 predictions are mirrored back, and the overlap ensemble is a sum of
 slice-adds divided by the per-pixel count (floored at 1), in the JAX
-package's order.
+package's order. Over the ranks of a model axis (`_tta_scores_sharded`)
+each rank forwards its share of the crops and the sums and counts are
+added up over the ranks, as the JAX package's `psum`.
 
 HumanSegAgent: one whole-frame warp to the crop (473x473 as shipped) by
 the aspect-corrected person box, SCHP, the 1/4 logits upsampled to the
@@ -27,6 +29,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.deeplab import build_deeplab
 from ..models.human_parse import SCHPHumanParser
@@ -111,12 +114,19 @@ class SegAgent:
                 float(self.input_long_side) * h / w)
         return max(th, self.crop_h), max(tw, self.crop_w)
 
-    def _tta_scores(self, norm: torch.Tensor, locs: Sequence[Loc],
-                    crop_h: int, crop_w: int) -> torch.Tensor:
-        """(B, H, W, 3) normalized frames -> (B, H, W, 2) float32 scores:
-        all B x len(locs) crops in one forward, softmax, the flipped ones
-        mirrored back, summed over the overlaps and divided by the count."""
+    def _tta_sums(self, norm: torch.Tensor, locs: Sequence[Loc],
+                  crop_h: int, crop_w: int):
+        """(B, H, W, 3) normalized frames -> the overlap sums (B, 2, H, W)
+        and counts (H, W), float32, of the crops at `locs`: all B x
+        len(locs) crops through the net 48 at a time, softmax, the flipped
+        ones mirrored back, added in `locs` order."""
         n_b, h, w, _ = norm.shape
+        acc = torch.zeros((n_b, 2, h, w), dtype=torch.float32,
+                          device=norm.device)
+        cnt = torch.zeros((h, w), dtype=torch.float32, device=norm.device)
+        self.frames += n_b
+        if not locs:
+            return acc, cnt
         crops = []
         for s_h, s_w, flipped in locs:
             c = norm[:, s_h:s_h + crop_h, s_w:s_w + crop_w]
@@ -126,41 +136,65 @@ class SegAgent:
         logits = torch.cat([self.model(batch[i:i + step].permute(0, 3, 1, 2))
                             for i in range(0, batch.shape[0], step)])
         self.forwards += 1
-        self.frames += n_b
         probs = torch.softmax(logits.float(), dim=1).reshape(
             n_b, len(locs), 2, crop_h, crop_w)
-        acc = torch.zeros((n_b, 2, h, w), dtype=torch.float32,
-                          device=norm.device)
-        cnt = torch.zeros((h, w), dtype=torch.float32, device=norm.device)
         for i, (s_h, s_w, flipped) in enumerate(locs):
             p = probs[:, i].flip(3) if flipped else probs[:, i]
             acc[:, :, s_h:s_h + crop_h, s_w:s_w + crop_w] += p
             cnt[s_h:s_h + crop_h, s_w:s_w + crop_w] += 1.0
+        return acc, cnt
+
+    def _tta_scores(self, norm: torch.Tensor, locs: Sequence[Loc],
+                    crop_h: int, crop_w: int) -> torch.Tensor:
+        """(B, H, W, 3) normalized frames -> (B, H, W, 2) float32 scores:
+        the overlap sums of every crop divided by the count."""
+        acc, cnt = self._tta_sums(norm, locs, crop_h, crop_w)
+        return (acc / cnt.clamp_min(1.0)).permute(0, 2, 3, 1)
+
+    def _tta_scores_sharded(self, norm: torch.Tensor, locs: Sequence[Loc],
+                            crop_h: int, crop_w: int, group,
+                            size: int) -> torch.Tensor:
+        """`_tta_scores` with the crops split over the `size` ranks of
+        `group`, as the JAX `_tta_scores_sharded`: rank m of the group
+        takes crops [m k, (m + 1) k) with k = ceil(len(locs) / size); the
+        pad crops past the end weigh 0, so they are not forwarded. The
+        sums and counts are added up over the group (`all_reduce`) and
+        divided: the unsharded scores up to the order of the float sums.
+        Every rank of the group must call this with the same frames."""
+        k = -(-len(locs) // size)
+        m = dist.get_rank(group)
+        acc, cnt = self._tta_sums(norm, locs[m * k:(m + 1) * k], crop_h,
+                                  crop_w)
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(cnt, op=dist.ReduceOp.SUM, group=group)
         return (acc / cnt.clamp_min(1.0)).permute(0, 2, 3, 1)
 
     @torch.inference_mode()
-    def predict_scores(self, frames: torch.Tensor) -> torch.Tensor:
+    def predict_scores(self, frames: torch.Tensor,
+                       model_axis=None) -> torch.Tensor:
         """(H, W, 3) or (B, H, W, 3) BGR 0..255 at the frames' own (work)
         resolution -> (..., H, W, 2) float32 TTA scores. The crop is
         clamped to the frame, so a frame smaller than the crop is one
-        whole-frame crop and its flip."""
+        whole-frame crop and its flip. `model_axis`, (process group, size)
+        with size > 1, splits the crops over its ranks
+        (`_tta_scores_sharded`)."""
         batch = frames if frames.dim() == 4 else frames[None]
         h, w = batch.shape[1:3]
         crop_h, crop_w = min(self.crop_h, h), min(self.crop_w, w)
         locs = _crop_grid(h, w, crop_h, crop_w, self.stride_ratio, self.flip)
-        score = self._tta_scores(imnormalize(batch), locs, crop_h, crop_w)
+        norm = imnormalize(batch)
+        if model_axis is not None and model_axis[1] > 1:
+            score = self._tta_scores_sharded(norm, locs, crop_h, crop_w,
+                                             *model_axis)
+        else:
+            score = self._tta_scores(norm, locs, crop_h, crop_w)
         return score if frames.dim() == 4 else score[0]
 
     def predict_mask_impl(self, frames: torch.Tensor,
                           model_axis=None) -> torch.Tensor:
-        """`predict_scores` -> {0, 255} float32 mask (argmax). Sharding
-        the crop batch over a mesh axis (`model_axis` of size > 1) is the
-        multi-device path, not ported yet (ROADMAP.md, Queue 1, item 21)."""
-        if model_axis is not None and model_axis[1] > 1:
-            raise NotImplementedError(
-                "sharding the TTA crops over a model axis is not ported yet "
-                "(ROADMAP.md, Queue 1, item 21)")
-        score = self.predict_scores(frames)
+        """`predict_scores` -> {0, 255} float32 mask (argmax); the crops
+        split over the ranks of `model_axis` when given."""
+        score = self.predict_scores(frames, model_axis)
         return torch.argmax(score, dim=-1).to(torch.float32) * 255.0
 
     @torch.inference_mode()

@@ -3,9 +3,10 @@ the location score map, config-driven object removal, the host-side
 foreground gate, artifact names, reading the clip (`read_frames`) and the
 runtime report (`print_statistic`); and the fused pipelines' frame
 preparation on the device (`prep_frames`: the I420 decode, then the resize
-when the frames are not at work resolution yet) and their segment loop
+when the frames are not at work resolution yet), their segment loop
 (`run_segments`: the host builds each chunk, resized on the host and packed
-for the wire, and `parallel/streaming.py` uploads it)."""
+for the wire, and `parallel/streaming.py` uploads it) and their loop over
+the ranks of a mesh (`segment_blocks`)."""
 
 from __future__ import annotations
 
@@ -22,11 +23,19 @@ from .. import runtime
 from ..ops.color import yuv420_to_bgr
 from ..ops.connected import remove_invalid_objects, score_map
 from ..ops.geometry import resize_nchw
+from ..parallel.mesh import batch_sharding
 from ..parallel.streaming import ChunkStream
 from ..utils.fileio import parallel_read_img
 from ..utils.profiling import StageTimer
 
 WIRES = ("bgr", "yuv420")
+
+
+def unported(what: str, item: str) -> NotImplementedError:
+    """The error an option of the JAX pipelines that has no port yet
+    raises, naming its ROADMAP.md item."""
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, Queue 1, item {item})")
 
 
 @functools.lru_cache(maxsize=16)
@@ -194,6 +203,31 @@ def run_segments(step: Callable, carries, frames, n_segments: int,
     return tuple(np.concatenate(parts, axis=1).reshape(
         (n_segments * seg_len,) + parts[0].shape[2:])[:n]
         for parts in zip(*chunks))
+
+
+def segment_blocks(step: Callable, init_carries: Callable, mesh, segments,
+                   device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The fused pipelines' `process_segments`. `segments` (S, L, ...)
+    uint8 (numpy or a tensor) are split over the data axis of `mesh`
+    (S divisible by it, else ValueError); this rank uploads its block of S
+    / data segments and advances it from `init_carries(S / data)` through
+    L calls of `step(carries, (S / data, ...) frames, model_axis)`, which
+    returns (carries, a tuple of tensors with a leading segment axis), no
+    step padded. Returns each output as (S, L, ...) on the device,
+    gathered over the data axis on every rank."""
+    n_data = mesh.shape["data"]
+    if segments.shape[0] % n_data:
+        raise ValueError(f"S={segments.shape[0]} segments not divisible by "
+                         f"the mesh data axis ({n_data})")
+    rows = batch_sharding(mesh)
+    block = torch.as_tensor(rows.shard(segments)).to(device)
+    model_axis = mesh.axis("model")
+    carries = init_carries(block.shape[0])
+    outs = []
+    for t in range(block.shape[1]):
+        carries, out = step(carries, block[:, t], model_axis)
+        outs.append(out)
+    return tuple(rows.gather(torch.stack(o, dim=1)) for o in zip(*outs))
 
 
 def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:

@@ -6,10 +6,12 @@ Port of `video_unscreen_tpu/pipeline/fused_bg.py` (`BgCarry`,
 stage scans `process_chunk_stage1` and `process_chunk_stage3`;
 `run_fused`),
 with the artifacts computed on the device: the JAX package's
-`fetch="device"`, `pack_d2h=False`. The host builds each chunk, the frames
-resized to work resolution (`host_downscale`, the default) and packed as
-BGR or I420 (`wire`), and uploads it through pinned memory behind the
-device's work (`pipeline/common.py:run_segments`). Per frame:
+`fetch="device"`, `pack_d2h=False`; and `process_segments`, the segments
+over the ranks of a mesh (`parallel/mesh.py`). The host builds each
+chunk, the frames resized to work resolution (`host_downscale`, the
+default) and packed as BGR or I420 (`wire`), and uploads it through
+pinned memory behind the device's work (`pipeline/common.py:
+run_segments`). Per frame:
 
     seg: STM tracking of the previous alpha over the ring bank | the seed
          (SCHP, DeepLab or chroma) on frame 0, after a tracking loss, and
@@ -65,10 +67,11 @@ from ..ops.geometry import get_target_size, imnormalize
 from ..ops.morphology import dilate
 from ..ops.regionfill import cg_syncs, regionfill_solve, solve_shape
 from ..ops.trimap import generate_trimap
+from ..parallel.mesh import axis_any
 from ..utils.device import resolve_device
 from ..utils.profiling import StageTimer, maybe_trace
 from .common import (build_score_map, check_wire, prep_frames, read_frames,
-                     run_segments)
+                     run_segments, segment_blocks, unported)
 from .fused_green import _build_seed_segmenter, save_artifacts, seed_mask
 
 
@@ -86,11 +89,6 @@ class BgCarry(NamedTuple):
     bg_seen: torch.Tensor     # (S, H, W) observed-as-background weight
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1, item {item})")
-
-
 class FusedBgPipeline:
     """bg-mode runner for one clip geometry.
 
@@ -103,21 +101,28 @@ class FusedBgPipeline:
     step's tracking flags and `step_seeded` the segments the seed ran on.
     `wire` is the upload's format, as `FusedGreenPipeline`'s.
     `process_chunk_stage1` and `process_chunk_stage3` are bg_offline's
-    stage scans (`pipeline/bg_offline.py`). The JAX pipeline's host fetch
-    (`fetch="host"`, `pack_d2h`) and its multi-device entry are not
-    ported: asking for them raises."""
+    stage scans (`pipeline/bg_offline.py`), `process_segments` the
+    segments over the ranks of a mesh. The parameters are the JAX
+    pipeline's, in its order, then `device`. The JAX pipeline's host fetch
+    (`fetch="host"`, with the background at 1/`bg_downscale`, and
+    `pack_d2h`) is not ported: asking for it raises."""
 
     def __init__(self, cfg: dict, frame_hw: Tuple[int, int],
                  work_long_side: int = 960, use_stm_tracking: bool = True,
                  matting_dtype: torch.dtype = torch.bfloat16,
                  stm_dtype: torch.dtype = torch.bfloat16,
                  seg_dtype: torch.dtype = torch.bfloat16, wire: str = "bgr",
-                 fetch: str = "auto", pass1_downscale: int = 2,
-                 pack_d2h="auto", device="cuda"):
+                 fetch: str = "auto", bg_downscale: int = 2,
+                 pass1_downscale: int = 2, pack_d2h="auto", device="cuda"):
         if fetch not in ("auto", "device"):
-            raise _unported(f"fetch={fetch!r} (host-side fg and bg)", "12")
+            raise unported(f"fetch={fetch!r} (host-side fg and bg)", "12")
         if pack_d2h not in ("auto", False):
-            raise _unported("pack_d2h (the bit-packed download)", "12")
+            raise unported("pack_d2h (the bit-packed download)", "12")
+        if int(bg_downscale) != bg_downscale or bg_downscale < 1:
+            raise ValueError(f"bg_downscale={bg_downscale!r}: a whole "
+                             f"number >= 1")
+        # shapes only the host fetch's background (item 12)
+        self.bg_downscale = int(bg_downscale)
         self.device = resolve_device(device)
         self.wire = check_wire(wire)
         self.cfg = cfg
@@ -340,22 +345,25 @@ class FusedBgPipeline:
                       model_axis=None):
         """Advance S segments one frame: `carries` has a leading segment
         axis S, `frames_full` is uint8 (S, H, W, 3) or I420 (S, H * 3 / 2,
-        W) on the device. Returns (new carries, uint8 (S, h, w, 8): alpha,
-        segmask, fg, bg)."""
-        if model_axis is not None:
-            raise _unported("model_axis (sharding over devices)", "21")
+        W) on the device. `model_axis` ((process group, size): ranks that hold
+        the same segments) reaches the seed, see `_segment_batched`.
+        Returns (new carries, uint8 (S, h, w, 8): alpha, segmask, fg,
+        bg)."""
         frames = self._prep_frames(frames_full)
         norms = imnormalize(frames)
-        segmask, bank = self._segment_batched(carries, frames, norms)
+        segmask, bank = self._segment_batched(carries, frames, norms,
+                                              model_axis)
         return self._post_seg(carries, frames, norms, segmask, bank)
 
     def _segment_batched(self, carries: BgCarry, frames: torch.Tensor,
-                         norms: torch.Tensor):
+                         norms: torch.Tensor, model_axis=None):
         """The segmask of each segment's frame: the STM read of the
         previous alpha where the segment tracks, the seed where it does
         not or the tracked mask ballooned (two flag reads, counted in
-        `stats`). Returns (segmask (S, h, w), the updated (bank_k, bank_v,
-        bank_n))."""
+        `stats`). With `model_axis` a segment takes the seed where any rank
+        of the axis asks for it (one more read), so that all enter the
+        seed's collective together. Returns (segmask (S, h, w), the
+        updated (bank_k, bank_v, bank_n))."""
         n_s = frames.shape[0]
         tracking = (carries.tracking & (carries.fid > 0)).tolist()
         self.stats["syncs"] += 1
@@ -389,9 +397,13 @@ class FusedBgPipeline:
             segmask[idx] = tracked
             for s, b in zip(track, balloon):
                 seeded[s] = bool(b)
+        if model_axis is not None:
+            seeded = axis_any(torch.tensor(seeded, device=self.device),
+                              model_axis).tolist()
+            self.stats["syncs"] += 1
         need = [s for s in range(n_s) if seeded[s]]
         if need:
-            seeds = seed_mask(self.seg, frames[need])
+            seeds = seed_mask(self.seg, frames[need], model_axis)
             segmask = segmask.clone()
             segmask[torch.tensor(need, device=self.device)] = seeds
             self.stats["seed_steps"] += 1
@@ -569,8 +581,24 @@ class FusedBgPipeline:
             outs.append(packed)
         return carry, torch.cat(outs)
 
-    def process_segments(self, *args, **kwargs):
-        raise _unported("process_segments (segments over devices)", "21")
+    @torch.inference_mode()
+    def process_segments(self, mesh, segments):
+        """Run S clip segments over the ranks of `mesh`, as the JAX
+        `process_segments` (see `FusedGreenPipeline.process_segments`).
+        Returns, on every rank, (packed uint8 (S, L, h, w, 8): alpha,
+        segmask, fg, bg; bg_small uint8 (S, L, 1, 1, 3) zeros, as the JAX
+        pipeline's `fetch="device"` returns it) on the device."""
+        self.reset_stats()
+
+        def step(carries, frames, model_axis):
+            carries, packed = self._step_batched(carries, frames, model_axis)
+            return carries, (packed,)
+
+        packed, = segment_blocks(step, self.init_carries, mesh, segments,
+                                 self.device)
+        self.count_cg()
+        return packed, torch.zeros(packed.shape[:2] + (1, 1, 3),
+                                   dtype=torch.uint8, device=self.device)
 
 
 def run_fused(cfg: dict, frames=None, save: bool = False,

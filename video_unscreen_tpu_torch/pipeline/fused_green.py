@@ -1,8 +1,8 @@
 """Fused green mode: the whole per-frame stage chain on the device.
 
 Port of `video_unscreen_tpu/pipeline/fused_green.py` (`run`,
-`run_segmented` and `run_fused`, fg computed on the device: the JAX
-package's `fetch_fg="device"`, `pack_d2h=False`):
+`run_segmented`, `process_segments` and `run_fused`, fg computed on the
+device: the JAX package's `fetch_fg="device"`, `pack_d2h=False`):
 
     host:   build each chunk: the frames resized to work resolution
             (`host_downscale`, the default) and packed as BGR or I420
@@ -42,6 +42,11 @@ removal (K3) and `color_correct` take one frame, so they loop over the
 segments. Data-dependent selects inside a stage stay `torch.where`.
 Segment boundaries reset the carry; the clip's tail is padded with its last
 frame and trimmed.
+
+`process_segments(mesh, segments)` runs the segments over the ranks of a
+mesh (`parallel/mesh.py`): each rank advances its block of the data axis
+with the same step, and the ranks of a model axis split the DeepLab
+seed's crops (`SegAgent._tta_scores_sharded`).
 """
 
 from __future__ import annotations
@@ -64,10 +69,12 @@ from ..ops.geometry import get_target_size
 from ..ops.morphology import dilate
 from ..ops.trimap import generate_trimap_withbg
 from .. import runtime
+from ..parallel.mesh import axis_any
 from ..utils.device import resolve_device
 from ..utils.profiling import StageTimer, maybe_trace
 from .common import (artifact_path, build_score_map, check_wire,
-                     host_frames, prep_frames, read_frames, run_segments)
+                     host_frames, prep_frames, read_frames, run_segments,
+                     segment_blocks, unported)
 
 
 class GreenCarry(NamedTuple):
@@ -94,12 +101,13 @@ def _build_seed_segmenter(cfg_binseg: dict, dtype: torch.dtype,
     return build_seg_agent(dict(kw, type=kind), device)
 
 
-def seed_mask(seg, frames: torch.Tensor) -> torch.Tensor:
+def seed_mask(seg, frames: torch.Tensor, model_axis=None) -> torch.Tensor:
     """Non-tracking seed masks {0, 255} of (B, H, W, 3) work-resolution
-    frames: the DeepLab TTA (the batch's crops together) or the chroma
-    prior (frame by frame)."""
+    frames: the DeepLab TTA (the batch's crops together; their crops split
+    over the ranks of `model_axis`, (process group, size), when given) or
+    the chroma prior (frame by frame)."""
     if seg is not None:
-        return seg.predict_mask_impl(frames)
+        return seg.predict_mask_impl(frames, model_axis)
     return torch.stack([chroma_segment(f)[0] for f in frames])
 
 
@@ -115,13 +123,23 @@ class FusedGreenPipeline:
 
     `wire` is the upload's format: "bgr" (packed uint8 BGR) or "yuv420"
     (I420, 1.5 bytes a pixel, decoded on the device; lossy: BT.601 4:2:0
-    as cv2 packs it)."""
+    as cv2 packs it).
+
+    The parameters are the JAX pipeline's, in its order, then `device`.
+    fg is computed on the device: `fetch_fg` "auto" or "device", and
+    `pack_d2h` "auto" or False; the host fetch and the packed download
+    raise (ROADMAP.md, Queue 1, item 12). `cc_downscale` divides the work
+    resolution of color_correct's distance map."""
 
     def __init__(self, cfg: dict, frame_hw: Tuple[int, int],
-                 work_long_side: int = 960,
+                 work_long_side: int = 960, fetch_fg: str = "auto",
                  matting_dtype: torch.dtype = torch.bfloat16,
                  seg_dtype: torch.dtype = torch.bfloat16, wire: str = "bgr",
-                 device="cuda"):
+                 cc_downscale: int = 2, pack_d2h="auto", device="cuda"):
+        if fetch_fg not in ("auto", "device"):
+            raise unported(f"fetch_fg={fetch_fg!r} (host-side fg)", "12")
+        if pack_d2h not in ("auto", False):
+            raise unported("pack_d2h (the bit-packed download)", "12")
         self.device = resolve_device(device)
         self.wire = check_wire(wire)
         self.cfg = cfg
@@ -146,9 +164,9 @@ class FusedGreenPipeline:
         self.saliency_thr = float(cfg["objectremoval"]["saliency_thr"])
         self.consensus_thr = float(cfg["objectremoval"]["consensus_thr"])
         self.or_downscale = int(cfg["objectremoval"].get("downscale", 2))
-        # color_correct's distance map at half the work resolution, as the
-        # JAX pipeline's default cc_downscale=2
-        self.cc_long_side = max(self.work_hw) // 2
+        # color_correct's distance map at 1/cc_downscale of the work
+        # resolution
+        self.cc_long_side = max(self.work_hw) // max(int(cc_downscale), 1)
         tri = cfg["trimap"]
         self.tri_kernel = int(tri["kernelsize"])
         self.tri_iters = int(tri["iters"])
@@ -180,16 +198,21 @@ class FusedGreenPipeline:
         return prep_frames(frames_full, self.work_hw)
 
     def _step_batched(self, carries: List[GreenCarry],
-                      frames_full: torch.Tensor):
+                      frames_full: torch.Tensor, model_axis=None):
         """Advance S segments one frame: `carries` has one carry a
         segment, `frames_full` is uint8 (S, H, W, 3) or I420 (S, H * 3 / 2,
-        W) on the device. Returns (new carries, (alpha uint8 (S, h, w), fg
-        uint8 (S, h, w, 3), screen color float32 (S, 3)))."""
+        W) on the device. With `model_axis` ((process group, size): ranks
+        that hold the same segments) the seed's crops are split over its
+        ranks, and a segment takes the seed where any of them lost
+        tracking, so that all enter the seed's collective together.
+        Returns (new carries, (alpha uint8 (S, h, w), fg uint8 (S, h, w,
+        3), screen color float32 (S, 3)))."""
         n_s = len(carries)
         frames = self._prep_frames(frames_full)
-        flags = torch.stack([c.tracking for c in carries]
-                            + [self._cf_refit_flag(c) for c in carries])
-        flags = flags.tolist()
+        lost = axis_any(~torch.stack([c.tracking for c in carries]),
+                        model_axis)
+        flags = torch.cat([~lost, torch.stack(
+            [self._cf_refit_flag(c) for c in carries])]).tolist()
         self.stats["syncs"] += 1
         tracking, refit = flags[:n_s], flags[n_s:]
         self.step_tracking.append(tuple(tracking))
@@ -198,7 +221,7 @@ class FusedGreenPipeline:
         segmask = [c.alpha_pre for c in carries]
         need = [s for s in range(n_s) if not tracking[s]]
         if need:
-            seeds = seed_mask(self.seg, frames[need])
+            seeds = seed_mask(self.seg, frames[need], model_axis)
             for j, s in enumerate(need):
                 segmask[s] = seeds[j]
             self.stats["seed_steps"] += 1
@@ -226,6 +249,28 @@ class FusedGreenPipeline:
         self.stats["steps"] += 1
         return self._post_cf(carries, frames, segmask, alphacf, bg_color,
                              cf_states, tier)
+
+    @torch.inference_mode()
+    def process_segments(self, mesh, segments):
+        """Run S clip segments over the ranks of `mesh`, as the JAX
+        `process_segments`: `segments` is uint8 (S, L, H, W, 3) or I420
+        (S, L, H * 3 / 2, W), numpy or a tensor, with S divisible by the
+        data axis; each rank advances block `mesh.index("data")` of S /
+        data segments from fresh carries through L calls of
+        `_step_batched`, its crops of the DeepLab seed split over the model
+        axis. Returns, on every rank, (packed uint8 (S, L, h, w, 4): alpha
+        then fg, screen colors float32 (S, L, 3)) on the device."""
+        self.stats = collections.Counter()
+        self.step_tracking = []
+
+        def step(carries, frames, model_axis):
+            carries, (a, fg, bg_color) = self._step_batched(
+                carries, frames, model_axis)
+            return carries, (torch.cat([a[..., None], fg], dim=-1),
+                             bg_color)
+
+        return segment_blocks(step, self.init_carries, mesh, segments,
+                              self.device)
 
     def _cf_refit_flag(self, carry: GreenCarry) -> torch.Tensor:
         """Refit schedule: every `cf_duration`-th frame, after a tracking
