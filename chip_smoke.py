@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card.
 
-    python3 chip_smoke.py [--paths default|green_deeplab|iseg|train|ranks]
+    python3 chip_smoke.py [--paths default|green_deeplab|iseg|train|ranks|
+                                   train_ranks]
 
 The default run reads weights/matting_unet.msgpack and weights/stm.msgpack
 only, so that one copy of the repo holds it (the DeepLab and SCHP seeds
@@ -202,7 +203,28 @@ wall seconds:
      each family's card-vs-host step (`family_card_vs_host`) at its
      tool's batch and size on stages (1, 1, 1, 1) (the ISeg's fixed
      ResNet-50 whole), dropout off, held as phase 9's and with the
-     float64 gradients of the card to the host's to 1e-6.
+     float64 gradients of the card to the host's to 1e-6;
+  14. training over ranks (after 12): K4-K6 against their plain versions
+     at an STM rank's read (4 items), then four ranks spawned over `gloo`
+     on the one card as (data 2, model 2) (`parallel/tensor_parallel.py`:
+     every leaf `param_shardings` splits held as its half), cuDNN
+     deterministic and TF32 off: each family (the four above and the STM)
+     at its tool's defaults (`tool_args`) from seeded weights, dropout on,
+     3 steps on the batches every rank makes from SEED, counts reset in
+     each rank just before; every rank's first-step loss to 1e-5 relative
+     of this process stepping the whole batch; rank 0's whole gradients
+     by GRAD_L2 and its BatchNorm statistics to 1e-5 of each tensor's max,
+     against a float64 step of the same weights and batch (on the card;
+     the STM's on the host, whose read is float32 only on the card) with
+     each bound widened by twice this process's float32 error from it,
+     and a planted fault, the first step with `sync_data_axis` undone
+     (per-rank BatchNorm statistics and dropout draws), beyond that bound;
+     K4, K5 and K6 one call a step on every STM rank, no kernel on the
+     others; steps/s and peak memory by rank, the bytes of parameters and
+     AdamW state each rank holds against one process's; then one NCCL
+     rank on the (1, 1) mesh whose STM step is bit-equal to the mesh-less
+     step it takes before (loss, gradients, statistics, updated
+     parameters); the card's name and power limit beside each line.
 
 Each path's K1 and K2 calls must be one launch each. Then it prints one
 JSON line of per-kernel numbers, the card's name and
@@ -228,6 +250,10 @@ kernels row is empty, since the trainers launch none of K1-K6.
 
 `--paths ranks` runs the build, K1-K4 against their plain versions and
 phase 13 alone (the matting and STM weights).
+
+`--paths train_ranks` runs the build, K4-K6 against their plain versions
+(the bg and training reads of phase 3) and phase 14 alone; it needs no
+weights file.
 
 `--paths iseg` reads weights/iseg.msgpack and no other weights file: K2
 (with the roi_sad call) and K3 and K4 against their plain versions, phase
@@ -1030,15 +1056,21 @@ def smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def tool_defaults(name):
-    """(batch, size, lr, steps): the defaults of
-    tools/train_<name>_torch.py, read from its own `parse_args([])`."""
+def tool_args(name):
+    """The defaults of tools/train_<name>_torch.py, read from its own
+    `parse_args([])`."""
     import importlib.util
     path = ROOT / "tools" / f"train_{name}_torch.py"
     spec = importlib.util.spec_from_file_location(path.stem, path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    args = tool.parse_args([])
+    return tool.parse_args([])
+
+
+def tool_defaults(name):
+    """(batch, size, lr, steps): the defaults of
+    tools/train_<name>_torch.py."""
+    args = tool_args(name)
     return args.batch, args.size, args.lr, args.steps
 
 
@@ -1173,7 +1205,7 @@ def family_card_vs_host(name, seed=SEED):
                              batch, dev).items()}).backward()
         train.fill_missing_grads(model)
         if name == "human":
-            train.clip_by_global_norm_(model.parameters(), CLIP_NORM)
+            train.clip_by_global_norm_(model, CLIP_NORM)
         return {n: p.grad.cpu() for n, p in model.named_parameters()}
 
     return card_vs_host(
@@ -2930,6 +2962,390 @@ def ranks_phase(device):
     return counts, report
 
 
+# training over ranks (phase 14): four gloo ranks share the card as
+# (data 2, model 2); every family at its tool's defaults from seeded
+# weights, dropout on, TRAIN_RANK_STEPS steps, the first a warm-up
+TRAIN_RANKS, TRAIN_RANK_STEPS = 4, 3
+TRAIN_RANK_FAMILIES = ("matting", "binseg", "human", "iseg", "stm")
+TRAIN_RANKS_TIMEOUT = 600   # the parent's deadline for a spawn, seconds
+READ = ("attention", "attention_bwd_dq", "attention_bwd_dkv")
+
+
+def rank_family(name):
+    """(family, the phase's batches, lr, steps, batch size, size) at the
+    family's tool's defaults, the batches made from SEED (every rank makes
+    the whole batch, as the tool does)."""
+    import numpy as np
+    from video_unscreen_tpu_torch.parallel import families
+    fam = families.family(name)
+    args = tool_args(name)
+    kw = {"clip_len": args.clip_len} if name == "stm" else {}
+    rng = np.random.RandomState(SEED)
+    batches = [fam.make_batch(rng, args.batch, (args.size, args.size), **kw)
+               for _ in range(TRAIN_RANK_STEPS)]
+    return fam, batches, args.lr, args.steps, args.batch, args.size
+
+
+def family_steps(name, mesh=None, whole=True, stepped=False):
+    """The family's TRAIN_RANK_STEPS steps on the card, over `mesh` (this
+    rank's part) or in this process, counts reset just before the first:
+    the first step's loss, and with `whole` its gradients (gathered whole)
+    and BatchNorm statistics, on the host; with `stepped` the parameters
+    and statistics after its update; every loss, the step seconds, the
+    kernel counts (per step and in all), peak memory, and the bytes of
+    parameters and AdamW state held."""
+    import torch
+    from video_unscreen_tpu_torch.ops import kernels
+    from video_unscreen_tpu_torch.parallel.tensor_parallel import (
+        full_grads, full_state_dict, held_bytes)
+    from video_unscreen_tpu_torch.parallel.train import make_optimizer
+
+    fam, batches, lr, steps, _, _ = rank_family(name)
+    model = fam.state("cuda", seed=SEED, model=fam.full(), mesh=mesh)
+    opt, sched = make_optimizer(model, lr, steps)
+    step = fam.step(model, opt, sched, SEED, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    out, secs, per_step = {}, [], []
+    for i, batch in enumerate(batches):
+        before = kernels.counts()
+        t0 = time.perf_counter()
+        if i == 0:
+            loss = float(step.value_and_grad(batch))
+            grads = full_grads(model)
+            if whole:   # copies, in numpy: a rank's tensors die with it
+                out["grads"] = {n: host_copy(g) for n, g in grads.items()}
+                out["stats"] = {n: host_copy(b)
+                                for n, b in model.named_buffers()
+                                if "running" in n}
+            del grads
+            step.apply()
+            if stepped:
+                out["stepped"] = {n: host_copy(t) for n, t in
+                                  full_state_dict(model).items()}
+            out["held"] = held_bytes(model, opt)
+            torch.cuda.synchronize()
+            out["loss"], out["losses"] = loss, [loss]
+        else:
+            out["losses"].append(float(step(batch)))   # synchronizes
+        secs.append(time.perf_counter() - t0)
+        after = kernels.counts()
+        per_step.append({k: tuple(a - b for a, b in zip(after[k], before[k]))
+                         for k in READ})
+    out.update(counts=kernels.counts(), secs=secs, per_step=per_step,
+               steps_per_s=(len(secs) - 1) / sum(secs[1:]),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_copy(t):
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def unsynced_grads(name, mesh, whole):
+    """Phase 14's planted fault: the family's first step over `mesh` with
+    `sync_data_axis` undone (every BatchNorm's statistics over this rank's
+    block alone, as DDP takes them, and every dropout drawing for its block
+    alone); with `whole`, its gradients gathered whole, on the host."""
+    from video_unscreen_tpu_torch.models.batchnorm import FlaxBatchNorm2d
+    from video_unscreen_tpu_torch.models.dropout import dropouts
+    from video_unscreen_tpu_torch.parallel.tensor_parallel import full_grads
+    from video_unscreen_tpu_torch.parallel.train import make_optimizer
+    fam, batches, lr, steps, _, _ = rank_family(name)
+    model = fam.state("cuda", seed=SEED, model=fam.full(), mesh=mesh)
+    for mod in model.modules():
+        if isinstance(mod, FlaxBatchNorm2d):
+            mod.data_sum, mod.data_ranks = None, 1
+    for mod in dropouts(model):
+        mod.data_block = (0, 1)
+    step = fam.step(model, *make_optimizer(model, lr, steps), SEED,
+                    mesh=mesh)
+    step.value_and_grad(batches[0])
+    grads = full_grads(model)
+    out = {n: host_copy(g) for n, g in grads.items()} if whole else None
+    del model, step, grads
+    return out
+
+
+def train_ranks_rank(rank, n_ranks, names):
+    """One gloo rank of phase 14, on cuda:0 beside the others: the
+    families' steps on the (data 2, model 2) mesh, cuDNN deterministic,
+    then each family's planted fault (`unsynced_grads`); rank 0 returns
+    the first step's whole gradients and statistics, and the fault's
+    gradients."""
+    import torch
+    from video_unscreen_tpu_torch.parallel.mesh import make_mesh
+    with cudnn_exact():
+        mesh = make_mesh(n_ranks)
+        out = {"mesh": dict(mesh.shape), "coords": dict(mesh.coords)}
+        for name in names:
+            out[name] = family_steps(name, mesh, whole=rank == 0)
+        for name in names:
+            out[name]["unsynced"] = unsynced_grads(name, mesh, rank == 0)
+            torch.cuda.empty_cache()
+        return out
+
+
+def nccl_train_rank(rank):
+    """The NCCL rank: the STM's steps without a mesh, then on the (1, 1)
+    mesh of this one-rank NCCL job, in this one process. Returns the
+    meshed run's readings, both first-step losses, and the names whose
+    gradients, statistics or updated parameters differ by a bit."""
+    import numpy as np
+    from video_unscreen_tpu_torch.parallel.mesh import make_mesh
+    with cudnn_exact():
+        plain = family_steps("stm", stepped=True)
+        meshed = family_steps("stm", make_mesh(1), stepped=True)
+    differ = {key: [n for n, w in plain[key].items()
+                    if not np.array_equal(meshed[key][n], w)]
+              for key in ("grads", "stats", "stepped")}
+    return {"loss": meshed["loss"], "plain_loss": plain["loss"],
+            "differ": differ, "n_grads": len(plain["grads"]),
+            "steps_per_s": meshed["steps_per_s"], "counts": meshed["counts"]}
+
+
+def grads_l2(got, want, bounds, exact=None):
+    """(worst tensor, whole) L2 error of the gradients `got` against
+    `want` over `card_vs_host`'s bounds (GRAD_L2): each tensor's within
+    bounds[0] of its norm plus 2e-6 of the largest |g| an entry, the whole
+    within bounds[1] of its norm. With `exact` (float64 gradients of the
+    same step) both are held to `exact` instead, each bound widened by
+    twice `want`'s own error from it (`tests/torch_train_util.py`'s rule:
+    a float32 result within float32's noise of the float64 one)."""
+    import numpy as np
+    ref = want if exact is None else exact
+    gmax = max(float(np.abs(g).max()) for g in ref.values())
+    norm = sum(float(np.square(g, dtype=np.float64).sum())
+               for g in ref.values()) ** 0.5
+    worst = whole = own = 0.0
+    for n, w in ref.items():
+        w = w.astype(np.float64)
+        d = float(np.linalg.norm(got[n].astype(np.float64) - w))
+        e = 0.0 if exact is None else float(np.linalg.norm(
+            want[n].astype(np.float64) - w))
+        whole, own = whole + d * d, own + e * e
+        tol = bounds[0] * float(np.linalg.norm(w)) \
+            + 2e-6 * gmax * w.size ** 0.5 + 2 * e
+        worst = max(worst, d / tol)
+    return worst, whole ** 0.5 / (bounds[1] * norm + 2 * own ** 0.5)
+
+
+def stats_rel(got, want, exact=None):
+    """The largest |got - want| of a statistic over 1e-5 of its max
+    |want|; with `exact` (the float64 step's), |got - exact| over 1e-5 of
+    max |exact| plus twice `want`'s own largest error from it."""
+    import numpy as np
+    if exact is None:
+        return max(float(np.abs(got[n] - w).max() / np.abs(w).max())
+                   for n, w in want.items()) / 1e-5
+    return max(float(np.abs(got[n] - x).max()) / (
+        1e-5 * float(np.abs(x).max())
+        + 2 * float(np.abs(want[n] - x).max())) for n, x in exact.items())
+
+
+def float64_step(name):
+    """The family's first step in float64 in this process (the float32
+    steps' reference): its gradients and statistics. On the card, but the
+    STM's on the host: its read on the card (K4-K6) is float32 only."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.parallel.train import make_optimizer
+    fam, batches, lr, steps, _, _ = rank_family(name)
+    device = "cpu" if name == "stm" else "cuda"
+    if device == "cpu":
+        torch.set_num_threads(os.cpu_count() or 1)
+    model = fam.state(device, seed=SEED, model=fam.full()).double()
+    step = fam.step(model, *make_optimizer(model, lr, steps), SEED)
+    step.value_and_grad({k: v.astype(np.float64) if v.dtype == np.float32
+                         else v for k, v in batches[0].items()})
+    out = {"grads": {n: host_copy(p.grad)
+                     for n, p in model.named_parameters()},
+           "stats": {n: host_copy(b) for n, b in model.named_buffers()
+                     if "running" in n}}
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_read_check(device):
+    """K4, K5 and K6 at an STM rank's read (the batch over the data axis:
+    TRAIN_BATCH / 2 items of Lq 64 over Lk 128, every key valid) against
+    their plain versions."""
+    import torch
+    from video_unscreen_tpu_torch.ops.kernels import attention as ka
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    b = TRAIN_BATCH // 2
+    tq = (TRAIN_HW // 16) ** 2
+    tk = (TRAIN_CLIP - 1) * tq
+    q, k, v, do = (torch.randn(*s, generator=gen, device=device)
+                   for s in ((b, tq, ATTN_DK), (b, tk, ATTN_DK),
+                             (b, tk, ATTN_DV), (b, tq, ATTN_DV)))
+    mask = torch.ones(b, tk, device=device)
+    out, lse = ka.masked_memory_attention(q, k, v, mask)
+    want_out, want_lse = ka.attention_plain(q, k, v, mask)
+    errs = [held_close("rank read out", out, want_out),
+            held_close("rank read lse", lse, want_lse)]
+    a = (q, k, v, mask, do, want_lse, (do * want_out).sum(dim=-1))
+    got = (ka.attention_bwd_dq(*a), *ka.attention_bwd_dkv(*a))
+    want = ka.attention_bwd_plain(q, k, v, mask, want_out, want_lse, do)
+    errs += [held_bwd(f"rank read item {i}", [g[i] for g in got],
+                      [w[i] for w in want], mask[i], do[i], v[i])
+             for i in range(b)]
+    return max(e[0] for e in errs)
+
+
+def train_ranks_phase(device, names=TRAIN_RANK_FAMILIES):
+    """14: training over ranks. (a) four `gloo` ranks sharing the card as
+    (data 2, model 2): each family of `names` (the STM among them) at its
+    tool's defaults (`tool_args`) from seeded weights, dropout on,
+    TRAIN_RANK_STEPS steps, against this process stepping the whole batch
+    from the same weights (cuDNN deterministic, TF32 off in both): every
+    rank's first-step loss to 1e-5 relative; rank 0's whole gradients by
+    GRAD_L2 and its BatchNorm statistics to 1e-5 of each tensor's max,
+    against the float64 step of the same weights and batch (`float64_step`)
+    with each bound widened by twice one process's float32 error from it
+    (`grads_l2`, `stats_rel`: at the tools' full widths, and for the STM
+    on seeded weights, one process's float32 gradients are themselves
+    beyond GRAD_L2 from float64), and the same first step with
+    `sync_data_axis` undone (`unsynced_grads`) beyond that bound; K4, K5
+    and K6 one call a step on every STM rank, no kernel on the others; steps/s and peak memory by rank,
+    the bytes of parameters and AdamW state each rank holds against one
+    process's. (b) one NCCL rank on the (1, 1) mesh: the STM's first step
+    (loss, gradients, statistics, updated parameters) bit-equal to the
+    mesh-less step of the same process (`nccl_train_rank`). Returns
+    (kernel counts by rank path, the phase's numbers)."""
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch.ops.kernels import attention as ka
+    from video_unscreen_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    tq = (TRAIN_HW // 16) ** 2
+    tk = (TRAIN_CLIP - 1) * tq
+    read_err = rank_read_check(device)
+    print(f"  K4-K6 at an STM rank's read ({TRAIN_BATCH // 2} x Lq {tq}, "
+          f"Lk {tk}): max |diff| from plain {read_err:.3g}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = run_ranks(train_ranks_rank, TRAIN_RANKS, (TRAIN_RANKS, names),
+                    backend="gloo", timeout=TRAIN_RANKS_TIMEOUT,
+                    collective_timeout=300, threads=2)
+    gloo_s = time.perf_counter() - t0
+    phase(f"training over {TRAIN_RANKS} gloo ranks on one card", t0)
+    check(all(r["mesh"] == {"data": 2, "model": 2} for r in got),
+          f"phase 14 mesh {got[0]['mesh']}")
+
+    counts, report = {}, {"card": card, "gloo_wall_s": gloo_s}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in names:
+        t0 = time.perf_counter()
+        with cudnn_exact():
+            one = family_steps(name)
+        r0 = got[0][name]
+        for r, res in enumerate(got):
+            loss = res[name]["loss"]
+            check(abs(loss - one["loss"]) <= 1e-5 * abs(one["loss"]),
+                  f"{name} rank {r}: loss {loss} vs one process "
+                  f"{one['loss']}")
+            check(all(np.isfinite(res[name]["losses"])),
+                  f"{name} rank {r} losses {res[name]['losses']}")
+            counts[f"train_ranks_{name}_r{r}"] = res[name]["counts"]
+        exact = float64_step(name)
+        worst, whole = grads_l2(r0["grads"], one["grads"], GRAD_L2[name],
+                                exact["grads"])
+        plain = grads_l2(r0["grads"], one["grads"], GRAD_L2[name])
+        stats = stats_rel(r0["stats"], one["stats"], exact["stats"])
+        check(worst <= 1.0 and whole <= 1.0, f"{name}: rank 0's gradients "
+              f"beyond the bound: worst tensor {worst}, whole {whole}")
+        check(stats <= 1.0, f"{name}: rank 0's statistics {stats} of the "
+              f"bound")
+        fault = grads_l2(r0["unsynced"], one["grads"], GRAD_L2[name],
+                         exact["grads"])
+        check(max(fault) > 1.0, f"{name}: the planted fault (sync_data_axis "
+              f"undone) reads {fault} of the bound: the check cannot see it")
+        if name == "stm":
+            want = {"attention": (1, 2),
+                    "attention_bwd_dq": (1, 1 + (ka.dq_splits(
+                        TRAIN_BATCH // 2, tq, tk, n_sm) > 1)),
+                    "attention_bwd_dkv": (1, 1)}
+            for r, res in enumerate(got):
+                for n in res[name]["per_step"]:
+                    check(n == want, f"stm rank {r} step launched {n}, "
+                          f"want {want} a step")
+        else:
+            for r, res in enumerate(got):
+                check(all(c == (0, 0) for c in res[name]["counts"].values()),
+                      f"{name} rank {r} launched a kernel")
+        row = {"steps_per_s_by_rank": [res[name]["steps_per_s"]
+                                       for res in got],
+               "steps_per_s_one_process": one["steps_per_s"],
+               "peak_gib_by_rank": [res[name]["peak_gib"] for res in got],
+               "peak_gib_one_process": one["peak_gib"],
+               "held_bytes_by_rank": [res[name]["held"] for res in got],
+               "held_bytes_one_process": one["held"],
+               "loss": r0["loss"], "loss_one_process": one["loss"],
+               "grads_worst_tensor": worst, "grads_whole": whole,
+               "grads_vs_one_process_grad_l2": plain, "stats": stats,
+               "unsynced_fault": fault}
+        report[name] = row
+        print(f"  {name} over (data 2, model 2), 4 gloo ranks on one card, "
+              f"batch {tool_args(name).batch} at {tool_args(name).size}: "
+              f"steps/s by rank "
+              f"{[round(v, 3) for v in row['steps_per_s_by_rank']]} (one "
+              f"process {one['steps_per_s']:.3f}); peak GiB by rank "
+              f"{[round(v, 3) for v in row['peak_gib_by_rank']]} (one "
+              f"process {one['peak_gib']:.3f}); parameters + AdamW bytes "
+              f"by rank {row['held_bytes_by_rank']} (one process "
+              f"{one['held']}); first-step loss {r0['loss']} vs "
+              f"{one['loss']}; readings / bounds against the float64 "
+              f"step: gradients worst tensor "
+              f"{worst:.4f}, whole {whole:.4f}, statistics {stats:.4f} "
+              f"(against one process by GRAD_L2 alone: {plain[0]:.4f}, "
+              f"{plain[1]:.4f}); the planted fault (sync_data_axis undone) "
+              f"reads worst tensor {fault[0]:.4f}, whole {fault[1]:.4f}; "
+              f"{card}", flush=True)
+        phase(f"{name}: one-process reference steps", t0)
+        del one, exact
+
+    t0 = time.perf_counter()
+    (nccl,) = run_ranks(nccl_train_rank, 1, backend="nccl",
+                        timeout=TRAIN_RANKS_TIMEOUT)
+    check(nccl["loss"] == nccl["plain_loss"], f"stm NCCL rank loss "
+          f"{nccl['loss']} vs the mesh-less step's {nccl['plain_loss']}")
+    check(not any(nccl["differ"].values()), f"stm NCCL rank: differs "
+          f"from the mesh-less step at {nccl['differ']}")
+    counts["train_ranks_nccl_stm_r0"] = nccl["counts"]
+    report["nccl_stm"] = {"steps_per_s": nccl["steps_per_s"],
+                          "wall_s": time.perf_counter() - t0}
+    print(f"  stm on a one-rank NCCL (1, 1) mesh: first step bit-equal to "
+          f"the mesh-less step in the same process (loss, "
+          f"{nccl['n_grads']} gradients, statistics, updated parameters); "
+          f"{nccl['steps_per_s']:.3f} steps/s; (calls, launches) "
+          f"{nccl['counts']}; {card}", flush=True)
+    phase("training over one NCCL rank", t0)
+    report["phase_s"] = time.perf_counter() - t_phase
+    return counts, report
+
+
+def train_ranks_paths(device):
+    """`--paths train_ranks`: K4-K6 against their plain versions (the
+    kernels phase's reads), then phase 14 alone. Returns (kernel counts
+    by rank path, kernel rows of K4-K6)."""
+    t0 = time.perf_counter()
+    rows = kernel_phase(device)
+    bg_kernel_phase(device, rows)
+    del rows["flood"]   # no path of this run calls K3
+    attention_bwd_phase(device, rows)
+    train_read_phase(device, rows)
+    phase("kernels vs plain (K4-K6)", t0)
+    counts, rows["train_ranks"] = train_ranks_phase(device)
+    return counts, rows
+
+
 def default_paths(device):
     """The default run: every phase but the DeepLab weights; returns
     (kernel counts by path, kernel rows)."""
@@ -3039,6 +3455,8 @@ def default_paths(device):
     counts["app_stm_iseg"] = app_protocol_phase(str(stm_weights), None)
     counts["train"] = train_phases(stm_weights)
     counts.update(trainers_phases())
+    train_counts, rows["train_ranks"] = train_ranks_phase(device)
+    counts.update(train_counts)
     return counts, rows
 
 
@@ -3212,7 +3630,8 @@ def green_deeplab_paths(device):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", choices=("default", "green_deeplab", "iseg",
-                                        "train", "ranks"), default="default")
+                                        "train", "ranks", "train_ranks"),
+                    default="default")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
@@ -3253,6 +3672,8 @@ def main(argv=None):
         counts, rows = trainers_phases(), {}
     elif args.paths == "ranks":
         counts, rows = ranks_paths(device)
+    elif args.paths == "train_ranks":
+        counts, rows = train_ranks_paths(device)
     else:
         counts, rows = default_paths(device)
 
@@ -3278,7 +3699,8 @@ def main(argv=None):
         check(out[-1]["launches"] > 0, f"kernel {c.name} was launched on "
               f"none of the paths")
     print(json.dumps({k: rows[k] for k in ("seed", "schp", "evaluation",
-                                           "iseg", "ranks") if k in rows}))
+                                           "iseg", "ranks", "train_ranks")
+                      if k in rows}))
     print(f"total wall seconds: {time.perf_counter() - t_start:.1f}",
           flush=True)
     card = smi_line()

@@ -3,7 +3,8 @@
 runtime and the streamer, bg_offline, the replacement, the background
 and harmonization agents, the evaluation, interactive segmentation and
 the MobileNetV2 backbone, the four other trainers and the dropout, the
-mesh, the rank launcher and the multi-rank dry run included) loads no
+mesh, the rank launcher, the multi-rank dry run and the tensor-parallel
+form of a model included) loads no
 JAX, flax, optax, msgpack, cv2 or JAX-package module, `chip_smoke.py`,
 `tools/train_{stm,matting,binseg,human,iseg}_torch.py` and the CLIs
 `tools/unscreen/{green,bg,bg_offline}_torch.py`,
@@ -60,7 +61,8 @@ def test_port_imports_nothing_of_jax():
                  "agents.iseg", "utils.visualize", "parallel.train",
                  "parallel.train_seg", "parallel.train_human",
                  "parallel.train_iseg", "models.dropout", "parallel.mesh",
-                 "parallel.launch", "parallel.dryrun"):
+                 "parallel.launch", "parallel.dryrun",
+                 "parallel.tensor_parallel"):
         assert f"video_unscreen_tpu_torch.{name}" in _PORT_MODULES
     assert bad == [] or bad == [""], f"forbidden modules loaded: {bad}"
 
@@ -229,8 +231,8 @@ def test_entry_points_refuse_missing_cuda(entry, tmp_path):
             FrameStreamer(frames)
         elif entry == "dryrun":
             from video_unscreen_tpu_torch.parallel.dryrun import \
-                dryrun_inference
-            dryrun_inference(2)
+                dryrun_multichip
+            dryrun_multichip(2)
         elif entry == "iseg_train_state":
             from video_unscreen_tpu_torch.parallel.train_iseg import \
                 make_iseg_train_state

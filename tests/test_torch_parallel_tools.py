@@ -6,12 +6,13 @@ Mirrors the inference cases of `tests/test_parallel.py`: the mesh shape
 `test_frame_streamer` (chunks of 4 of 10 frames), the device of each
 video (`tools/unscreen_parallel_torch.py` with its launcher stubbed, no
 process run) and `select_device` on unset, out-of-range and malformed
-ids, and `test_graft_entry_multichip`'s inference lines
-(`parallel/dryrun.py` on 4 ranks). The launcher's failures: a rank that
-raises, one that dies and one that hangs each fail the call within
-seconds. Imports no JAX: the reference values are JAX's rules, restated.
+ids, and `test_graft_entry_multichip`'s lines (`parallel/dryrun.py` on 4
+ranks: the training step's line, then the two inference lines). The
+launcher's failures: a rank that raises, one that dies and one that
+hangs each fail the call within seconds. Imports no JAX: the reference values are JAX's rules, restated.
 """
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -22,7 +23,7 @@ from tests import torch_rank_cases as cases
 from tests.torch_port_util import assert_equal
 from video_unscreen_tpu_torch.config import select_device
 from video_unscreen_tpu_torch.parallel import FrameStreamer, make_mesh
-from video_unscreen_tpu_torch.parallel.dryrun import dryrun_inference
+from video_unscreen_tpu_torch.parallel.dryrun import dryrun_multichip
 from video_unscreen_tpu_torch.parallel.launch import run_ranks
 from video_unscreen_tpu_torch.parallel.mesh import (batch_sharding,
                                                     mesh_shape, replicate)
@@ -138,13 +139,16 @@ def test_select_device_unset_and_out_of_range(monkeypatch):
 
 
 def test_dryrun_inference_four_ranks(capsys):
-    lines = dryrun_inference(4, device="cpu")
+    lines = dryrun_multichip(4, device="cpu")
     out = capsys.readouterr().out
-    assert lines == [
+    assert len(lines) == 3
+    assert re.fullmatch(r"dryrun_multichip ok: mesh=\{'data': 2, 'model': "
+                        r"2\} loss=\d+\.\d{4}", lines[0]), lines[0]
+    assert lines[1:] == [
         "dryrun_multichip green inference ok: 4 segments x 2 frames "
         "sharded over data=2, seed TTA crops sharded over model=2 (2-axis "
         "inference)",
         "dryrun_multichip bg inference ok: 4 segments x 2 frames sharded "
         "over data=2"]
-    for line in lines:
-        assert line in out
+    assert [line for line in out.splitlines()
+            if line.startswith("dryrun_multichip")] == lines

@@ -201,7 +201,7 @@ def test_clip_by_global_norm_matches_optax(below):
     params = [torch.nn.Parameter(torch.zeros(g.shape)) for g in grads]
     for p, g in zip(params, grads):
         p.grad = torch.from_numpy(g.copy())
-    norm = tr.clip_by_global_norm_(params, 1.0)
+    norm = tr.clip_by_global_norm_(torch.nn.ParameterList(params), 1.0)
     want, _ = optax.clip_by_global_norm(1.0).update(
         [jnp.asarray(g) for g in grads], None)
     assert (float(norm) < 1.0) == below

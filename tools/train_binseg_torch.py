@@ -1,15 +1,17 @@
 """Train the PyTorch port's DeepLabV3+ binary segmenter on synthetic
-composites, on one card.
+composites, on the cards.
 
   python tools/train_binseg_torch.py --steps 800 --batch 8 --size 128
 
 The flags of `tools/train_binseg.py` (800 steps, batch 8, 128x128, lr
 5e-4, `--init_from`, `--save_every`), plus `--device` (default `cuda`;
-`cpu` only when asked). The ASPP's dropout draws from a generator seeded
-with `--seed`. The checkpoint is a flax msgpack file that both the port's
-`load_deeplab` and the JAX package's `load_variables` read; `--out`
-defaults to `runs/deeplab_binseg_torch.msgpack` (git-ignored), never to
-the shipped `weights/deeplab_binseg.msgpack`.
+`cpu` only when asked) and `--ranks` (the (data, model) mesh's ranks,
+`parallel/families.py:run_tool`; default the card count). The ASPP's
+dropout draws from a generator seeded with `--seed`. The checkpoint is a
+flax msgpack file that both the port's `load_deeplab` and the JAX
+package's `load_variables` read; `--out` defaults to
+`runs/deeplab_binseg_torch.msgpack` (git-ignored), never to the shipped
+`weights/deeplab_binseg.msgpack`.
 """
 import argparse
 import sys
@@ -37,6 +39,9 @@ def parse_args(argv=None):
                              "only at the end)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--ranks", type=int, default=None,
+                        help="ranks of the (data, model) mesh (default: "
+                             "the card count, 1 with --device cpu)")
     return parser.parse_args(argv)
 
 

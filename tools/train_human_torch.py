@@ -1,17 +1,19 @@
-"""Train the PyTorch port's SCHP human parser on synthetic people, on one
-card.
+"""Train the PyTorch port's SCHP human parser on synthetic people, on the
+cards.
 
   python tools/train_human_torch.py --steps 2000 --batch 8 --size 224
 
 The flags of `tools/train_human.py` (2000 steps, batch 8, 224x224, lr
 5e-4, `--layers` 3 4 23 3 (ResNet-101), `--init_from`), plus `--device`
-(default `cuda`; `cpu` only when asked). As the JAX tool, the batches go
-up as BGR uint8 (`raw_uint8=True`) and are normalized on the device, and
-the gradient is clipped to global norm 1 before AdamW. The fusion
-dropout draws from a generator seeded with `--seed`. The checkpoint is a
-flax msgpack file that both the port's `load_schp` and the JAX package's
-`load_variables` read; `--out` defaults to `runs/schp_human_torch.msgpack`
-(git-ignored), never to the shipped `weights/schp_human.msgpack`.
+(default `cuda`; `cpu` only when asked) and `--ranks` (the (data, model)
+mesh's ranks, `parallel/families.py:run_tool`; default the card count). As
+the JAX tool, the batches go up as BGR uint8 (`raw_uint8=True`) and are
+normalized on the device, and the gradient is clipped to global norm 1
+before AdamW. The fusion dropout draws from a generator seeded with
+`--seed`. The checkpoint is a flax msgpack file that both the port's
+`load_schp` and the JAX package's `load_variables` read; `--out` defaults
+to `runs/schp_human_torch.msgpack` (git-ignored), never to the shipped
+`weights/schp_human.msgpack`.
 """
 import argparse
 import sys
@@ -39,6 +41,9 @@ def parse_args(argv=None):
                              "checkpoint")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--ranks", type=int, default=None,
+                        help="ranks of the (data, model) mesh (default: "
+                             "the card count, 1 with --device cpu)")
     return parser.parse_args(argv)
 
 

@@ -1,15 +1,16 @@
 """Train the PyTorch port's click-based interactive segmenter
-(DistMapsModel) on synthetic clicks, on one card.
+(DistMapsModel) on synthetic clicks, on the cards.
 
   python tools/train_iseg_torch.py --steps 1000 --batch 8 --size 128
 
-The flags of `tools/train_iseg.py` (1000 steps, batch 8, 128x128, lr
-5e-4; like it, no `--init_from`), plus `--device` (default `cuda`; `cpu`
-only when asked). The ASPP's dropout draws from a generator seeded with
-`--seed`. The checkpoint is a flax msgpack file that both the port's
-`load_iseg` and the JAX package's `load_variables` read; `--out`
-defaults to `runs/iseg_torch.msgpack` (git-ignored), never to the
-shipped `weights/iseg.msgpack`.
+The flags of `tools/train_iseg.py` (1000 steps, batch 8, 128x128, lr 5e-4;
+like it, no `--init_from`), plus `--device` (default `cuda`; `cpu` only
+when asked) and `--ranks` (the (data, model) mesh's ranks,
+`parallel/families.py:run_tool`; default the card count). The ASPP's
+dropout draws from a generator seeded with `--seed`. The checkpoint is a
+flax msgpack file that both the port's `load_iseg` and the JAX package's
+`load_variables` read; `--out` defaults to `runs/iseg_torch.msgpack`
+(git-ignored), never to the shipped `weights/iseg.msgpack`.
 """
 import argparse
 import sys
@@ -32,6 +33,9 @@ def parse_args(argv=None):
     parser.add_argument("--log_every", type=int, default=100)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--ranks", type=int, default=None,
+                        help="ranks of the (data, model) mesh (default: "
+                             "the card count, 1 with --device cpu)")
     return parser.parse_args(argv)
 
 

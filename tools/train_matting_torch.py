@@ -1,13 +1,15 @@
-"""Train the PyTorch port's MattingUNet on synthetic composites, on one card.
+"""Train the PyTorch port's MattingUNet on synthetic composites, on the cards.
 
   python tools/train_matting_torch.py --steps 2000 --batch 16
 
-The flags of `tools/train_matting.py` (its defaults: 2000 steps, batch
-16, 128x128, lr 1e-3, `--init_from`), plus `--device` (default `cuda`;
-`cpu` only when asked). The checkpoint is a flax msgpack file that both
-the port's `load_matting_unet` and the JAX package's `load_variables`
-read; `--out` defaults to `runs/matting_unet_torch.msgpack` (a git-ignored
-directory), never to the shipped `weights/matting_unet.msgpack`.
+The flags of `tools/train_matting.py` (its defaults: 2000 steps, batch 16,
+128x128, lr 1e-3, `--init_from`), plus `--device` (default `cuda`; `cpu`
+only when asked) and `--ranks` (the (data, model) mesh's ranks,
+`parallel/families.py:run_tool`; default the card count). The checkpoint
+is a flax msgpack file that both the port's `load_matting_unet` and the
+JAX package's `load_variables` read; `--out` defaults to
+`runs/matting_unet_torch.msgpack` (a git-ignored directory), never to the
+shipped `weights/matting_unet.msgpack`.
 """
 import argparse
 import sys
@@ -32,6 +34,9 @@ def parse_args(argv=None):
                         help="fine-tune from a flax msgpack checkpoint")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--ranks", type=int, default=None,
+                        help="ranks of the (data, model) mesh (default: "
+                             "the card count, 1 with --device cpu)")
     return parser.parse_args(argv)
 
 

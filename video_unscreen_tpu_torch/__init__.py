@@ -9,9 +9,10 @@ Ported so far: green-screen unscreen as shipped
 (`pipeline/fused_green.py:FusedGreenPipeline`, the DeepLab or chroma
 seed), bg mode as shipped (`pipeline/fused_bg.py:FusedBgPipeline`, the
 SCHP seed and the STM ring bank) and its modular pipeline
-(`pipeline/bg.py:run`), bg_offline, the person replacement, STM training
-(`parallel/train_stm.py`), the evaluation protocol
-(`pipeline/evaluate.py`) and interactive segmentation
+(`pipeline/bg.py:run`), bg_offline, the person replacement, the five
+trainers on one card or over a (data, model) mesh of ranks
+(`parallel/train*.py`, `parallel/tensor_parallel.py`), the evaluation
+protocol (`pipeline/evaluate.py`) and interactive segmentation
 (`agents/iseg.py:ISegAgent`, with BRS).
 """
 

@@ -175,17 +175,18 @@ class SegAgent:
         """(H, W, 3) or (B, H, W, 3) BGR 0..255 at the frames' own (work)
         resolution -> (..., H, W, 2) float32 TTA scores. The crop is
         clamped to the frame, so a frame smaller than the crop is one
-        whole-frame crop and its flip. `model_axis`, (process group, size)
-        with size > 1, splits the crops over its ranks
-        (`_tta_scores_sharded`)."""
+        whole-frame crop and its flip. `model_axis`, a mesh axis
+        (`parallel/mesh.py:Axis`) of size > 1, splits the crops over its
+        ranks (`_tta_scores_sharded`)."""
         batch = frames if frames.dim() == 4 else frames[None]
         h, w = batch.shape[1:3]
         crop_h, crop_w = min(self.crop_h, h), min(self.crop_w, w)
         locs = _crop_grid(h, w, crop_h, crop_w, self.stride_ratio, self.flip)
         norm = imnormalize(batch)
-        if model_axis is not None and model_axis[1] > 1:
+        if model_axis is not None and model_axis.size > 1:
             score = self._tta_scores_sharded(norm, locs, crop_h, crop_w,
-                                             *model_axis)
+                                             model_axis.group,
+                                             model_axis.size)
         else:
             score = self._tta_scores(norm, locs, crop_h, crop_w)
         return score if frames.dim() == 4 else score[0]

@@ -8,12 +8,24 @@ with the unbiased variance. `FlaxBatchNorm2d` keeps torch's parameter and
 buffer names (`weight`, `bias`, `running_mean`, `running_var`,
 `num_batches_tracked`), so the checkpoint mappings of
 `utils/checkpoint.py` stay as they are.
+
+Over ranks (`parallel/train.py`'s step on a mesh), a module given the
+data axis' sum (`data_sum`, a differentiable sum over the ranks, and
+`data_ranks`, their number, both set by
+`parallel/tensor_parallel.py:sync_data_axis`) takes its statistics over
+the whole batch, as JAX's step, one program over the mesh, does; plain
+per-rank statistics, as in DDP, would not be JAX's. A tensor-parallel
+module (`tensor_parallel.ShardedBatchNorm2d`) gathers its split scale and
+bias in `scale_bias`.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 FLAX_MOMENTUM = 0.99   # flax's default: the weight of the old statistic
 
@@ -33,24 +45,46 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     port keeps it so its statistics agree with flax's to f32 rounding
     (reductions taken in another order), not to the error of a different
     formula.
+
+    With `data_sum` set, the sums of x and x^2 over N, H and W are summed
+    over the ranks of the data axis by it (a differentiable `all_reduce`,
+    whose backward sums the gradients too), in the same type, and divided
+    by the whole batch's count (this rank's times `data_ranks`: the batch
+    splits in equal blocks); every rank then updates the running
+    statistics alike.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__(num_features, eps=eps, momentum=1 - FLAX_MOMENTUM)
+        self.data_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+        self.data_ranks = 1
+
+    def scale_bias(self):
+        """(scale, bias) as the forward uses them."""
+        return self.weight, self.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.scale_bias()
         if not self.training:
-            return super().forward(x)
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                weight, bias, False, self.momentum, self.eps)
         dims = (0, 2, 3)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=dims)
-        var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+        if self.data_sum is None:
+            mean = xf.mean(dim=dims)
+            ex2 = (xf * xf).mean(dim=dims)
+        else:
+            count = xf.numel() // xf.shape[1] * self.data_ranks
+            sums = self.data_sum(torch.stack([xf.sum(dim=dims),
+                                              (xf * xf).sum(dim=dims)]))
+            mean, ex2 = sums[0] / count, sums[1] / count
+        var = torch.clamp_min(ex2 - mean * mean, 0.0)
         with torch.no_grad():
             self.running_mean.mul_(FLAX_MOMENTUM).add_(
                 mean, alpha=1 - FLAX_MOMENTUM)
             self.running_var.mul_(FLAX_MOMENTUM).add_(
                 var, alpha=1 - FLAX_MOMENTUM)
             self.num_batches_tracked.add_(1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
+        mul = torch.rsqrt(var + self.eps) * weight
         return ((xf - mean[None, :, None, None]) * mul[None, :, None, None]
-                + self.bias[None, :, None, None]).to(x.dtype)
+                + bias[None, :, None, None]).to(x.dtype)

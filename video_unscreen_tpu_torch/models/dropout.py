@@ -11,11 +11,17 @@ is attached. The JAX train steps draw their masks from
 `fold_in(PRNGKey(17 or 23), step)`; no torch generator reproduces that
 stream, so a port run and a JAX run drop different elements (the tests
 hold both with the rate at 0, and the port's masks to their own seed).
+
+Over ranks, a dropout given its data block (`data_block`: (this rank's
+index, the data axis' size), (0, 1) in one process, set by
+`parallel/tensor_parallel.py:sync_data_axis`) draws the whole batch's
+mask, every rank alike from the step's generator, and keeps its own block
+of it: the masks are those of one process stepping the whole batch.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -28,6 +34,7 @@ class FlaxDropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.data_block: Tuple[int, int] = (0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -35,7 +42,10 @@ class FlaxDropout(nn.Module):
         if self.rate == 1.0:
             return torch.zeros_like(x)
         keep_prob = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        index, n = self.data_block
+        b = x.shape[0]
+        u = torch.rand((n * b,) + tuple(x.shape[1:]), generator=self.generator,
+                       device=x.device)[index * b:(index + 1) * b]
         return torch.where(u < keep_prob, x / keep_prob,
                            torch.zeros((), dtype=x.dtype, device=x.device))
 

@@ -7,6 +7,11 @@ Port of `video_unscreen_tpu/ops/geometry.py` on (H, W[, C]) tensors:
   `align_corners=False`); "nearest" reproduces `jax.image.resize`'s index
   rule exactly (floor((i + 0.5) * in / out) in float32), which is torch's
   "nearest-exact".
+- `resize_nchw`'s gradient is the product with the transposed
+  interpolation matrices (`_linear_matrix`, two matmuls), so a train
+  step's gradients on the card are the same bits from run to run: torch's
+  own CUDA backward of a bilinear resize sums with atomics. Its forward,
+  and the whole resize where no gradient is taken, is `F.interpolate`.
 - `pad_resize` pads "symmetric" (the edge row repeated, cv2
   BORDER_REFLECT), built by hand: torch's "reflect" is REFLECT_101.
 - `affine_warp_axis_aligned` (the SCHP seed's person-box warp) is two
@@ -24,6 +29,7 @@ Port of `video_unscreen_tpu/ops/geometry.py` on (H, W[, C]) tensors:
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -75,10 +81,52 @@ def resize(img: torch.Tensor, out_hw: Tuple[int, int],
     return y.permute(1, 2, 0).contiguous() if img.dim() == 3 else y[0]
 
 
+@functools.lru_cache(maxsize=64)
+def _linear_matrix(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
+    """(n_out, n_in) weights of torch's "bilinear" along one axis
+    (align_corners=False, no antialiasing): source (i + 0.5) n_in / n_out
+    - 0.5, at least 0, its two neighbours weighted by the fraction,
+    computed in the type torch computes them in (float32, or float64 for
+    float64), held in `dtype`. Built once per shape, type and device: a
+    train step or a BRS call takes the same few for every backward."""
+    dt = torch.promote_types(dtype, torch.float32)
+    scale = torch.tensor(n_in / n_out, dtype=dt)
+    src = (scale * (torch.arange(n_out, dtype=dt, device=device) + 0.5)
+           - 0.5).clamp_min(0.0)
+    i0 = src.to(torch.int64)
+    i1 = (i0 + 1).clamp_max(n_in - 1)
+    frac = src - i0.to(dt)
+    mat = torch.zeros(n_out, n_in, dtype=dt, device=device)
+    rows = torch.arange(n_out, device=device)
+    mat.index_put_((rows, i0), 1.0 - frac, accumulate=True)
+    mat.index_put_((rows, i1), frac, accumulate=True)
+    return mat.to(dtype)
+
+
+class _ResizeNCHW(torch.autograd.Function):
+    """`F.interpolate` bilinear forward; the backward g -> A_h^T g A_w."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw):
+        ctx.in_hw = tuple(x.shape[-2:])
+        return F.interpolate(x, size=out_hw, mode="bilinear",
+                             align_corners=False, antialias=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (h, w), (oh, ow) = ctx.in_hw, grad.shape[-2:]
+        a_h = _linear_matrix(h, oh, grad.dtype, grad.device)
+        a_w = _linear_matrix(w, ow, grad.dtype, grad.device)
+        return torch.matmul(torch.matmul(a_h.t(), grad), a_w), None
+
+
 def resize_nchw(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """"linear" `resize` of an (N, C, H, W) batch."""
-    return F.interpolate(x, size=(int(out_hw[0]), int(out_hw[1])),
-                         mode="bilinear", align_corners=False,
+    """"linear" `resize` of an (N, C, H, W) batch; where a gradient is
+    taken, with the deterministic one above."""
+    size = (int(out_hw[0]), int(out_hw[1]))
+    if x.requires_grad and torch.is_grad_enabled():
+        return _ResizeNCHW.apply(x, size)
+    return F.interpolate(x, size=size, mode="bilinear", align_corners=False,
                          antialias=False)
 
 

@@ -1,11 +1,13 @@
-"""The inference half of the JAX package's multi-chip dry run.
+"""The JAX package's multi-chip dry run.
 
-Port of `__graft_entry__.py:dryrun_multichip` from its fused inference on:
-n ranks make a (data, model) mesh (`parallel/mesh.py`), then run fused
-green with the DeepLab seed on seeded weights, whose crops split over the
-model axis, and fused bg without STM tracking, each `process_segments` on
-2 x data segments of 2 frames of 64x96 random frames, and print JAX's two
-lines. The training half waits for ROADMAP.md, Queue 1, item 21c.
+Port of `__graft_entry__.py:dryrun_multichip`: n ranks make a (data,
+model) mesh (`parallel/mesh.py`), take one MattingUNet train step over it
+(seeded weights split over the model axis, a 64x64 batch of max(data, 2)
+made as JAX makes it, `optax.adamw(1e-4)`'s AdamW: `parallel/train.py`'s
+step), then run fused green with the DeepLab seed on seeded weights,
+whose crops split over the model axis, and fused bg without STM
+tracking, each `process_segments` on 2 x data segments of 2 frames of
+64x96 random frames, and print JAX's three lines, the training one first.
 
     python -m video_unscreen_tpu_torch.parallel.dryrun --ranks 4 --device cpu
 """
@@ -25,6 +27,7 @@ from ..pipeline.fused_green import FusedGreenPipeline
 from ..utils.device import resolve_device
 from .launch import run_ranks
 from .mesh import make_mesh
+from .train import make_train_state, make_train_step
 
 SEG_LEN, H, W = 2, 64, 96
 
@@ -50,8 +53,38 @@ GREEN_CFG = {
 }
 
 
-def _inference_rank(rank: int, n_ranks: int, device: str) -> dict:
+def _train_batch(n: int, hw: int = 64) -> dict:
+    """JAX's dry-run batch, drawn as it draws it."""
+    rng = np.random.RandomState(0)
+    trimap_cls = rng.randint(0, 3, (n, hw, hw))
+    return {"img": rng.rand(n, hw, hw, 3).astype(np.float32),
+            "alpha_pre": rng.rand(n, hw, hw, 1).astype(np.float32),
+            "trimap": np.eye(3, dtype=np.float32)[trimap_cls],
+            "alpha_gt": rng.rand(n, hw, hw).astype(np.float32)}
+
+
+def _train_step(mesh, device: str) -> float:
+    """One MattingUNet step over `mesh`: the whole batch's loss."""
+    model = make_train_state(device, seed=0, mesh=mesh)
+    # optax.adamw(1e-4): constant rate, weight decay 1e-4
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda t: 1.0)
+    data = mesh.shape["data"]
+    batch_n = max(data, 2)
+    if batch_n % data:
+        batch_n = data
+    return float(make_train_step(model, opt, sched, mesh)(
+        _train_batch(batch_n)))
+
+
+def _dryrun_rank(rank: int, n_ranks: int, device: str) -> dict:
     mesh = make_mesh(n_ranks)
+    loss = _train_step(mesh, device)
+    return dict(_inference(mesh, device), loss=loss)
+
+
+def _inference(mesh, device: str) -> dict:
     n_seg = 2 * mesh.shape["data"]
     segments = np.random.RandomState(1).randint(
         0, 255, (n_seg, SEG_LEN, H, W, 3)).astype(np.uint8)
@@ -70,10 +103,9 @@ def _inference_rank(rank: int, n_ranks: int, device: str) -> dict:
             "seed_forwards": gpipe.seg.forwards}
 
 
-def dryrun_inference(n_ranks: int, device="cuda") -> List[str]:
-    """Run the dry run on `n_ranks` ranks (NCCL when each has a card of
-    its own, else `gloo`, ranks sharing the card); print and return JAX's
-    two lines."""
+def _spawn(fn, n_ranks: int, device) -> List[dict]:
+    """`fn` on `n_ranks` ranks (NCCL when each has a card of its own, else
+    `gloo`, ranks sharing the card)."""
     dev = resolve_device(device)
     backend = "gloo"
     if dev.type == "cuda":
@@ -81,8 +113,25 @@ def dryrun_inference(n_ranks: int, device="cuda") -> List[str]:
         build.build()   # once, before the ranks load it
         if n_ranks <= torch.cuda.device_count():
             backend = "nccl"
-    results = run_ranks(_inference_rank, n_ranks, (n_ranks, dev.type),
-                        backend=backend, timeout=600.0)
+    return run_ranks(fn, n_ranks, (n_ranks, dev.type), backend=backend,
+                     timeout=600.0)
+
+
+def dryrun_multichip(n_ranks: int, device="cuda") -> List[str]:
+    """The whole dry run on `n_ranks` ranks (one spawn): print and return
+    JAX's three lines, the training step's first."""
+    results = _spawn(_dryrun_rank, n_ranks, device)
+    loss = results[0]["loss"]
+    if not np.isfinite(loss) or any(r["loss"] != loss for r in results):
+        raise RuntimeError(
+            f"train step losses {[r['loss'] for r in results]}")
+    line = (f"dryrun_multichip ok: mesh={results[0]['mesh']} "
+            f"loss={loss:.4f}")
+    print(line, flush=True)
+    return [line] + _inference_lines(results)
+
+
+def _inference_lines(results: List[dict]) -> List[str]:
     r0 = results[0]
     mesh, n_seg = r0["mesh"], r0["n_seg"]
     for r in results:
@@ -110,7 +159,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    dryrun_inference(args.ranks, args.device)
+    dryrun_multichip(args.ranks, args.device)
     return 0
 
 

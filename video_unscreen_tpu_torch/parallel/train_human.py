@@ -1,24 +1,26 @@
-"""The SCHP human parser's training on one device.
+"""The SCHP human parser's training, on one device or over a mesh.
 
-Port of `video_unscreen_tpu/parallel/train_human.py` without the mesh:
-the batch maker (synthetic people with LIP part labels, letterboxed into
-the square input as the HumanSegAgent's warp does, the labels at the
-logits' 1/4 resolution), the foreground-weighted cross-entropy and the
-state and step for `SCHPHumanParser(layers=...)`. The maker stays on the
-host in numpy, draw for draw with the JAX maker; its cv2 calls are the
-port's (`data_synth.py`): the filled distractor ellipse `_fill_ellipse`,
-INTER_LINEAR on float32 `_resize_linear`, INTER_NEAREST on the int32
-part maps `_resize_nearest`. With `raw_uint8` the images go up as BGR
-uint8 and `human_loss` normalizes them on the device. The optimizer is
-the JAX tool's `optax.chain(clip_by_global_norm(1.0), adamw(...))`: the
-step clips with optax's rule (`train.py:clip_by_global_norm_`) before
-AdamW. The fusion head's dropout draws from the step's generator; the
-JAX step's `fold_in(PRNGKey(23), step)` masks are not reproduced.
+Port of `video_unscreen_tpu/parallel/train_human.py`: the batch maker
+(synthetic people with LIP part labels, letterboxed into the square input
+as the HumanSegAgent's warp does, the labels at the logits' 1/4
+resolution), the foreground-weighted cross-entropy and the state and step
+for `SCHPHumanParser(layers=...)`. The maker stays on the host in numpy,
+draw for draw with the JAX maker; its cv2 calls are the port's
+(`data_synth.py`): the filled distractor ellipse `_fill_ellipse`,
+INTER_LINEAR on float32 `_resize_linear`, INTER_NEAREST on the int32 part
+maps `_resize_nearest`. With `raw_uint8` the images go up as BGR uint8 and
+`human_loss` normalizes them on the device. The optimizer is the JAX
+tool's `optax.chain(clip_by_global_norm(1.0), adamw(...))`: the step clips
+with optax's rule (`train.py:clip_by_global_norm_`) before AdamW. The
+fusion head's dropout draws from the step's generator; the JAX step's
+`fold_in(PRNGKey(23), step)` masks are not reproduced. Over a mesh
+(`train.py`'s step) the weighted mean is the whole batch's and the clip
+takes the norm of the whole gradient.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +31,9 @@ from ..models.human_parse import SCHPHumanParser
 from ..utils.checkpoint import load_schp
 from .data_synth import (_fill_ellipse, _resize_linear, _resize_nearest,
                          _smooth_noise, draw_person)
-from .train import Batch, dropout_generator, make_state, make_step, nchw
+from .mesh import Mesh
+from .train import (Batch, TrainStep, dropout_generator, make_state,
+                    make_step, nchw, over_batch)
 from .train_seg import IMAGENET_MEAN, IMAGENET_STD
 
 CLIP_NORM = 1.0   # the JAX tool's optax.clip_by_global_norm(1.0)
@@ -109,12 +113,13 @@ def normalize_bgr_uint8(img: torch.Tensor) -> torch.Tensor:
     return (img.flip(-1).to(torch.float32) / 255.0 - mean) / std
 
 
-def human_loss(model: nn.Module, batch: Batch,
-               fg_weight: float = 3.0) -> torch.Tensor:
+def human_loss(model: nn.Module, batch: Batch, fg_weight: float = 3.0,
+               axis=None) -> torch.Tensor:
     """Cross-entropy of the 1/4-resolution fusion logits in at least
     float32 (the JAX loss casts them to float32; a float64 net keeps
     float64), person classes weighted by `fg_weight`: sum(ce * w) /
-    sum(w); a uint8 image is normalized here."""
+    sum(w) over the whole batch (`train.over_batch`); a uint8 image is
+    normalized here."""
     img = batch["img"]
     if img.dtype == torch.uint8:
         img = normalize_bgr_uint8(img)
@@ -124,23 +129,24 @@ def human_loss(model: nn.Module, batch: Batch,
         logits.to(torch.promote_types(logits.dtype, torch.float32)), label,
         reduction="none")
     wgt = torch.where(label > 0, fg_weight, 1.0)
-    return (ce * wgt).sum() / wgt.sum()
+    return over_batch((ce * wgt).sum(), wgt.sum(), axis)
 
 
 def make_human_train_state(device="cuda", seed: int = 0, init_from=None,
-                           model: Optional[nn.Module] = None) -> nn.Module:
+                           model: Optional[nn.Module] = None,
+                           mesh: Optional[Mesh] = None) -> nn.Module:
     """`model` (default `SCHPHumanParser(20)`, the ResNet-101 (3, 4, 23,
     3)) ready to train (`train.make_state`, `load_schp`)."""
     return make_state(model if model is not None else SCHPHumanParser(20),
-                      device, seed, init_from, load_schp)
+                      device, seed, init_from, load_schp, mesh)
 
 
 def make_human_train_step(model: nn.Module, optimizer, scheduler,
-                          seed: int = 0
-                          ) -> Callable[[Dict[str, np.ndarray]], torch.Tensor]:
+                          seed: int = 0, mesh: Optional[Mesh] = None
+                          ) -> TrainStep:
     """The parser's step: `make_step` of `human_loss` with optax's global
     clip at 1.0 before AdamW, the dropout drawing from a generator seeded
     with `seed`."""
     dropout_generator(model, seed)
     return make_step(model, optimizer, scheduler, human_loss,
-                     clip_norm=CLIP_NORM)
+                     clip_norm=CLIP_NORM, mesh=mesh)

@@ -1,17 +1,19 @@
-"""The click-based interactive segmenter's training on one device.
+"""The click-based interactive segmenter's training, on one device or over a
+mesh.
 
-Port of `video_unscreen_tpu/parallel/train_iseg.py` without the mesh:
-the click batch maker (a blob over a flat or textured background, 1-3
+Port of `video_unscreen_tpu/parallel/train_iseg.py`: the click batch
+maker (a blob over a flat or textured background, 1-3
 positive clicks inside it and 0-2 negative ones outside, drawn from the
 `RandomState` as the JAX maker draws them), the mean sigmoid binary
 cross-entropy against the mask and the state and step for
 `DistMapsModel`. The ASPP's dropout draws from the step's generator; the
-JAX step's `fold_in(PRNGKey(23), step)` masks are not reproduced.
+JAX step's `fold_in(PRNGKey(23), step)` masks are not reproduced. Over a
+mesh (`train.py`'s step) the mean is the whole batch's.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +23,9 @@ import torch.nn.functional as F
 from ..models.iseg import DistMapsModel
 from ..utils.checkpoint import load_iseg
 from .data_synth import _random_alpha, _smooth_noise
-from .train import Batch, dropout_generator, make_state, make_step, nchw
+from .mesh import Mesh
+from .train import (Batch, TrainStep, dropout_generator, make_state,
+                    make_step, nchw, over_batch)
 from .train_seg import IMAGENET_MEAN, IMAGENET_STD
 
 
@@ -80,26 +84,28 @@ def make_click_batch(rng: np.random.RandomState, batch: int,
             "label": np.stack(labels)}
 
 
-def iseg_loss(model: nn.Module, batch: Batch) -> torch.Tensor:
+def iseg_loss(model: nn.Module, batch: Batch, axis=None) -> torch.Tensor:
     """Mean sigmoid binary cross-entropy of the (B, 1, H, W) logits
-    against the mask."""
+    against the mask, over the whole batch (`train.over_batch`)."""
     logits = model(nchw(batch["img"]), batch["points"])
-    return F.binary_cross_entropy_with_logits(
-        logits[:, 0], batch["label"].to(logits.dtype))
+    bce = F.binary_cross_entropy_with_logits(
+        logits[:, 0], batch["label"].to(logits.dtype), reduction="sum")
+    return over_batch(bce, batch["label"].numel(), axis)
 
 
 def make_iseg_train_state(device="cuda", seed: int = 0, init_from=None,
-                          model: Optional[nn.Module] = None) -> nn.Module:
+                          model: Optional[nn.Module] = None,
+                          mesh: Optional[Mesh] = None) -> nn.Module:
     """`model` (default `DistMapsModel()`) ready to train
     (`train.make_state`, `load_iseg`)."""
     return make_state(model if model is not None else DistMapsModel(),
-                      device, seed, init_from, load_iseg)
+                      device, seed, init_from, load_iseg, mesh)
 
 
 def make_iseg_train_step(model: nn.Module, optimizer, scheduler,
-                         seed: int = 0
-                         ) -> Callable[[Dict[str, np.ndarray]], torch.Tensor]:
+                         seed: int = 0, mesh: Optional[Mesh] = None
+                         ) -> TrainStep:
     """The DistMaps step: `make_step` of `iseg_loss`, the ASPP's dropout
     drawing from a generator seeded with `seed`."""
     dropout_generator(model, seed)
-    return make_step(model, optimizer, scheduler, iseg_loss)
+    return make_step(model, optimizer, scheduler, iseg_loss, mesh=mesh)

@@ -1,6 +1,6 @@
-"""The binary DeepLab segmenter's training on one device.
+"""The binary DeepLab segmenter's training, on one device or over a mesh.
 
-Port of `video_unscreen_tpu/parallel/train_seg.py` without the mesh: the
+Port of `video_unscreen_tpu/parallel/train_seg.py`: the
 synthetic batch maker (person-ish composites over green-screen or
 textured backgrounds, cut as the SegAgent's grid TTA views them), the
 softmax cross-entropy (optionally weighted) and the state and step for
@@ -10,12 +10,13 @@ port's numpy ones (`data_synth.py`): `cv2.resize` INTER_LINEAR on float32
 images is `_resize_linear`, `cv2.copyMakeBorder(BORDER_REFLECT)` numpy's
 "symmetric" pad. The ASPP's dropout draws from the step's generator
 (`train.py:dropout_generator`), seeded with the step's `seed`; the JAX
-step's `fold_in(PRNGKey(17), step)` masks are not reproduced.
+step's `fold_in(PRNGKey(17), step)` masks are not reproduced. Over a
+mesh (`train.py`'s step) the mean is the whole batch's.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +27,9 @@ from ..models.deeplab import build_deeplab
 from ..utils.checkpoint import load_deeplab
 from .data_synth import (_random_alpha, _resize_linear, _smooth_noise,
                          draw_person, render_soft_person)
-from .train import Batch, dropout_generator, make_state, make_step, nchw
+from .mesh import Mesh
+from .train import (Batch, TrainStep, dropout_generator, make_state,
+                    make_step, nchw, over_batch)
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -105,29 +108,31 @@ def make_seg_batch(rng: np.random.RandomState, batch: int,
     return {"img": np.stack(imgs), "label": np.stack(labels)}
 
 
-def seg_loss(model: nn.Module, batch: Batch) -> torch.Tensor:
+def seg_loss(model: nn.Module, batch: Batch, axis=None) -> torch.Tensor:
     """Softmax cross-entropy of the logits against the integer labels: the
-    mean, or with a "weight" map sum(ce * weight) / sum(weight)."""
+    mean, or with a "weight" map sum(ce * weight) / sum(weight), over the
+    whole batch (`train.over_batch`)."""
     logits = model(nchw(batch["img"]))
     ce = F.cross_entropy(logits, batch["label"].long(), reduction="none")
     wgt = batch.get("weight")
     if wgt is None:
-        return ce.mean()
-    return (ce * wgt).sum() / wgt.sum()
+        return over_batch(ce.sum(), ce.numel(), axis)
+    return over_batch((ce * wgt).sum(), wgt.sum(), axis)
 
 
 def make_seg_train_state(device="cuda", seed: int = 0, init_from=None,
-                         model: Optional[nn.Module] = None) -> nn.Module:
+                         model: Optional[nn.Module] = None,
+                         mesh: Optional[Mesh] = None) -> nn.Module:
     """`model` (default `build_deeplab(num_classes=2)`, DeepLabV3+ on
     ResNet-50) ready to train (`train.make_state`, `load_deeplab`)."""
     return make_state(model if model is not None else build_deeplab(2),
-                      device, seed, init_from, load_deeplab)
+                      device, seed, init_from, load_deeplab, mesh)
 
 
 def make_seg_train_step(model: nn.Module, optimizer, scheduler,
-                        seed: int = 0
-                        ) -> Callable[[Dict[str, np.ndarray]], torch.Tensor]:
+                        seed: int = 0, mesh: Optional[Mesh] = None
+                        ) -> TrainStep:
     """The segmenter step: `make_step` of `seg_loss`, the ASPP's dropout
     drawing from a generator seeded with `seed`."""
     dropout_generator(model, seed)
-    return make_step(model, optimizer, scheduler, seg_loss)
+    return make_step(model, optimizer, scheduler, seg_loss, mesh=mesh)

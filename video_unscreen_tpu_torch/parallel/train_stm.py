@@ -1,10 +1,16 @@
-"""STM mask-propagation training on synthetic clips, on one device.
+"""STM mask-propagation training on synthetic clips, on one device or over
+a mesh.
 
 Port of `video_unscreen_tpu/parallel/train_stm.py`: the clip maker, the
 loss (memorize frames 0..T-2 with their ground-truth masks, segment frame
-T-1 against the whole bank) and the train step, without the mesh. The
-memory read is `models/stm.py:memory_read`, so on the card a step runs K4
-forward and K5 and K6 backward once per batch item. The optimizer is the
+T-1 against the whole bank) and the train step. The memory read is
+`models/stm.py:memory_read`, so on the card a step runs K4 forward and K5
+and K6 backward once for its batch. Over a mesh (`train.py`'s step) each
+data rank reads its block of the batch: the key and value projections are
+split over the model axis and gathered before the read, so K4-K6 see
+whole (B / data, L, d) tensors; the BatchNorms of the T - 1 `memorize`
+calls and the `segment_raw` call take the whole batch's statistics, and
+the mean is the whole batch's. The optimizer is the
 JAX tool's `optax.adamw(cosine_decay_schedule(lr, steps),
 weight_decay=1e-5)`, `parallel/train.py:make_optimizer`, which the other
 trainers share, as they share the initialization (`make_state`).
@@ -12,7 +18,7 @@ trainers share, as they share the initialization (`make_state`).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +27,8 @@ import torch.nn.functional as F
 from ..models.stm import STM
 from ..utils.checkpoint import load_stm
 from .data_synth import _random_alpha, _smooth_noise, draw_person, translate
-from .train import make_state
+from .mesh import Mesh
+from .train import TrainStep, make_state, make_step, over_batch
 
 
 def make_clip_batch(rng: np.random.RandomState, batch: int,
@@ -122,13 +129,15 @@ def batch_to_device(batch: Dict[str, np.ndarray], device
     return out
 
 
-def stm_loss(model: STM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Memorize frames 0..T-2 (teacher-forced GT masks) into a T-1 slot
-    bank, segment frame T-1 against the whole bank (every slot valid), and
-    return the mean cross-entropy of the raw decoder logits. `batch` is
-    `batch_to_device`'s. Run in train mode, each module updates its
-    BatchNorm statistics as it runs, in the order flax threads
-    `batch_stats` (the memory frames in turn, then the query)."""
+def stm_logits(model: STM, batch: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(raw decoder logits (B, 2, H, W) of the last frame, its target
+    (B, H, W) int64): memorize frames 0..T-2 (teacher-forced GT masks)
+    into a T-1 slot bank and segment frame T-1 against the whole bank
+    (every slot valid). `batch` is `batch_to_device`'s. Run in train mode,
+    each module updates its BatchNorm statistics as it runs, in the order
+    flax threads `batch_stats` (the memory frames in turn, then the
+    query)."""
     if "frames" in batch:
         frames, masks = batch["frames"], batch["masks"]
         mem_frames = [(frames[:, t], masks[:, t])
@@ -145,33 +154,36 @@ def stm_loss(model: STM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     mem_k, mem_v = torch.stack(ks, dim=1), torch.stack(vs, dim=1)
     valid = torch.ones((query.shape[0], len(ks)), dtype=torch.bool,
                        device=query.device)
-    logits = model.segment_raw(query, mem_k, mem_v, valid)
-    return F.cross_entropy(logits, target)
+    return model.segment_raw(query, mem_k, mem_v, valid), target
 
 
-def make_stm_train_state(device="cuda", seed: int = 0,
-                         init_from=None) -> STM:
-    """The STM on `device` ("cuda" unless the caller asks for "cpu") in
-    train mode: flax's initialization from a `torch.Generator` seeded with
-    `seed`, or the variables of a flax msgpack checkpoint
-    (`utils/checkpoint.py:load_stm`); `parallel/train.py:make_state`."""
-    return make_state(STM(), device, seed, init_from, load_stm)
+def stm_loss(model: STM, batch: Dict[str, torch.Tensor],
+             axis=None) -> torch.Tensor:
+    """The mean cross-entropy of `stm_logits` over the whole batch
+    (`train.over_batch`). The sum is `torch.sum` of the per-pixel losses:
+    CUDA's `nll_loss2d` sums with atomics, so its loss would not repeat
+    bit for bit."""
+    logits, target = stm_logits(model, batch)
+    ce = F.cross_entropy(logits, target, reduction="none")
+    return over_batch(ce.sum(), target.numel(), axis)
 
 
-def make_stm_train_step(model: STM, optimizer, scheduler
-                        ) -> Callable[[Dict[str, np.ndarray]], torch.Tensor]:
-    """step(numpy batch) -> loss (a 0-d tensor on the model's device, not
-    synchronized): one value-and-grad of `stm_loss`, one AdamW update and
-    one schedule step."""
-    device = next(model.parameters()).device
+def make_stm_train_state(device="cuda", seed: int = 0, init_from=None,
+                         model: Optional[STM] = None,
+                         mesh: Optional[Mesh] = None) -> STM:
+    """The STM (`model`, default `STM()`) on `device` ("cuda" unless the
+    caller asks for "cpu") in train mode: flax's initialization from a
+    `torch.Generator` seeded with `seed`, or the variables of a flax
+    msgpack checkpoint (`utils/checkpoint.py:load_stm`); split over
+    `mesh` when given (`parallel/train.py:make_state`)."""
+    return make_state(model if model is not None else STM(), device, seed,
+                      init_from, load_stm, mesh)
 
-    def step(batch: Dict[str, np.ndarray]) -> torch.Tensor:
-        model.train()
-        loss = stm_loss(model, batch_to_device(batch, device))
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        scheduler.step()
-        return loss.detach()
 
-    return step
+def make_stm_train_step(model: STM, optimizer, scheduler,
+                        mesh: Optional[Mesh] = None) -> TrainStep:
+    """The STM step (`train.make_step` of `stm_loss` on `batch_to_device`'s
+    NCHW frames): step(numpy batch) -> loss, one value-and-grad, one AdamW
+    update and one schedule step."""
+    return make_step(model, optimizer, scheduler, stm_loss, mesh=mesh,
+                     to_device=batch_to_device)

@@ -41,6 +41,9 @@ kernel, BatchNorm `weight`/`bias`/`running_mean`/`running_var` to
 `scale`/`bias` and `batch_stats` `mean`/`var`, every parameter the
 module holds (SCHP's unused head convolutions included); torch's
 `num_batches_tracked` is not written. `save_stm` is its call for the STM.
+Both take the leaves from `state` when given (a state dict of the
+model's names: a model held split over ranks writes the whole one that
+`parallel/tensor_parallel.py:full_state_dict` gathers).
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from __future__ import annotations
 import os
 import re
 import struct
-from typing import Any, Dict, Iterator, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -352,15 +355,34 @@ def _flax_leaf(mod: torch.nn.Module, leaf: str, arr: np.ndarray
     raise ValueError(f"no flax leaf for {type(mod).__name__}.{leaf}")
 
 
-def variables_tree(model: torch.nn.Module) -> Dict[str, dict]:
+def params_layout(model: torch.nn.Module
+                  ) -> Iterator[Tuple[Tuple[str, ...], str, str,
+                                      Tuple[int, ...]]]:
+    """(flax path, module name, leaf name, flax shape) of each parameter
+    of a port model, in `named_parameters` order, from the shapes alone
+    (`_flax_leaf` on a zero-stride view)."""
+    for mod_name, mod in model.named_modules():
+        for leaf, p in mod.named_parameters(recurse=False):
+            view = np.broadcast_to(np.float32(0), tuple(p.shape))
+            _, name, arr = _flax_leaf(mod, leaf, view)
+            yield (_flax_path(model, mod_name) + (name,), mod_name, leaf,
+                   tuple(arr.shape))
+
+
+def variables_tree(model: torch.nn.Module,
+                   state: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, dict]:
     """The flax variables tree ({"params": ..., "batch_stats": ...}, float32
-    numpy leaves) of a port model: the inverse of the `load_*` maps."""
+    numpy leaves) of a port model: the inverse of the `load_*` maps. Each
+    leaf is `state`'s of its name where `state` is given."""
     tree: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for mod_name, mod in model.named_modules():
         entries = list(mod.named_parameters(recurse=False)) + [
             (n, b) for n, b in mod.named_buffers(recurse=False)
             if n != "num_batches_tracked"]
         for leaf, t in entries:
+            if state is not None:
+                t = state[f"{mod_name}.{leaf}" if mod_name else leaf]
             arr = t.detach().to("cpu", torch.float32).numpy()
             coll, name, arr = _flax_leaf(mod, leaf, arr)
             node = tree[coll]
@@ -370,12 +392,12 @@ def variables_tree(model: torch.nn.Module) -> Dict[str, dict]:
     return tree
 
 
-def save_variables(path: Union[str, os.PathLike],
-                   model: torch.nn.Module) -> None:
-    """Write a port model's variables (`variables_tree`) as a flax msgpack
-    file, whole under a temporary name, then renamed."""
+def save_variables(path: Union[str, os.PathLike], model: torch.nn.Module,
+                   state: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    """Write a port model's variables (`variables_tree(model, state)`) as a
+    flax msgpack file, whole under a temporary name, then renamed."""
     buf = bytearray()
-    _pack(variables_tree(model), buf)
+    _pack(variables_tree(model, state), buf)
     path = os.fspath(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
