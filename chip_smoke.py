@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
     python3 chip_smoke.py [--paths default|green_deeplab|iseg|train|ranks|
-                                   train_ranks]
+                                   train_ranks|host_fetch]
 
 The default run reads weights/matting_unet.msgpack and weights/stm.msgpack
 only, so that one copy of the repo holds it (the DeepLab and SCHP seeds
@@ -118,7 +118,23 @@ wall seconds:
      chunks of 4, the I420 wire and the host resize: frames/s, IoU > 0.8 on
      frame 0 and > 0.75 on average, K1-K4 launched; float32 card against
      host on 2 frames of 270x480 with the same wire;
-  13. segments over ranks (after 7e): the kernel library built above,
+  15. the host fetch (after 7e): green (chroma seed, bfloat16, 1080p ->
+     544x960, 16 frames; `run` in chunks of 8 and `run_segmented` S = 8 x
+     2) and fused bg (configs/bg.json with the chroma seed, 8 frames,
+     chunks of 4), each in the device, host and host-packed fetch
+     (`fetch_fg`/`fetch`, `pack_d2h`), cuDNN deterministic, counts reset
+     just before each run: alphas (and segmasks) bit-equal across the
+     modes, packed artifacts bit-equal to unpacked, host fg and bg within
+     a mean |diff| of 6 of the device's (printed); D2H bytes a frame,
+     overflow fallbacks, the host reconstruction's ms a frame and frames/s
+     on a line each; green's host-packed fetch also at a band budget of
+     the whole plane (no overflow fallback, every plane unpacked on the
+     host) beside the default budget (which the synthetic frames overflow,
+     fallbacks > 0); `process_chunk` on one chunk uploaded by hand against
+     `run` on its frames, outputs and carry bit-equal; K1-K3 launched on
+     green and K1-K4 on bg; `tools/link_probe_torch.py`'s figures at 8 and
+     64 MB;
+  13. segments over ranks (after 15): the kernel library built above,
      two ranks spawned (`parallel/launch.py`) over `gloo`, both on the
      one card with their collectives on CUDA tensors: green (float32,
      chroma seed) and fused bg (bfloat16, STM on) `process_segments` of
@@ -251,6 +267,9 @@ kernels row is empty, since the trainers launch none of K1-K6.
 `--paths ranks` runs the build, K1-K4 against their plain versions and
 phase 13 alone (the matting and STM weights).
 
+`--paths host_fetch` runs the build, K1-K4 against their plain versions
+and phase 15 alone (the matting and STM weights).
+
 `--paths train_ranks` runs the build, K4-K6 against their plain versions
 (the bg and training reads of phase 3) and phase 14 alone; it needs no
 weights file.
@@ -259,8 +278,10 @@ weights file.
 (with the roi_sad call) and K3 and K4 against their plain versions, phase
 11 with the shipped weights, the click contract of tests/test_iseg.py:
 64-96 (20 BRS steps at 128), the evaluation phase on the ISeg masks of
-the 8 frames (two clicks a frame) against their GTs, and scenario 3 with
-the shipped ISeg and seeded STM weights. Its kernels row lists K2-K4.
+the 8 frames (two clicks a frame) against their GTs, the bfloat16 agent's
+masks of those frames against float32's (plain, flip TTA; agreement on
+>= ISEG_BF16_AGREE of every frame), and scenario 3 with the shipped ISeg
+and seeded STM weights. Its kernels row lists K2-K4.
 """
 
 import argparse
@@ -320,6 +341,7 @@ ISEG_LONG, ISEG_HOST_LONG = 800, 320   # ISeg: shipped, card vs host
 ISEG_MODES = ("after_aspp", "after_c4", "after_deeplab")
 ISEG_MASK_AGREE = 0.999     # card vs host, plain and one-step BRS masks
 ISEG_BRS20_AGREE = 0.99     # card vs host, 20-step BRS masks
+ISEG_BF16_AGREE = 0.99      # bfloat16 against float32 masks on the card
 EVAL_RTOL = 1e-4            # card vs host scores, relative
 
 
@@ -1762,6 +1784,202 @@ def wire_fused_bg_phase(stm_weights, matting_weights):
           f"|diff| > 1 on {frac:.6f}", flush=True)
     check(dmax <= 4 and frac < 1e-3,
           f"wire fused bg card vs host alphas: max {dmax}, frac>1 {frac}")
+    return counts
+
+
+HOST_FETCH_FRAMES, HOST_FETCH_BG_FRAMES = 16, 8
+HOST_FETCH_S = 8                 # run_segmented: S = 8 x 2 frames
+HOST_FETCH_MEAN_DIFF = 6.0       # host fg/bg against device: mean |diff|
+FETCH_MODES = (("device", dict(pack_d2h=False)),
+               ("host", dict(pack_d2h=False)),
+               ("host_packed", dict(pack_d2h=True)))
+# green's host-packed fetch again with a band budget of the whole plane:
+# every frame unpacks on the host (the default budget of n / 16 overflows
+# on the synthetic frames, and each plane is then fetched whole)
+PACKED_WHOLE = "host_packed_whole"
+LINK_PROBE_MB = (8, 64)
+
+
+def add_counts(total, counts):
+    """Kernel (calls, launches) of two runs added."""
+    return {k: tuple(a + b for a, b in zip(total.get(k, (0, 0)), v))
+            for k, v in counts.items()}
+
+
+def fetch_run(pipe, fn, *args, **kwargs):
+    """One run of a fetch mode, counts reset just before: (artifacts,
+    seconds, kernel counts, the run's `StageTimer`)."""
+    from video_unscreen_tpu_torch.utils.profiling import StageTimer
+    timer = StageTimer()
+    out, secs, counts = timed_run(fn, *args, timer=timer, **kwargs)
+    return out, secs, counts, timer
+
+
+def fetch_lines(what, n, secs, pipe, timer):
+    """The mode's lines: frames/s, D2H bytes a frame, overflow fallbacks,
+    the host reconstruction's ms a frame."""
+    st = pipe.stats
+    print(f"  {what}: {n / secs:.3f} frames/s", flush=True)
+    print(f"  {what}: D2H bytes a frame {st['d2h_bytes'] / n:.1f}",
+          flush=True)
+    print(f"  {what}: overflow fallbacks {st['fallbacks']}", flush=True)
+    print(f"  {what}: host reconstruction "
+          f"{timer.times['reconstruct'] * 1e3 / n:.3f} ms a frame (unpack "
+          f"{timer.times['fetch'] * 1e3 / n:.3f} ms a frame with the "
+          f"fetch)", flush=True)
+
+
+def mean_diff(a, b):
+    import numpy as np
+    return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).mean())
+
+
+def fetch_checks(what, outs, n_alpha):
+    """Across the fetch modes of one run: the first `n_alpha` artifacts
+    (alpha, and segmask in bg) bit-equal, packed bit-equal to unpacked,
+    host fg and bg within HOST_FETCH_MEAN_DIFF of the device's."""
+    import numpy as np
+    dev, host, packed = (outs[m] for m, _ in FETCH_MODES)
+    for i in range(n_alpha):
+        for m, o in (("host", host), ("host_packed", packed)):
+            check(np.array_equal(o[i], dev[i]),
+                  f"{what}: {m} artifact {i} differs from the device "
+                  f"fetch's")
+    for i, (a, b) in enumerate(zip(packed, host)):
+        check(np.array_equal(a, b), f"{what}: packed artifact {i} differs "
+              f"from unpacked")
+    a = dev[0]
+    print(f"  {what}: unknown band (0 < alpha < 255) "
+          f"{float(((a > 0) & (a < 255)).mean()):.4f} of the pixels "
+          f"(the packed budget {1 / 16:.4f} of a plane)", flush=True)
+    diffs = [mean_diff(host[i], dev[i]) for i in range(n_alpha, len(dev))]
+    print(f"  {what}: host against device fg, bg mean |diff| "
+          f"{', '.join(f'{d:.4f}' for d in diffs)}", flush=True)
+    check(max(diffs) < HOST_FETCH_MEAN_DIFF,
+          f"{what}: host fg/bg mean |diff| {diffs}")
+
+
+def carry_equal(what, got, want):
+    import torch
+    from torch.utils._pytree import tree_leaves
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        check(torch.equal(g, w), f"{what}: the carry differs from run's")
+
+
+def host_fetch_phase(cfg, stm_weights, matting_weights):
+    """15: the host fetch and the packed download. Green (chroma seed,
+    bfloat16, 1080p -> 544x960, 16 frames; `run` in chunks of 8 and
+    `run_segmented` S = 8 x 2) and fused bg (8 frames, chunks of 4), each
+    in the device, host and host-packed fetch, cuDNN deterministic: alphas
+    (and segmasks) bit-equal across the modes, packed artifacts bit-equal
+    to unpacked, host fg and bg within a mean |diff| of 6 of the device's;
+    D2H bytes a frame, overflow fallbacks, the host reconstruction's ms a
+    frame and frames/s. Green host-packed twice: at the default band
+    budget, which the synthetic frames overflow (fallbacks > 0), and at a
+    budget of the whole plane (no fallback: every plane unpacked on the
+    host), both bit-equal to unpacked. `process_chunk` on one chunk
+    against `run` on its frames, bit-equal, carry included. The link probe
+    at 8 and 64 MB.
+    Returns the kernel counts of each pipeline's runs."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from video_unscreen_tpu_torch import runtime
+    from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
+    from video_unscreen_tpu_torch.pipeline.fused_green import \
+        FusedGreenPipeline
+
+    t0 = time.perf_counter()
+    n, n_bg = HOST_FETCH_FRAMES, HOST_FETCH_BG_FRAMES
+    frames, _ = green_clip(n, *FRAME_HW, seed=SEED + 2)
+    bg_cfg = bg_config(stm_weights, matting_weights)
+    counts = {"host_fetch_green": {}, "host_fetch_bg": {}}
+    card = smi_line()
+    with cudnn_exact():
+        green = {m: FusedGreenPipeline(cfg, FRAME_HW,
+                                       work_long_side=WORK_LONG_SIDE,
+                                       fetch_fg=m.split("_")[0],
+                                       device="cuda", **kw)
+                 for m, kw in FETCH_MODES + ((PACKED_WHOLE,
+                                              dict(pack_d2h=True)),)}
+        h, w = green[PACKED_WHOLE].work_hw
+        green[PACKED_WHOLE]._pack_capacity = h * w
+        green["device"].run(frames[:2])   # warm-up: cuDNN plans
+        for how, fn_args in (("run, chunks of 8", (n // 2,)),
+                             (f"run_segmented S {HOST_FETCH_S} x "
+                              f"{n // HOST_FETCH_S}", None)):
+            outs, fallbacks = {}, {}
+            for m, pipe in green.items():
+                if fn_args is None:
+                    out, secs, c, timer = fetch_run(
+                        pipe, pipe.run_segmented, frames, HOST_FETCH_S,
+                        n // HOST_FETCH_S)
+                else:
+                    out, secs, c, timer = fetch_run(pipe, pipe.run, frames,
+                                                    *fn_args)
+                counts["host_fetch_green"] = add_counts(
+                    counts["host_fetch_green"], c)
+                outs[m], fallbacks[m] = out, pipe.stats["fallbacks"]
+                fetch_lines(f"green {how}, fetch {m}", n, secs, pipe, timer)
+            fetch_checks(f"green {how}", outs, 1)
+            check(all(np.array_equal(a, b) for a, b in zip(
+                outs[PACKED_WHOLE], outs["host"])),
+                f"green {how}: {PACKED_WHOLE} differs from unpacked")
+            check(fallbacks[PACKED_WHOLE] == 0 < fallbacks["host_packed"],
+                  f"green {how}: overflow fallbacks {fallbacks}: the whole "
+                  f"budget must unpack every frame, the default overflow")
+
+        ref = green["device"]
+        work = torch.from_numpy(runtime.resize_batch(
+            frames[:n // 2], ref.work_hw)).to("cuda")
+        alphas, fgs, _ = ref.run(frames[:n // 2], n // 2)
+        carry, outs = ref.process_chunk(ref.init_carry(), work)
+        got = outs[0].cpu().numpy()
+        check((got[..., 0] == alphas).all() and (got[..., 1:4] == fgs).all(),
+              "green process_chunk differs from run")
+        carry_equal("green process_chunk", carry, ref.carries[0])
+        del green
+
+        bg = {m: FusedBgPipeline(bg_cfg, FRAME_HW,
+                                 work_long_side=WORK_LONG_SIDE,
+                                 fetch=m.split("_")[0], device="cuda", **kw)
+              for m, kw in FETCH_MODES}
+        bg["device"].run(frames[:2])
+        outs = {}
+        for m, _ in FETCH_MODES:
+            pipe = bg[m]
+            out, secs, c, timer = fetch_run(pipe, pipe.run, frames[:n_bg], 4)
+            counts["host_fetch_bg"] = add_counts(counts["host_fetch_bg"], c)
+            outs[m] = out
+            fetch_lines(f"fused bg run, chunks of 4, fetch {m}", n_bg, secs,
+                        pipe, timer)
+        fetch_checks("fused bg", outs, 2)
+        ref = bg["device"]
+        carry, (packed, _) = ref.process_chunk(ref.init_carry(), work[:4])
+        got = packed.cpu().numpy()
+        want = ref.run(frames[:4], 4)
+        check(all((got[..., sl] == w).all() for sl, w in zip(
+            (0, 1, slice(2, 5), slice(5, 8)), want)),
+            "fused bg process_chunk differs from run")
+        carry_equal("fused bg process_chunk", carry, ref.carries)
+        del bg
+    phase(f"host fetch (green {n} frames x 8 runs, fused bg {n_bg} x 3)",
+          t0)
+    print(f"  host fetch on {card}", flush=True)
+
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "link_probe_torch", ROOT / "tools" / "link_probe_torch.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    for mb in LINK_PROBE_MB:
+        r = probe.probe(mb, 5, "cuda")
+        for line in probe.report(r).splitlines():
+            print(f"  link probe {mb} MB: {line}", flush=True)
+    phase("link probe", t0)
+    for path, c in counts.items():
+        check_launched(c, path, ("trimap", "morph", "flood") + (
+            ("attention",) if path == "host_fetch_bg" else ()))
     return counts
 
 
@@ -3442,6 +3660,7 @@ def default_paths(device):
     del pipe_bg
     counts["fused_bg_schp"] = schp_phase(work, stm_weights, weights, rows)
     counts["wire_fused_bg"] = wire_fused_bg_phase(stm_weights, weights)
+    counts.update(host_fetch_phase(cfg, stm_weights, weights))
     ranks_counts, rows["ranks"] = ranks_phase(device)
     counts.update(ranks_counts)
     disk_phase(cfg, stm_weights, weights)
@@ -3472,6 +3691,26 @@ def ranks_paths(device):
     return counts, rows
 
 
+def host_fetch_paths(device):
+    """`--paths host_fetch`: K1-K4 against their plain versions, then
+    phase 15 alone (the matting and STM weights). Returns (kernel counts by
+    path, kernel rows of K1-K4)."""
+    t0 = time.perf_counter()
+    from video_unscreen_tpu_torch.config import load_config
+    cfg = load_config(str(ROOT / "configs" / "green.json"))
+    cfg["binseg"] = {"type": "chroma"}
+    weights = ROOT / "weights" / "matting_unet.msgpack"
+    stm_weights = ROOT / "weights" / "stm.msgpack"
+    for p in (weights, stm_weights):
+        check(p.is_file(), f"the weights {p} are missing")
+    cfg["vmatting"]["model_path"] = str(weights)
+    rows = morph_phase(device)
+    rows.update(kernel_phase(device))
+    bg_kernel_phase(device, rows)
+    phase("kernels vs plain (K1-K4)", t0)
+    return host_fetch_phase(cfg, stm_weights, weights), rows
+
+
 def iseg_paths(device):
     """`--paths iseg`: interactive segmentation with the shipped
     weights/iseg.msgpack (and no other weights file): K2-K4 against their
@@ -3480,6 +3719,7 @@ def iseg_paths(device):
     scenario 3 with seeded STM weights. Returns (kernel counts by path,
     kernel rows of K2-K4)."""
     import numpy as np
+    import torch
     from video_unscreen_tpu_torch.agents.iseg import ISegAgent
 
     weights = ROOT / "weights" / "iseg.msgpack"
@@ -3507,6 +3747,22 @@ def iseg_paths(device):
     phase(f"ISeg masks of {N_FRAMES} frames", t0)
     print(f"  ISeg masks (two clicks a frame) IoU with the GT: min "
           f"{min(ious):.4f} mean {np.mean(ious):.4f}", flush=True)
+
+    t0 = time.perf_counter()
+    agent16 = ISegAgent(str(weights), input_long_side=ISEG_LONG,
+                        dtype=torch.bfloat16, device=device)
+    agree = []
+    for f, g, m in zip(frames, gts, masks):
+        ys, xs = np.nonzero(g)
+        m16 = agent16.forward(f, [(True, int(ys.mean()), int(xs.mean())),
+                                  (False, 80, 120)])
+        agree.append(float((m16 == m).mean()))
+    phase(f"ISeg bfloat16 masks of {N_FRAMES} frames", t0)
+    print(f"  ISeg bfloat16 against float32 masks (plain, flip TTA): "
+          f"agree on min {min(agree):.6f} mean {np.mean(agree):.6f} of "
+          f"pixels", flush=True)
+    check(min(agree) >= ISEG_BF16_AGREE,
+          f"ISeg bfloat16 masks against float32 {agree}")
     counts = {}
     counts["evaluation"], rows["evaluation"] = evaluation_phase(
         device, np.stack(masks), gts, rows)
@@ -3630,7 +3886,8 @@ def green_deeplab_paths(device):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", choices=("default", "green_deeplab", "iseg",
-                                        "train", "ranks", "train_ranks"),
+                                        "train", "ranks", "train_ranks",
+                                        "host_fetch"),
                     default="default")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -3674,6 +3931,8 @@ def main(argv=None):
         counts, rows = ranks_paths(device)
     elif args.paths == "train_ranks":
         counts, rows = train_ranks_paths(device)
+    elif args.paths == "host_fetch":
+        counts, rows = host_fetch_paths(device)
     else:
         counts, rows = default_paths(device)
 

@@ -6,8 +6,8 @@ matting_dtype, seg_dtype, wire, cc_downscale, pack_d2h)` and
 matting_dtype, stm_dtype, seg_dtype, wire, fetch, bg_downscale,
 pass1_downscale, pack_d2h)`, JAX's order and defaults, then `device`:
 the keyword sets the JAX tests and tools pass, the same by position, and
-the host fetch and the packed download raising the error that names
-ROADMAP.md's item 12. `cc_downscale` 1 and 4 (color_correct's distance
+the fetch keywords resolved as JAX's constructors resolve them ("auto"
+excepted, as ROADMAP.md records). `cc_downscale` 1 and 4 (color_correct's distance
 map at the work resolution and at a quarter of it) against the JAX
 `run(host_downscale=False)` with the same value, float32 and the chroma
 seed: alpha, fg and bg within the JAX suite's bound (max |diff| <= 4,
@@ -20,6 +20,8 @@ import torch
 from tests.test_pipeline_bg import BG_TEST_CFG
 from tests.test_pipeline_green import TEST_CFG, make_clip
 from tests.torch_port_util import within_jax_bound
+from video_unscreen_tpu.pipeline.fused_bg import \
+    FusedBgPipeline as JBgPipe
 from video_unscreen_tpu.pipeline.fused_green import \
     FusedGreenPipeline as JPipe
 from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
@@ -71,13 +73,35 @@ def test_bg_parameters_in_jax_order():
                         device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(fetch_fg="host"),
-                                dict(pack_d2h=True),
-                                dict(fetch_fg="device", pack_d2h=True)])
-def test_green_host_fetch_and_packing_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        FusedGreenPipeline(TEST_CFG, HW, work_long_side=128, device="cpu",
-                           **kw)
+@pytest.mark.parametrize("kind", ["green", "bg"])
+@pytest.mark.parametrize("fetch, pack", [
+    ("device", False), ("device", True), ("device", "auto"),
+    ("host", False), ("host", True), ("host", "auto"), ("auto", False)])
+def test_keyword_resolution_against_jax(kind, fetch, pack):
+    """(fetch_fg or fetch, pack_d2h) -> (self.fetch_fg or self.fetch,
+    self.pack_d2h) as JAX's constructors resolve them: packing only with
+    the host fetch. "auto" is the recorded exception: the port takes the
+    device fetch where JAX takes the host one when its JPEG runtime
+    builds, so it is held to "device" and JAX is not asked."""
+    if kind == "green":
+        args = (TEST_CFG, HW)
+        kw = dict(work_long_side=128, fetch_fg=fetch, pack_d2h=pack)
+        tpipe = FusedGreenPipeline(*args, device="cpu", **kw)
+        got = (tpipe.fetch_fg, tpipe.pack_d2h)
+    else:
+        args = (BG_TEST_CFG, HW)
+        kw = dict(work_long_side=128, use_stm_tracking=False, fetch=fetch,
+                  pack_d2h=pack)
+        tpipe = FusedBgPipeline(*args, device="cpu", **kw)
+        got = (tpipe.fetch, tpipe.pack_d2h)
+    if fetch == "auto":
+        assert got == ("device", False)
+        return
+    jcls = JPipe if kind == "green" else JBgPipe
+    jpipe = jcls(*args, **kw)
+    want = (jpipe.fetch_fg if kind == "green" else jpipe.fetch,
+            jpipe.pack_d2h)
+    assert got == want
 
 
 @pytest.mark.parametrize("cc_downscale", [1, 4])

@@ -35,6 +35,48 @@ def test_gmm_init():
         assert_close(a, b, 1e-6, name)
 
 
+def _cold_start_cases():
+    """The samples of `tests/test_gmm.py`'s three cold-started fits: two
+    clusters with 2 of 4 components live, 500 samples padded with 500
+    zero-weight zeros, and six models of 3 and 10 components."""
+    rng = np.random.RandomState(0)
+    two = np.concatenate([rng.randn(600) * 5 + 50,
+                          rng.randn(400) * 8 + 180])[None]
+    act2 = np.zeros((1, 4), bool)
+    act2[0, :2] = True
+    padded = np.concatenate([rng.randn(500) + 100, np.zeros(500)])[None]
+    pad_w = np.concatenate([np.ones(500), np.zeros(500)])[None]
+    centers = np.linspace(40, 220, 6)
+    six = np.stack([rng.randn(1000) * 6 + c for c in centers])
+    act6 = np.zeros((6, 10), bool)
+    act6[:3, :3] = True
+    act6[3:] = True
+    return {"two_clusters": (two, np.ones_like(two), act2),
+            "padding": (padded, pad_w, np.ones((1, 2), bool)),
+            "six_models": (six, np.ones_like(six), act6)}
+
+
+@pytest.mark.parametrize("case", list(_cold_start_cases()))
+def test_gmm_cold_start(case):
+    """`gmm_cold_start` then 25 EM iterations against JAX's on the same
+    samples: the quantile means equal, the fits to 1e-5."""
+    x, w, active = _cold_start_cases()[case]
+    x, w = x.astype(np.float32), w.astype(np.float32)
+    m, k = active.shape
+    jp = jgmm.gmm_cold_start(jnp.asarray(x), jnp.asarray(w),
+                             jgmm.gmm_init(m, k, jnp.asarray(active)),
+                             jnp.asarray(active))
+    tp = tgmm.gmm_cold_start(tt(x), tt(w), tgmm.gmm_init(m, k, tt(active)),
+                             tt(active))
+    for a, b, name in zip(tp, jp, jp._fields):
+        assert_equal(a, b, f"cold start {name}")
+    jfit = jgmm.gmm_fit_em(jnp.asarray(x), jnp.asarray(w), jp,
+                           jnp.asarray(active), iters=25)
+    tfit = tgmm.gmm_fit_em(tt(x), tt(w), tp, tt(active), iters=25)
+    for a, b, name in zip(tfit, jfit, jfit._fields):
+        assert_close(a, b, 1e-5, f"fit {name}")
+
+
 def test_gmm_pdf():
     _, params = _bank(0)
     x = np.random.RandomState(1).uniform(0, 255, (3, 500)).astype(np.float32)

@@ -9,8 +9,10 @@ JAX, flax, optax, msgpack, cv2 or JAX-package module, `chip_smoke.py`,
 `tools/train_{stm,matting,binseg,human,iseg}_torch.py` and the CLIs
 `tools/unscreen/{green,bg,bg_offline}_torch.py`,
 `tools/replace/replace_torch.py`, `tools/eval_torch.py`,
-`tools/make_eval_set_torch.py`, `tools/run_app_protocol_torch.py` and
-`tools/unscreen_parallel_torch.py` import none either, and the entry
+`tools/make_eval_set_torch.py`, `tools/run_app_protocol_torch.py`,
+`tools/unscreen_parallel_torch.py`, `tools/link_probe_torch.py`,
+`tools/run_eval_protocol_torch.py` and `tools/profile_stages_torch.py`
+import none either, and the entry
 points (`FrameStreamer` and the dry run among them) refuse a missing card
 instead of quietly running on the host."""
 import ast
@@ -62,7 +64,7 @@ def test_port_imports_nothing_of_jax():
                  "parallel.train_seg", "parallel.train_human",
                  "parallel.train_iseg", "models.dropout", "parallel.mesh",
                  "parallel.launch", "parallel.dryrun",
-                 "parallel.tensor_parallel"):
+                 "parallel.tensor_parallel", "ops.wirepack"):
         assert f"video_unscreen_tpu_torch.{name}" in _PORT_MODULES
     assert bad == [] or bad == [""], f"forbidden modules loaded: {bad}"
 
@@ -114,7 +116,10 @@ def test_port_trainers_import_nothing_of_jax(family):
                                  "replace/replace_torch", "eval_torch",
                                  "make_eval_set_torch",
                                  "run_app_protocol_torch",
-                                 "unscreen_parallel_torch"])
+                                 "unscreen_parallel_torch",
+                                 "link_probe_torch",
+                                 "run_eval_protocol_torch",
+                                 "profile_stages_torch"])
 def test_port_clis_import_nothing_of_jax(cli):
     _loads_nothing_of_jax(f"tools/{cli}.py")
 
@@ -242,17 +247,23 @@ def test_entry_points_refuse_missing_cuda(entry, tmp_path):
 
 
 def test_unported_options_raise():
+    """Every option of the JAX constructors is ported now: the host fetch
+    and the packing build (packing only with the host fetch), and what no
+    JAX pipeline takes raises ValueError."""
     from tests.test_pipeline_bg import BG_TEST_CFG
     from tests.test_pipeline_green import TEST_CFG
     from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
     from video_unscreen_tpu_torch.pipeline.fused_green import \
         FusedGreenPipeline
-    with pytest.raises(NotImplementedError, match="item 12"):
+    pipe = FusedBgPipeline(BG_TEST_CFG, (96, 128), work_long_side=128,
+                           fetch="host", device="cpu")
+    assert (pipe.fetch, pipe.pack_d2h) == ("host", True)
+    pipe = FusedBgPipeline(BG_TEST_CFG, (96, 128), work_long_side=128,
+                           pack_d2h=True, device="cpu")
+    assert (pipe.fetch, pipe.pack_d2h) == ("device", False)
+    with pytest.raises(ValueError, match="fetch='disk'"):
         FusedBgPipeline(BG_TEST_CFG, (96, 128), work_long_side=128,
-                        fetch="host", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        FusedBgPipeline(BG_TEST_CFG, (96, 128), work_long_side=128,
-                        pack_d2h=True, device="cpu")
+                        fetch="disk", device="cpu")
     with pytest.raises(ValueError, match="wire='rgb'"):
         FusedGreenPipeline(TEST_CFG, (96, 128), work_long_side=128,
                            wire="rgb", device="cpu")

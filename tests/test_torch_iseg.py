@@ -355,3 +355,25 @@ def test_mobilenet_deeplab_from_seeded_tree(jax_ref):
     with torch.no_grad():
         got = model(_nchw(ref["x"]))
     assert_close(_nhwc(got), ref["logits"], 1e-4, "MobileNetV2 DeepLab")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_bf16_agent_runs(mode):
+    """`ISegAgent(dtype=torch.bfloat16)` as JAX's `dtype=`: bfloat16
+    convolutions, float32 BatchNorms, float32 probabilities in [0, 1]
+    from the plain prediction and from BRS at each insertion point, in
+    JAX's parameter order (`insertion_mode`, `dtype`, `seed`). Its masks
+    are held against float32's on the card (`chip_smoke.py --paths
+    iseg`)."""
+    rng = np.random.RandomState(1)
+    img = rng.randint(0, 256, (48, 64, 3)).astype(np.uint8)
+    agent = ISegAgent(None, True, 64, 0.5, False, 0, 20, 1e-3, 10.0, 2,
+                      mode, torch.bfloat16, 0, device="cpu")
+    assert agent.model.rgb_conv1.weight.dtype == torch.bfloat16
+    assert agent.model.inst_head.convs[-1].weight.dtype == torch.bfloat16
+    assert agent.model.rgb_bn.weight.dtype == torch.float32
+    for use_brs in (False, True):
+        probs = agent.predict_probs(img, [(True, 24, 32)], use_brs)
+        assert probs.shape == (48, 64) and probs.dtype == np.float32
+        assert np.isfinite(probs).all()
+        assert probs.min() >= 0.0 and probs.max() <= 1.0

@@ -152,3 +152,53 @@ def test_output_saturates_like_the_reference():
     np.testing.assert_array_equal(outs[sat], want[sat])
     assert set(outs[sat].tolist()) == {0.0, 1.0}
     np.testing.assert_allclose(outs[~sat], want[~sat], atol=1e-6)
+
+
+def test_spectral_normalize_tree_against_jax(agents):
+    """The SpectralNorm fold of the shipped weights: the port's
+    `spectral_normalize_tree` on the torch state dict against JAX's on its
+    params tree (same float64 power iterations, same draws in flax's
+    order), every weight bit-equal once mapped."""
+    from video_unscreen_tpu.models.matting_unet import \
+        spectral_normalize_tree as j_fold
+    from video_unscreen_tpu_torch.models.matting_unet import \
+        spectral_normalize_tree as t_fold
+    from video_unscreen_tpu_torch.utils.checkpoint import load_matting_unet
+    jagent, tagent = agents
+    variables = jax.tree.map(np.asarray, jagent.variables)
+    want = load_matting_unet(dict(variables, params=jax.tree.map(
+        np.asarray, j_fold(jagent.variables["params"]))))
+    state = tagent.model.state_dict()
+    got = t_fold(state)
+    n_folded = 0
+    for key, w in want.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        assert_equal(got[key], w, key)
+        n_folded += int(w.dim() == 4 and not torch.equal(w, state[key]))
+    assert n_folded == 54
+
+
+def test_agent_reads_the_fold_from_its_sidecar(agents, tmp_path):
+    """`VMattingAgent(fold_spectral_norm=None)` folds when the weights'
+    `.meta.json` sidecar says `"pre_spectral_norm": true`, as the JAX
+    agent does, `fold_spectral_norm=True` folds without one and False
+    overrides the sidecar. (The fold itself is held against JAX above.)"""
+    import json
+    import os
+    path = tmp_path / "matting_unet.msgpack"
+    os.symlink(os.path.abspath(WEIGHTS), path)
+    (tmp_path / "matting_unet.msgpack.meta.json").write_text(
+        json.dumps({"pre_spectral_norm": True}))
+    _, tagent = agents
+    folded = TVM(model_path=str(path), input_long_side=128, device="cpu")
+    forced = TVM(model_path=WEIGHTS, input_long_side=128, device="cpu",
+                 fold_spectral_norm=True)
+    plain = TVM(model_path=str(path), input_long_side=128, device="cpu",
+                fold_spectral_norm=False)
+    base = tagent.model.state_dict()
+    for key, w in folded.model.state_dict().items():
+        assert_equal(w, forced.model.state_dict()[key], key)
+        assert_equal(plain.model.state_dict()[key], base[key], key)
+        if w.dim() == 4:
+            assert not torch.equal(w, base[key]), key

@@ -113,8 +113,8 @@ def _identity_run(frames, n_segments, chunk_size):
         return carry + 1, (batch.clone(),)
 
     stats = collections.Counter()
-    out, = run_segments(step, 0, frames, n_segments, chunk_size,
-                        torch.device("cpu"), stats, frames[0].shape[:2])
+    out, _ = run_segments(step, 0, frames, n_segments, chunk_size,
+                          torch.device("cpu"), stats, frames[0].shape[:2])
     return out, seen, stats
 
 

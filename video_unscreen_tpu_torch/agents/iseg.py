@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..models.iseg import INSERTION_MODES, DistMapsModel
-from ..models.precision import empty_module
+from ..models.precision import convs_to, empty_module
 from ..ops.geometry import (get_target_size, imnormalize, inv_pad_resize,
                             pad_resize)
 from ..parallel.train import init_flax_like
@@ -319,14 +319,18 @@ class ISegAgent:
     """The JAX package's `ISegAgent` surface. `model_path` is a flax
     msgpack checkpoint (weights/iseg.msgpack) or its variables tree; None
     gives flax-like random weights from a `torch.Generator` seeded with
-    `seed`. `device` is the card unless the caller passes "cpu"."""
+    `seed`. `dtype` is the net's (`models/precision.py`): float32, or
+    bfloat16 convolutions with float32 BatchNorms, as JAX's `dtype=`
+    builds it; the probabilities are float32 either way. `device` is the
+    card unless the caller passes "cpu"."""
 
     def __init__(self, model_path=None, with_brs: bool = False,
                  input_long_side: int = 800, prob_thresh: float = 0.5,
                  with_flip: bool = True, cuda_device: int = 0,
                  max_clicks: int = 20, brs_reg_weight: float = 1e-3,
                  brs_reg_bias_weight: float = 10.0, brs_maxiter: int = 20,
-                 insertion_mode: str = "after_aspp", seed: int = 0,
+                 insertion_mode: str = "after_aspp",
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
                  device="cuda"):
         if insertion_mode not in INSERTION_MODES:
             raise ValueError(f"unknown insertion_mode {insertion_mode!r}")
@@ -345,14 +349,15 @@ class ISegAgent:
             model.load_state_dict(load_iseg(model_path))
         else:
             init_flax_like(model, torch.Generator().manual_seed(seed))
-        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.model = convs_to(model.to(self.device).eval(), dtype
+                              ).requires_grad_(False)
         self.brs_stats: Dict[str, int] = {}
 
     # -- device work ----------------------------------------------------------
     def _probs(self, logits: torch.Tensor) -> torch.Tensor:
         """(B, 1, H, W) logits -> (H, W) probabilities, the flip's
         mirrored back and averaged."""
-        probs = torch.sigmoid(logits[:, 0])
+        probs = torch.sigmoid(logits[:, 0].float())
         if self.with_flip:
             return 0.5 * (probs[0] + probs[1].flip(-1))
         return probs[0]

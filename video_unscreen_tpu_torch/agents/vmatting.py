@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models.matting_unet import MattingUNet
+from ..models.matting_unet import MattingUNet, spectral_normalize_tree
 from ..models.precision import convs_to, empty_module
 from ..ops.geometry import (get_target_size, imnormalize, inv_pad_resize,
                             pad_resize)
@@ -31,12 +31,17 @@ class VMattingAgent:
 
     def __init__(self, model_path: Optional[str] = None,
                  input_long_side: int = 960, device="cuda",
-                 dtype: torch.dtype = torch.float32, seed: int = 0):
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
+                 fold_spectral_norm: Optional[bool] = None):
         """`model_path` is a flax msgpack checkpoint (or a dict of its
         variables as numpy arrays); None gives flax-like random weights
-        from a `torch.Generator` seeded with `seed`. A `.meta.json` sidecar
-        asking for the SpectralNorm fold is refused: none ships, and the
-        fold is not ported. `device` is the card unless the caller passes
+        from a `torch.Generator` seeded with `seed`. `fold_spectral_norm`
+        divides every conv weight by its leading singular value
+        (`models/matting_unet.py:spectral_normalize_tree`), which is right
+        only for weights stored before the reference's SpectralNorm (a
+        converted checkpoint); None reads `"pre_spectral_norm"` from a
+        `<model_path>.meta.json` sidecar, as the JAX agent does, and folds
+        nothing without one. `device` is the card unless the caller passes
         "cpu"."""
         if input_long_side % self.DIVISION != 0:
             input_long_side = (input_long_side // self.DIVISION + 1
@@ -45,24 +50,26 @@ class VMattingAgent:
         self.device = resolve_device(device)
         model = empty_module(MattingUNet)
         if model_path is not None:
-            if isinstance(model_path, str):
-                self._refuse_spectral_norm(model_path)
             model.load_state_dict(load_matting_unet(model_path))
         else:
             init_flax_like(model, torch.Generator().manual_seed(seed))
+        if fold_spectral_norm is None:
+            fold_spectral_norm = isinstance(model_path, str) and bool(
+                self._sidecar_meta(model_path).get("pre_spectral_norm",
+                                                   False))
+        if fold_spectral_norm:
+            model.load_state_dict(spectral_normalize_tree(model.state_dict()))
         self.model = convs_to(model.to(self.device).eval(), dtype)
 
     @staticmethod
-    def _refuse_spectral_norm(model_path: str) -> None:
+    def _sidecar_meta(model_path: str) -> dict:
         import json
         import os.path as osp
         meta = f"{model_path}.meta.json"
         if osp.exists(meta):
             with open(meta) as f:
-                if json.load(f).get("pre_spectral_norm", False):
-                    raise NotImplementedError(
-                        f"{meta} asks for the SpectralNorm fold, which the "
-                        "port does not run yet")
+                return json.load(f)
+        return {}
 
     def device_forward_impl(self, img: torch.Tensor, alpha_pre: torch.Tensor,
                             trimap: torch.Tensor,

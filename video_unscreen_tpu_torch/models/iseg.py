@@ -8,7 +8,8 @@ min-distance tanh(2 sqrt(d^2)) maps, fused with the RGB input by a 1x1
 conv block, fed to a DeepLabV3+ variant (ResNet-50 trunk without
 dilation, the stage-1 skip projected to 32 channels, ASPP with 128
 channels at the stage-4 feature) and classified by depthwise-separable
-heads.
+heads. The net runs in its convolutions' dtype (`models/precision.py:
+convs_to`, float32 or bfloat16), its input cast at the first one.
 
 Clicks are a fixed-size (B, N, 3) tensor of (is_positive, y, x) rows,
 y < 0 marking an empty slot. `features(..., insertion_mode)` stops at a
@@ -154,7 +155,8 @@ class DistMapsModel(nn.Module):
               ) -> torch.Tensor:
         h, w = image.shape[-2:]
         coord = dist_maps(points, h, w, self.norm_radius)
-        x = self.rgb_conv1(torch.cat([image, coord], dim=1))
+        x = self.rgb_conv1(torch.cat([image, coord], dim=1).to(
+            self.rgb_conv1.weight.dtype))
         x = self.rgb_bn(F.leaky_relu(x, 0.2))
         return self.rgb_conv2(x)
 
@@ -188,8 +190,9 @@ class DistMapsModel(nn.Module):
         if insertion_mode not in INSERTION_MODES:
             raise ValueError(f"unknown insertion_mode {insertion_mode!r}")
         if scale is not None:
+            # in the net's dtype, as flax's convolutions cast their input
             feats = (feats * (1.0 + scale)[None, :, None, None]
-                     + bias[None, :, None, None])
+                     + bias[None, :, None, None]).to(feats.dtype)
         fe = self.feature_extractor
         if insertion_mode == "after_c4":
             feats = fe.aspp_concat(aux, feats)

@@ -16,12 +16,16 @@ Submodules carry the flax module names (`enc_conv1`, `BasicBlockEnc_3`,
 (`utils/checkpoint.py:load_matting_unet`). The JAX package's
 `SubpixelConvTranspose` (four 2x2 phase convs, a rewrite for XLA) is a
 plain `nn.ConvTranspose2d(k=4, s=2, p=1)` here.
+
+`spectral_normalize_tree` folds the reference's SpectralNorm wrappers into
+a state dict's conv weights, as the JAX package folds its params tree.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -209,3 +213,44 @@ class MattingUNet(nn.Module):
         alpha = (torch.tanh(raw) + 1.0) / 2.0
         alpha = torch.where(raw <= -_TANH_SATURATION, 0.0, alpha)
         return torch.where(raw >= _TANH_SATURATION, 1.0, alpha)
+
+
+def spectral_normalize_tree(state_dict: Dict[str, torch.Tensor],
+                            n_power_iterations: int = 20,
+                            seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Every conv weight of a MattingUNet state dict divided by its leading
+    singular value: the constant-at-inference form of the reference's
+    SpectralNorm (`vmatting/model.py:45-113`), as the JAX package's
+    `spectral_normalize_tree` computes it. sigma comes from a float64
+    power iteration on the (out, in * kh * kw) matricization of the flax
+    kernel, from `RandomState(seed)` draws taken over the kernels in flax's
+    order (its params tree flattened, keys sorted at every level). A 4x4
+    weight is a transposed conv's, whose flax kernel is the (kh, kw, in,
+    out) one flipped in both spatial axes (`utils/checkpoint.py`). Returns
+    a new state dict; the other entries are the given tensors."""
+    rng = np.random.RandomState(seed)
+    kernels = sorted(
+        (tuple(k[:-len(".weight")].split(".")) + ("kernel",), k)
+        for k, w in state_dict.items()
+        if k.endswith(".weight") and w.dim() == 4)
+    out = dict(state_dict)
+    for _, key in kernels:
+        w = state_dict[key]
+        arr = w.detach().to("cpu", torch.float32).numpy()
+        transposed = tuple(arr.shape[2:]) == (4, 4)
+        kern = (arr.transpose(2, 3, 0, 1)[::-1, ::-1] if transposed
+                else arr.transpose(2, 3, 1, 0))
+        mat = kern.reshape(-1, kern.shape[-1]).T          # (out, rest)
+        u = rng.randn(mat.shape[0]).astype(np.float64)
+        for _ in range(n_power_iterations):
+            v = mat.T @ u
+            v /= np.linalg.norm(v) + 1e-12
+            u = mat @ v
+            u /= np.linalg.norm(u) + 1e-12
+        sigma = float(u @ mat @ v)
+        kern = kern / np.float32(max(sigma, 1e-12))
+        arr = (kern[::-1, ::-1].transpose(2, 3, 0, 1) if transposed
+               else kern.transpose(3, 2, 0, 1))
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+            dtype=w.dtype, device=w.device)
+    return out

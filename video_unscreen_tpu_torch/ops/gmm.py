@@ -1,7 +1,7 @@
 """Banks of 1-D Gaussian mixtures: weighted EM and the mixture pdf.
 
-Port of `video_unscreen_tpu/ops/gmm.py` (`gmm_init`, `gmm_fit_em`,
-`gmm_pdf`). A bank holds M models of K components; models with fewer live
+Port of `video_unscreen_tpu/ops/gmm.py` (`gmm_init`, `gmm_cold_start`,
+`gmm_fit_em`, `gmm_pdf`). A bank holds M models of K components; models with fewer live
 components carry zero-weight padding (`active`). The JAX package vmaps one
 model's EM over the bank; here the bank is a leading axis.
 """
@@ -33,6 +33,37 @@ def gmm_init(n_models: int, k_max: int, active: torch.Tensor) -> GMMParams:
                            device=active.device).expand(n_models, k_max)
     var = torch.full((n_models, k_max), 100.0, device=active.device)
     return GMMParams(w, means.contiguous(), var)
+
+
+def _weighted_quantile_means(x: torch.Tensor, sample_w: torch.Tensor,
+                             k_max: int) -> torch.Tensor:
+    """(M, N) samples and weights -> (M, k_max) means at the weighted
+    quantiles (i + 0.5) / k_max: each model's samples sorted (stably), its
+    weights' normalized cumulative sum searched from the left. The
+    quantiles are (i + 0.5) times the float32 reciprocal of k_max, as XLA
+    computes JAX's division by that constant: a quantile that ties a
+    cumulative weight (uniform weights) must fall on the same side."""
+    order = torch.argsort(x, dim=-1, stable=True)
+    xs = torch.gather(x, -1, order)
+    cdf = torch.cumsum(torch.gather(sample_w, -1, order), dim=-1)
+    cdf = cdf / cdf[:, -1:].clamp_min(_EPS)
+    inv_k = torch.tensor(1.0, dtype=torch.float32) / k_max
+    qs = (torch.arange(k_max, dtype=torch.float32, device=x.device)
+          + 0.5) * inv_k.to(x.device)
+    idx = torch.searchsorted(cdf, qs.expand(x.shape[0], k_max).contiguous())
+    return torch.gather(xs, -1, idx.clamp(0, x.shape[-1] - 1))
+
+
+def gmm_cold_start(x: torch.Tensor, sample_w: torch.Tensor,
+                   params: GMMParams, active: torch.Tensor) -> GMMParams:
+    """Re-seed a bank without its warm start: the means at the weighted
+    sample quantiles, every variance 100, uniform weights over the live
+    components."""
+    means = _weighted_quantile_means(x, sample_w, params.means.shape[-1])
+    var = torch.full_like(params.variances, 100.0)
+    act = active.to(torch.float32)
+    w = act / act.sum(-1, keepdim=True).clamp_min(1.0)
+    return GMMParams(w, means, var)
 
 
 def gmm_fit_em(x: torch.Tensor, sample_w: torch.Tensor, params: GMMParams,

@@ -29,13 +29,7 @@ from ..utils.fileio import parallel_read_img
 from ..utils.profiling import StageTimer
 
 WIRES = ("bgr", "yuv420")
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    """The error an option of the JAX pipelines that has no port yet
-    raises, naming its ROADMAP.md item."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1, item {item})")
+FETCHES = ("device", "host")
 
 
 @functools.lru_cache(maxsize=16)
@@ -144,11 +138,55 @@ def host_frames(frames, work_hw: Tuple[int, int]) -> np.ndarray:
     return runtime.resize_batch(frames, work_hw)
 
 
+def resolve_fetch(fetch: str, pack_d2h) -> Tuple[str, bool]:
+    """The fused pipelines' (fetch, pack_d2h) as the JAX constructors
+    resolve them, but for "auto": JAX takes the host fetch when its JPEG
+    runtime builds, the port always takes the device fetch (ROADMAP.md,
+    divergences). Packing asks for the host fetch: "auto" packs exactly
+    then, and True with the device fetch packs nothing."""
+    if fetch not in FETCHES + ("auto",):
+        raise ValueError(f"fetch={fetch!r}: one of {FETCHES + ('auto',)}")
+    fetch = "device" if fetch == "auto" else fetch
+    if pack_d2h == "auto":
+        pack_d2h = fetch == "host"
+    return fetch, bool(pack_d2h) and fetch == "host"
+
+
+def scan_steps(step: Callable, carries, frames: torch.Tensor, *args):
+    """`step(carries, frames[:, t], *args)` for each t of (S, N, ...)
+    `frames`, each returning (carries, a tuple of tensors with a leading S
+    axis): the fused pipelines' chunk of N lockstep steps, as JAX's
+    `lax.scan` over the frame axis. Returns (carries, each output stacked
+    to (S, N, ...))."""
+    outs = []
+    for t in range(frames.shape[1]):
+        carries, out = step(carries, frames[:, t], *args)
+        outs.append(out)
+    return carries, tuple(torch.stack(o, dim=1) for o in zip(*outs))
+
+
+class Resident:
+    """What a run left on the device: the outputs it did not fetch (the
+    packed download's full planes), kept a chunk at a time, and the
+    segments' last `carries`. `frame(k, i)` is output k of clip frame i,
+    fetched alone."""
+
+    def __init__(self, seg_len: int, chunk_size: int):
+        self.seg_len, self.chunk_size = seg_len, chunk_size
+        self.chunks: List[Tuple[torch.Tensor, ...]] = []
+        self.carries = None
+
+    def frame(self, k: int, i: int) -> np.ndarray:
+        s, t = divmod(i, self.seg_len)
+        c, j = divmod(t, self.chunk_size)
+        return self.chunks[c][k][s, j].cpu().numpy()
+
+
 def run_segments(step: Callable, carries, frames, n_segments: int,
                  chunk_size: int, device: torch.device,
                  stats: collections.Counter, wire_hw: Tuple[int, int],
-                 wire: str = "bgr", timer: Optional[StageTimer] = None
-                 ) -> Tuple[np.ndarray, ...]:
+                 wire: str = "bgr", timer: Optional[StageTimer] = None,
+                 n_fetch: Optional[int] = None):
     """The fused pipelines' host loop. The clip is split into `n_segments`
     contiguous segments of ceil(N / S) frames (the tail padded with the
     last frame) advanced in lockstep. The host builds each chunk of
@@ -159,9 +197,11 @@ def run_segments(step: Callable, carries, frames, n_segments: int,
     `step(carries, frames)` takes one step's (S, ...) frames and returns
     (carries, a tuple of tensors with a leading S axis); a chunk's outputs
     are fetched together in one copy (one sync, counted in `stats`).
-    `timer` takes the stream_wait / dispatch / fetch split. Returns each
-    output as an (N, ...) numpy array in clip order, trimmed to N
-    frames."""
+    `timer` takes the stream_wait / dispatch / fetch split; `stats` counts
+    the bytes fetched (`d2h_bytes`). Returns each output as an (N, ...)
+    numpy array in clip order, trimmed to N frames, then a `Resident`:
+    with `n_fetch` only the first `n_fetch` outputs are fetched, and the
+    rest stay on the device in it."""
     frames = [np.ascontiguousarray(f, np.uint8) for f in frames]
     n = len(frames)
     seg_len = -(-n // n_segments)
@@ -184,25 +224,27 @@ def run_segments(step: Callable, carries, frames, n_segments: int,
     stream = iter(ChunkStream(fill, len(starts),
                               (chunk_size, n_segments) + one, device))
     chunks = []
+    resident = Resident(seg_len, chunk_size)
     while True:
         with timer.stage("stream_wait"):
             item = next(stream, None)
         if item is None:
             break
         chunk, cn = item
-        outs = []
         with timer.stage("dispatch"):
-            for t in range(cn):
-                carries, out = step(carries, chunk[t])
-                outs.append(out)
+            # (cn, S, ...) -> (S, cn, ...): step t still sees chunk[t]
+            carries, outs = scan_steps(step, carries,
+                                       chunk[:cn].transpose(0, 1))
         with timer.stage("fetch"):
-            chunks.append(_fetch([torch.stack(o, dim=1)
-                                  for o in zip(*outs)]))
+            chunks.append(_fetch(outs[:n_fetch], stats))
+        resident.chunks.append(outs[len(chunks[-1]):])
         stats["syncs"] += 1
+    resident.carries = carries
     # per output: (S, seg_len, ...) -> clip order, trimmed
-    return tuple(np.concatenate(parts, axis=1).reshape(
+    fetched = tuple(np.concatenate(parts, axis=1).reshape(
         (n_segments * seg_len,) + parts[0].shape[2:])[:n]
         for parts in zip(*chunks))
+    return fetched + (resident,)
 
 
 def segment_blocks(step: Callable, init_carries: Callable, mesh, segments,
@@ -222,19 +264,19 @@ def segment_blocks(step: Callable, init_carries: Callable, mesh, segments,
     rows = batch_sharding(mesh)
     block = torch.as_tensor(rows.shard(segments)).to(device)
     model_axis = mesh.axis("model")
-    carries = init_carries(block.shape[0])
-    outs = []
-    for t in range(block.shape[1]):
-        carries, out = step(carries, block[:, t], model_axis)
-        outs.append(out)
-    return tuple(rows.gather(torch.stack(o, dim=1)) for o in zip(*outs))
+    _, outs = scan_steps(step, init_carries(block.shape[0]), block,
+                         model_axis)
+    return tuple(rows.gather(o) for o in outs)
 
 
-def _fetch(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+def _fetch(tensors, stats: Optional[collections.Counter] = None
+           ) -> List[np.ndarray]:
     """Copy tensors of any dtypes to the host in one transfer: their bytes
     concatenated on the device, split and reinterpreted on the host."""
     flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
     host = torch.cat(flat).cpu().numpy()
+    if stats is not None:
+        stats["d2h_bytes"] += host.nbytes
     out, at = [], 0
     for t, f in zip(tensors, flat):
         nbytes = f.numel()

@@ -2,12 +2,15 @@
 stage chain on the device.
 
 Port of `video_unscreen_tpu/pipeline/fused_bg.py` (`BgCarry`,
-`FusedBgPipeline`: `run`, `run_segmented`, `_step_batched`, bg_offline's
-stage scans `process_chunk_stage1` and `process_chunk_stage3`;
-`run_fused`),
-with the artifacts computed on the device: the JAX package's
-`fetch="device"`, `pack_d2h=False`; and `process_segments`, the segments
-over the ranks of a mesh (`parallel/mesh.py`). The host builds each
+`FusedBgPipeline`: `run`, `run_segmented`, `_step_batched`,
+`process_chunk`, `process_chunk_segments`, bg_offline's stage scans
+`process_chunk_stage1` and `process_chunk_stage3`; `run_fused`), with both
+of its fetches, and `process_segments`, the segments over the ranks of a
+mesh (`parallel/mesh.py`). The device fetch downloads alpha, segmask, fg
+and bg; the host fetch (`fetch="host"`) only alpha, segmask and the
+regionfilled background at 1/`bg_downscale`, and the host rebuilds fg and
+bg as JAX's `_assemble_outputs` does (with `pack_d2h` the two planes cross
+bit-packed, `ops/wirepack.py`). The host builds each
 chunk, the frames resized to work resolution (`host_downscale`, the
 default) and packed as BGR or I420 (`wire`), and uploads it through
 pinned memory behind the device's work (`pipeline/common.py:
@@ -63,15 +66,18 @@ from ..agents.vmatting import VMattingAgent
 from ..ops.color import bgr2gray, bgr2hsv, hsv2bgr
 from ..ops.compositing import get_fg
 from ..ops.connected import remove_invalid_objects_ds
-from ..ops.geometry import get_target_size, imnormalize
+from ..ops.geometry import get_target_size, imnormalize, resize_nchw
 from ..ops.morphology import dilate
 from ..ops.regionfill import cg_syncs, regionfill_solve, solve_shape
 from ..ops.trimap import generate_trimap
+from ..ops.wirepack import pack_plane, unpack_planes
+from .. import runtime
 from ..parallel.mesh import axis_any
 from ..utils.device import resolve_device
 from ..utils.profiling import StageTimer, maybe_trace
-from .common import (build_score_map, check_wire, prep_frames, read_frames,
-                     run_segments, segment_blocks, unported)
+from .common import (build_score_map, check_wire, host_frames, prep_frames,
+                     read_frames, resolve_fetch, run_segments, scan_steps,
+                     segment_blocks)
 from .fused_green import _build_seed_segmenter, save_artifacts, seed_mask
 
 
@@ -97,15 +103,18 @@ class FusedBgPipeline:
     as in the JAX pipeline. `stats` counts, for the last run, the steps,
     host syncs (the flag reads, the CG stopping checks and the fetches),
     the STM steps and tracked frames, the ballooned frames, the seed steps
-    and seeded frames, and the CG iterations; `step_tracking` holds each
-    step's tracking flags and `step_seeded` the segments the seed ran on.
+    and seeded frames, the CG iterations, the bytes downloaded and the
+    packed download's overflow fallbacks; `step_tracking` holds each
+    step's tracking flags, `step_seeded` the segments the seed ran on and
+    `carries` the carry at the end of the last run.
     `wire` is the upload's format, as `FusedGreenPipeline`'s.
     `process_chunk_stage1` and `process_chunk_stage3` are bg_offline's
     stage scans (`pipeline/bg_offline.py`), `process_segments` the
     segments over the ranks of a mesh. The parameters are the JAX
-    pipeline's, in its order, then `device`. The JAX pipeline's host fetch
-    (`fetch="host"`, with the background at 1/`bg_downscale`, and
-    `pack_d2h`) is not ported: asking for it raises."""
+    pipeline's, in its order, then `device`. `fetch` is "device", "host"
+    (the background downloaded at 1/`bg_downscale`) or "auto", which is
+    "device" (`common.resolve_fetch`); `pack_d2h` bit-packs the host
+    fetch's alpha and segmask."""
 
     def __init__(self, cfg: dict, frame_hw: Tuple[int, int],
                  work_long_side: int = 960, use_stm_tracking: bool = True,
@@ -114,14 +123,14 @@ class FusedBgPipeline:
                  seg_dtype: torch.dtype = torch.bfloat16, wire: str = "bgr",
                  fetch: str = "auto", bg_downscale: int = 2,
                  pass1_downscale: int = 2, pack_d2h="auto", device="cuda"):
-        if fetch not in ("auto", "device"):
-            raise unported(f"fetch={fetch!r} (host-side fg and bg)", "12")
-        if pack_d2h not in ("auto", False):
-            raise unported("pack_d2h (the bit-packed download)", "12")
+        self.fetch, self.pack_d2h = resolve_fetch(fetch, pack_d2h)
+        # a packed plane's band budget, None for
+        # `wirepack.default_capacity`; set only by checks that force or
+        # avoid an overflow
+        self._pack_capacity = None
         if int(bg_downscale) != bg_downscale or bg_downscale < 1:
             raise ValueError(f"bg_downscale={bg_downscale!r}: a whole "
                              f"number >= 1")
-        # shapes only the host fetch's background (item 12)
         self.bg_downscale = int(bg_downscale)
         self.device = resolve_device(device)
         self.wire = check_wire(wire)
@@ -178,6 +187,7 @@ class FusedBgPipeline:
         self.step_tracking: List[Tuple[bool, ...]] = []
         self.step_seeded: List[Tuple[bool, ...]] = []
         self._cg_iters: List[torch.Tensor] = []
+        self.carries = None
 
     def reset_stats(self) -> None:
         """Empty `stats`, the per-step flags and the pending CG counts."""
@@ -347,8 +357,8 @@ class FusedBgPipeline:
         axis S, `frames_full` is uint8 (S, H, W, 3) or I420 (S, H * 3 / 2,
         W) on the device. `model_axis` ((process group, size): ranks that hold
         the same segments) reaches the seed, see `_segment_batched`.
-        Returns (new carries, uint8 (S, h, w, 8): alpha, segmask, fg,
-        bg)."""
+        Returns (new carries, uint8 (S, h, w, 8): alpha, segmask, fg, bg)
+        fetching on the device, else `_host_outputs`'s tuple."""
         frames = self._prep_frames(frames_full)
         norms = imnormalize(frames)
         segmask, bank = self._segment_batched(carries, frames, norms,
@@ -415,7 +425,7 @@ class FusedBgPipeline:
                   norms: torch.Tensor, segmask: torch.Tensor, bank):
         """Everything after segmentation, on (S, ...) batches. `bank` is
         the updated (bank_k, bank_v, bank_n). Returns (new carries, uint8
-        (S, h, w, 8))."""
+        (S, h, w, 8), or the host fetch's tuple)."""
         h, w = self.work_hw
         min_fg = self.fg_exist_thr * h * w
         fg_exists = ((segmask >= 128).sum(dim=(-2, -1)) > min_fg)[:, None,
@@ -450,12 +460,96 @@ class FusedBgPipeline:
                       fid=carry.fid + 1, bg_prev=bg_sol, bank_k=bank[0],
                       bank_v=bank[1], bank_n=bank[2], bg_model=bg_model,
                       bg_seen=bg_seen)
+        if self.fetch == "host":
+            return new, self._host_outputs(alpha, segmask, bgimg)
         bg_final = torch.where((alpha == 0)[..., None], frames, bgimg)
         fg = torch.where(fg_exists[..., None], get_fg(frames, alpha,
                                                       bg_final), 0.0)
         packed = torch.cat([alpha[..., None], segmask[..., None], fg,
                             bg_final], dim=-1)
         return new, packed.clamp(0.0, 255.0).to(torch.uint8)
+
+    def _host_outputs(self, alpha, segmask, bgimg):
+        """The host fetch's download of (S, ...) batches: (alpha and
+        segmask uint8 (S, h, w, 2), the regionfilled background resized to
+        1/`bg_downscale`, uint8 (S, h / ds, w / ds, 3)); packed, (the
+        stacked (2h, w) plane of alpha over segmask packed, uint8 (S,
+        packed_size), that background, the plane uint8 (S, 2h, w), left on
+        the device)."""
+        h, w = self.work_hw
+        small = (h // self.bg_downscale, w // self.bg_downscale)
+        bg = bgimg.permute(0, 3, 1, 2)
+        if small != (h, w):
+            bg = resize_nchw(bg, small)
+        bg_small = bg.permute(0, 2, 3, 1).clamp(0.0, 255.0).to(torch.uint8)
+        a = alpha.clamp(0.0, 255.0)
+        m = segmask.clamp(0.0, 255.0)
+        if self.pack_d2h:
+            both = torch.cat([a, m], dim=1).to(torch.uint8)
+            return pack_plane(both, self._pack_capacity), bg_small, both
+        return torch.stack([a, m], dim=-1).to(torch.uint8), bg_small
+
+    def _run_step(self, carries: BgCarry, frames_full: torch.Tensor,
+                  model_axis=None):
+        """`_step_batched` with its outputs as a tuple, the ones `run`
+        downloads: (uint8 (S, h, w, 8),) fetching on the device, else
+        `_host_outputs`'s."""
+        carries, out = self._step_batched(carries, frames_full, model_axis)
+        return carries, out if self.fetch == "host" else (out,)
+
+    def _wire_step(self, carries: BgCarry, frames_full: torch.Tensor,
+                   model_axis=None):
+        """`_run_step` with the outputs as JAX's step emits them: fetching
+        on the device, a bg_small of zeros, uint8 (S, 1, 1, 3), follows
+        the planes."""
+        carries, out = self._run_step(carries, frames_full, model_axis)
+        if self.fetch == "host":
+            return carries, out
+        return carries, out + (out[0].new_zeros((out[0].shape[0], 1, 1, 3)),)
+
+    def _fetch_packed(self, payload: np.ndarray, resident) -> np.ndarray:
+        """A run's fetched planes (N, h, w, C), unpacked when packed: the
+        stacked (2h, w) planes, a frame whose band overflowed fetched whole
+        from the device (`resident`, counted in `stats`)."""
+        if not self.pack_d2h:
+            return payload
+
+        def fallback(i):
+            plane = resident.frame(0, i)
+            self.stats["fallbacks"] += 1
+            self.stats["d2h_bytes"] += plane.nbytes
+            return plane
+        h, w = self.work_hw
+        both = unpack_planes(payload, 2 * h, w, self._pack_capacity,
+                             fallback=fallback)
+        return np.stack([both[:, :h], both[:, h:]], axis=-1)
+
+    def _assemble_outputs(self, frames, packed: np.ndarray,
+                          bg_small: np.ndarray):
+        """The artifacts (alphas, segmasks, fgs, bgs) at work resolution
+        from the fetched planes `packed` (N, h, w, C) and, fetching on the
+        host, the downloaded backgrounds `bg_small`, as JAX's
+        `_assemble_outputs`. The host rebuilds the device's bg a pixel:
+        the frame where alpha == 0; the regionfill's fill, upsampled from
+        `bg_small`, inside the hole (alpha > 128 dilated twice by the 3x3
+        ellipse); elsewhere, the soft ring, (1 - a) * frame darkened in
+        HSV, recomputed exactly from the frame and alpha. fg is the HSV
+        un-blend against that bg. cv2's conversions and resize are the
+        runtime's bit-equal ones."""
+        alphas, segmasks = packed[..., 0], packed[..., 1]
+        if self.fetch == "device":
+            return alphas, segmasks, packed[..., 2:5], packed[..., 5:8]
+        frames_w = host_frames(frames, self.work_hw)
+        hole = _dilate_cross(alphas > 128, 2)
+        hsv = runtime.bgr_to_hsv(frames_w).astype(np.float32)
+        dark = runtime.hsv_to_bgr(np.clip(
+            (1.0 - alphas / 255.0)[..., None] * hsv, 0, 255).astype(np.uint8))
+        bg_up = runtime.resize_batch(list(np.ascontiguousarray(bg_small)),
+                                     self.work_hw)
+        bgs = np.where(hole[..., None], bg_up, dark)
+        bgs = np.where((alphas == 0)[..., None], frames_w, bgs)
+        fgs = runtime.unblend_fg_batch(frames_w, alphas, bgs)
+        return alphas, segmasks, fgs, bgs
 
     # -- host loop -----------------------------------------------------------
     def run(self, frames, chunk_size: int = 4, host_downscale: bool = True,
@@ -477,20 +571,39 @@ class FusedBgPipeline:
         resolution on the host before the upload (else on the device);
         `timer` takes the per-stage split. Returns `run`'s arrays, in clip
         order."""
+        timer = timer or StageTimer()
         frames = list(frames)
         self.reset_stats()
         wire_hw = self.work_hw if host_downscale else frames[0].shape[:2]
-
-        def step(carries, batch):
-            carries, packed = self._step_batched(carries, batch)
-            return carries, (packed,)
-
-        packed, = run_segments(step, self.init_carries(n_segments), frames,
-                               n_segments, chunk_size, self.device,
-                               self.stats, wire_hw, self.wire, timer)
+        host = self.fetch == "host"
+        outs = run_segments(self._run_step, self.init_carries(n_segments),
+                            frames, n_segments, chunk_size, self.device,
+                            self.stats, wire_hw, self.wire, timer,
+                            n_fetch=2 if host else None)
+        self.carries = outs[-1].carries
         self.count_cg()  # after the last fetch: the card is idle
-        return (packed[..., 0], packed[..., 1], packed[..., 2:5],
-                packed[..., 5:8])
+        with timer.stage("fetch"):
+            packed = self._fetch_packed(outs[0], outs[-1])
+        with timer.stage("reconstruct"):
+            return self._assemble_outputs(frames, packed,
+                                          outs[1] if host else None)
+
+    @torch.inference_mode()
+    def process_chunk_segments(self, carries: BgCarry, frames):
+        """Advance S segments N frames in lockstep: `frames` uint8 (S, N,
+        H, W, 3) BGR or (S, N, H * 3 / 2, W) I420 (a tensor on the device,
+        or numpy), `carries` with a leading S axis. Every frame given is
+        run. Returns (carries, `_wire_step`'s outputs, each (S, N,
+        ...))."""
+        return scan_steps(self._wire_step, carries, self._chunk(frames))
+
+    def process_chunk(self, carry: BgCarry, frames):
+        """One segment's chunk (`carry` with S = 1): `frames` uint8 (N, H,
+        W, 3) or (N, H * 3 / 2, W). Returns (carry, outputs each (N,
+        ...)), as JAX's `lax.scan` over the chunk."""
+        carry, outs = self.process_chunk_segments(carry,
+                                                  self._chunk(frames)[None])
+        return carry, tuple(o[0] for o in outs)
 
 
     # -- bg_offline stage scans ----------------------------------------------
@@ -585,20 +698,27 @@ class FusedBgPipeline:
     def process_segments(self, mesh, segments):
         """Run S clip segments over the ranks of `mesh`, as the JAX
         `process_segments` (see `FusedGreenPipeline.process_segments`).
-        Returns, on every rank, (packed uint8 (S, L, h, w, 8): alpha,
-        segmask, fg, bg; bg_small uint8 (S, L, 1, 1, 3) zeros, as the JAX
-        pipeline's `fetch="device"` returns it) on the device."""
+        Returns, on every rank, `process_chunk_segments`'s outputs over
+        (S, L): two, or three when packing, on the device (fetching on the
+        device, bg_small is zeros (S, L, 1, 1, 3), as JAX returns it)."""
         self.reset_stats()
-
-        def step(carries, frames, model_axis):
-            carries, packed = self._step_batched(carries, frames, model_axis)
-            return carries, (packed,)
-
-        packed, = segment_blocks(step, self.init_carries, mesh, segments,
-                                 self.device)
+        outs = segment_blocks(self._wire_step, self.init_carries, mesh,
+                              segments, self.device)
         self.count_cg()
-        return packed, torch.zeros(packed.shape[:2] + (1, 1, 3),
-                                   dtype=torch.uint8, device=self.device)
+        return outs
+
+
+def _dilate_cross(mask: np.ndarray, iterations: int) -> np.ndarray:
+    """`cv2.dilate` of (..., h, w) bool masks by the 3x3 ellipse (a cross),
+    cells beyond the image ignored, `iterations` times."""
+    for _ in range(iterations):
+        out = mask.copy()
+        out[..., 1:, :] |= mask[..., :-1, :]
+        out[..., :-1, :] |= mask[..., 1:, :]
+        out[..., :, 1:] |= mask[..., :, :-1]
+        out[..., :, :-1] |= mask[..., :, 1:]
+        mask = out
+    return mask
 
 
 def run_fused(cfg: dict, frames=None, save: bool = False,

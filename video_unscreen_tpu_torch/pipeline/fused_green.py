@@ -1,8 +1,9 @@
 """Fused green mode: the whole per-frame stage chain on the device.
 
 Port of `video_unscreen_tpu/pipeline/fused_green.py` (`run`,
-`run_segmented`, `process_segments` and `run_fused`, fg computed on the
-device: the JAX package's `fetch_fg="device"`, `pack_d2h=False`):
+`run_segmented`, `process_chunk`, `process_chunk_segments`,
+`process_segments` and `run_fused`; the pipeline with both of its
+fetches):
 
     host:   build each chunk: the frames resized to work resolution
             (`host_downscale`, the default) and packed as BGR or I420
@@ -14,12 +15,17 @@ device: the JAX package's `fetch_fg="device"`, `pack_d2h=False`):
             color filter (refit every `colorfiltering_update_duration`-th
             frame, after a tracking loss, or while untrained; else predict)
             -> object removal -> trimap (displacement-adaptive band) ->
-            matting UNet -> color correct -> fg un-blend
-    host:   fetch uint8 alpha and fg and the screen color, once a chunk;
-            bg = alpha < 128 ? the frame at work resolution resized on
-            the host from the original : the screen color (as JAX's
-            `_assemble_outputs`: the device never sees the original
-            under the I420 wire)
+            matting UNet -> color correct -> fg un-blend (device fetch)
+    host:   fetch uint8 alpha, the screen color and (device fetch) fg,
+            once a chunk; bg = alpha < 128 ? the frame at work resolution
+            resized on the host from the original : the screen color (as
+            JAX's `_assemble_outputs`: the device never sees the original
+            under the I420 wire). The host fetch (`fetch_fg="host"`)
+            downloads no fg: the host un-blends it from the frame, alpha
+            and screen color (`runtime.get_fg_batch`), and with
+            `pack_d2h` the alpha crosses bit-packed (`ops/wirepack.py`),
+            its full plane left on the device for a frame whose band
+            overflows the packed budget.
 
 A run advances S independent clip segments in lockstep (`run` is S = 1),
 as the JAX `_step_batched` does. The JAX package compiles one `lax.scan`
@@ -68,13 +74,14 @@ from ..ops.connected import remove_invalid_objects_ds
 from ..ops.geometry import get_target_size
 from ..ops.morphology import dilate
 from ..ops.trimap import generate_trimap_withbg
+from ..ops.wirepack import pack_plane, unpack_planes
 from .. import runtime
 from ..parallel.mesh import axis_any
 from ..utils.device import resolve_device
 from ..utils.profiling import StageTimer, maybe_trace
 from .common import (artifact_path, build_score_map, check_wire,
-                     host_frames, prep_frames, read_frames, run_segments,
-                     segment_blocks, unported)
+                     host_frames, prep_frames, read_frames, resolve_fetch,
+                     run_segments, scan_steps, segment_blocks)
 
 
 class GreenCarry(NamedTuple):
@@ -117,29 +124,35 @@ class FusedGreenPipeline:
     `matting_dtype` and `seg_dtype` are the MattingUNet's and the DeepLab
     seed's (`models/precision.py`); bfloat16 by default, as in the JAX
     pipeline. `stats` counts, for the last run, the steps, host syncs,
-    seed steps and seeded frames, the refit tiers and the band tiers;
+    seed steps and seeded frames, the refit tiers and the band tiers, the
+    bytes downloaded and the packed download's overflow fallbacks;
     `step_tracking` holds each step's tracking flags as the host read
-    them (a segment whose flag is False took the seed).
+    them (a segment whose flag is False took the seed), and `carries` the
+    segments' carries at the end of the last run.
 
     `wire` is the upload's format: "bgr" (packed uint8 BGR) or "yuv420"
     (I420, 1.5 bytes a pixel, decoded on the device; lossy: BT.601 4:2:0
     as cv2 packs it).
 
     The parameters are the JAX pipeline's, in its order, then `device`.
-    fg is computed on the device: `fetch_fg` "auto" or "device", and
-    `pack_d2h` "auto" or False; the host fetch and the packed download
-    raise (ROADMAP.md, Queue 1, item 12). `cc_downscale` divides the work
-    resolution of color_correct's distance map."""
+    `fetch_fg` is where fg is made: "device" (computed and downloaded with
+    the alpha), "host" (un-blended on the host from the downloaded alpha
+    and screen color) or "auto", which is "device" (JAX's "auto" takes
+    the host when its JPEG runtime builds: `common.resolve_fetch`).
+    `pack_d2h` bit-packs the host fetch's alpha ("auto": exactly when
+    fetching on the host). `cc_downscale` divides the work resolution of
+    color_correct's distance map."""
 
     def __init__(self, cfg: dict, frame_hw: Tuple[int, int],
                  work_long_side: int = 960, fetch_fg: str = "auto",
                  matting_dtype: torch.dtype = torch.bfloat16,
                  seg_dtype: torch.dtype = torch.bfloat16, wire: str = "bgr",
                  cc_downscale: int = 2, pack_d2h="auto", device="cuda"):
-        if fetch_fg not in ("auto", "device"):
-            raise unported(f"fetch_fg={fetch_fg!r} (host-side fg)", "12")
-        if pack_d2h not in ("auto", False):
-            raise unported("pack_d2h (the bit-packed download)", "12")
+        self.fetch_fg, self.pack_d2h = resolve_fetch(fetch_fg, pack_d2h)
+        # a packed plane's band budget, None for
+        # `wirepack.default_capacity`; set only by checks that force or
+        # avoid an overflow
+        self._pack_capacity = None
         self.device = resolve_device(device)
         self.wire = check_wire(wire)
         self.cfg = cfg
@@ -177,6 +190,7 @@ class FusedGreenPipeline:
         self.tri_tiers = (1, 2, 4, 8)
         self.stats = collections.Counter()
         self.step_tracking: List[Tuple[bool, ...]] = []
+        self.carries = None
 
     def init_carry(self) -> GreenCarry:
         h, w = self.work_hw
@@ -206,7 +220,8 @@ class FusedGreenPipeline:
         ranks, and a segment takes the seed where any of them lost
         tracking, so that all enter the seed's collective together.
         Returns (new carries, (alpha uint8 (S, h, w), fg uint8 (S, h, w,
-        3), screen color float32 (S, 3)))."""
+        3) or, fetching on the host, None, screen color float32 (S,
+        3)))."""
         n_s = len(carries)
         frames = self._prep_frames(frames_full)
         lost = axis_any(~torch.stack([c.tracking for c in carries]),
@@ -258,19 +273,50 @@ class FusedGreenPipeline:
         data axis; each rank advances block `mesh.index("data")` of S /
         data segments from fresh carries through L calls of
         `_step_batched`, its crops of the DeepLab seed split over the model
-        axis. Returns, on every rank, (packed uint8 (S, L, h, w, 4): alpha
-        then fg, screen colors float32 (S, L, 3)) on the device."""
+        axis. Returns, on every rank, `process_chunk_segments`'s outputs
+        over (S, L): two, or three when packing, on the device."""
         self.stats = collections.Counter()
         self.step_tracking = []
+        return segment_blocks(self._wire_step, self.init_carries, mesh,
+                              segments, self.device)
 
-        def step(carries, frames, model_axis):
-            carries, (a, fg, bg_color) = self._step_batched(
-                carries, frames, model_axis)
+    def _wire_step(self, carries: List[GreenCarry],
+                   frames_full: torch.Tensor, model_axis=None):
+        """`_step_batched` with the outputs the fetch downloads, a leading
+        S axis on each: (alpha and fg uint8 (S, h, w, 4), screen color
+        float32 (S, 3)) fetching on the device; (alpha uint8 (S, h, w, 1),
+        screen color) on the host; (the packed alpha uint8 (S,
+        packed_size), screen color, alpha uint8 (S, h, w)) packed, the
+        last left on the device."""
+        carries, (a, fg, bg_color) = self._step_batched(carries,
+                                                        frames_full,
+                                                        model_axis)
+        if fg is not None:
             return carries, (torch.cat([a[..., None], fg], dim=-1),
                              bg_color)
+        if self.pack_d2h:
+            return carries, (pack_plane(a, self._pack_capacity), bg_color, a)
+        return carries, (a[..., None], bg_color)
 
-        return segment_blocks(step, self.init_carries, mesh, segments,
-                              self.device)
+    def _chunk(self, x) -> torch.Tensor:
+        return torch.as_tensor(x).to(self.device)
+
+    @torch.inference_mode()
+    def process_chunk_segments(self, carries: List[GreenCarry], frames):
+        """Advance S segments N frames in lockstep: `frames` uint8 (S, N,
+        H, W, 3) BGR or (S, N, H * 3 / 2, W) I420 (a tensor on the device,
+        or numpy), `carries` one a segment. Every frame given is run (a
+        tail's pad frames are the caller's). Returns (carries,
+        `_wire_step`'s outputs, each (S, N, ...))."""
+        return scan_steps(self._wire_step, carries, self._chunk(frames))
+
+    def process_chunk(self, carry: GreenCarry, frames):
+        """One segment's chunk: `frames` uint8 (N, H, W, 3) or (N, H * 3 /
+        2, W). Returns (carry, outputs each (N, ...)), as JAX's `lax.scan`
+        over the chunk."""
+        carries, outs = self.process_chunk_segments(
+            [carry], self._chunk(frames)[None])
+        return carries[0], tuple(o[0] for o in outs)
 
     def _cf_refit_flag(self, carry: GreenCarry) -> torch.Tensor:
         """Refit schedule: every `cf_duration`-th frame, after a tracking
@@ -330,8 +376,8 @@ class FusedGreenPipeline:
         """Object removal -> trimap -> matting -> color correct -> fg, on
         (S, ...) batches.
 
-        Returns (new carries, (alpha, fg) uint8 at work resolution and the
-        screen color))."""
+        Returns (new carries, (alpha, fg) uint8 at work resolution, fg None
+        when fetching on the host, and the screen color))."""
         h, w = self.work_hw
         min_fg = self.fg_exist_thr * h * w
         fg_exists = ((segmask >= 128).sum(dim=(-2, -1)) > min_fg)[:, None,
@@ -355,21 +401,23 @@ class FusedGreenPipeline:
             f, a, bgc, target_long_side=self.cc_long_side)
             for f, a, bgc in zip(frames, alpha, bg_color)])
 
-        bg_px = bg_color[:, None, None, :]
-        bg_img = torch.where((alpha < 128)[..., None], frames,
-                             bg_px.expand(frames.shape))
-        fg = get_fg(frames, alpha, bg_img)
-
-        # no-foreground gate
+        # no-foreground gate; fg only when it is downloaded
+        fg = None
+        if self.fetch_fg == "device":
+            bg_px = bg_color[:, None, None, :]
+            bg_img = torch.where((alpha < 128)[..., None], frames,
+                                 bg_px.expand(frames.shape))
+            fg = torch.where(fg_exists[..., None],
+                             get_fg(frames, alpha, bg_img), 0.0)
+            fg = fg.clamp(0.0, 255.0).to(torch.uint8)
         alpha = torch.where(fg_exists, alpha, 0.0)
-        fg = torch.where(fg_exists[..., None], fg, 0.0)
 
         tracking = (alpha >= 128).sum(dim=(-2, -1)) > min_fg
         new_carries = [GreenCarry(alpha_pre=alpha[s], tracking=tracking[s],
                                   cf_state=cf_states[s], fid=c.fid + 1)
                        for s, c in enumerate(carries)]
-        return new_carries, (alpha.clamp(0.0, 255.0).to(torch.uint8),
-                             fg.clamp(0.0, 255.0).to(torch.uint8), bg_color)
+        return new_carries, (alpha.clamp(0.0, 255.0).to(torch.uint8), fg,
+                             bg_color)
 
     # -- host loop -----------------------------------------------------------
     def run(self, frames, chunk_size: int = 8, host_downscale: bool = True,
@@ -397,22 +445,44 @@ class FusedGreenPipeline:
         frames = list(frames)
         self.stats = collections.Counter()
         self.step_tracking = []
-
-        def step(carries, batch):
-            carries, (a, fg, bg_color) = self._step_batched(carries, batch)
-            return carries, (torch.cat([a[..., None], fg], dim=-1),
-                             bg_color)
-
         wire_hw = self.work_hw if host_downscale else frames[0].shape[:2]
-        packed, bg_colors = run_segments(
-            step, self.init_carries(n_segments), frames, n_segments,
-            chunk_size, self.device, self.stats, wire_hw, self.wire, timer)
+        payload, bg_colors, resident = run_segments(
+            self._wire_step, self.init_carries(n_segments), frames,
+            n_segments, chunk_size, self.device, self.stats, wire_hw,
+            self.wire, timer, n_fetch=2)
+        self.carries = resident.carries
+        with timer.stage("fetch"):
+            alphas = self._fetch_alphas(payload, resident)
         with timer.stage("reconstruct"):
-            alphas = packed[..., 0]
-            frames_w = host_frames(frames, self.work_hw)
-            bgs = np.where(alphas[..., None] < 128, frames_w,
-                           bg_colors[:, None, None, :].astype(np.uint8))
-        return alphas, packed[..., 1:4], bgs
+            fgs = payload[..., 1:4] if self.fetch_fg == "device" else None
+            return self._assemble_outputs(frames, alphas, bg_colors, fgs)
+
+    def _fetch_alphas(self, payload: np.ndarray, resident) -> np.ndarray:
+        """The (N, h, w) alphas of a run's fetched payload (N, h, w, C), or
+        (N, packed_size) packed: unpacked, a frame whose band overflowed
+        fetched whole from the device (`resident`, counted in `stats`)."""
+        if not self.pack_d2h:
+            return payload[..., 0]
+
+        def fallback(i):
+            plane = resident.frame(0, i)
+            self.stats["fallbacks"] += 1
+            self.stats["d2h_bytes"] += plane.nbytes
+            return plane
+        return unpack_planes(payload, *self.work_hw, self._pack_capacity,
+                             fallback=fallback)
+
+    def _assemble_outputs(self, frames, alphas, bg_colors, fgs=None):
+        """The artifacts at work resolution from the fetched alphas (N, h,
+        w) and screen colors (N, 3): the frames resized on the host from
+        the originals; fg un-blended on the host unless the device made it
+        (`fgs`); bg = alpha < 128 ? frame : screen color."""
+        frames_w = host_frames(frames, self.work_hw)
+        if fgs is None:
+            fgs = runtime.get_fg_batch(frames_w, alphas, bg_colors)
+        bgs = np.where(alphas[..., None] < 128, frames_w,
+                       bg_colors[:, None, None, :].astype(np.uint8))
+        return alphas, fgs, bgs
 
 
 def save_artifacts(dst: str, kinds) -> None:

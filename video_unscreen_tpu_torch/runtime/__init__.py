@@ -5,12 +5,14 @@
   `probe`, `decode_batch`, `decode_gray_batch` (libjpeg's grayscale
   output, as cv2's IMREAD_GRAYSCALE), `encode_batch` (BGR, or gray for
   2-D images).
-- `hostprep.cpp`, host frame preparation without OpenCV or libjpeg:
+- `hostprep.cpp`, host frame work without OpenCV or libjpeg:
   `resize_batch` (bit-equal to `cv2.resize(..., INTER_LINEAR)` on uint8),
   `bgr_to_i420_batch` (bit-equal to `cv2.cvtColor(...,
   COLOR_BGR2YUV_I420)`) and `prep_batch`, both in one pass into a
-  caller's buffer (the streamer's pinned memory). `ctypes` releases the
-  GIL for each call.
+  caller's buffer (the streamer's pinned memory); the host fetch's fg
+  un-blends `get_fg_batch` and `unblend_fg_batch`; `bgr_to_hsv` and
+  `hsv_to_bgr`, bit-equal to cv2's 8-bit conversions. `ctypes` releases
+  the GIL for each call.
 - `bgr_to_gray` (numpy): `cv2.cvtColor(..., COLOR_BGR2GRAY)` on uint8,
   bit for bit.
 
@@ -115,11 +117,26 @@ def _codec() -> ctypes.CDLL:
     return _libs["codec"]
 
 
+def available() -> bool:
+    """Whether the JPEG codec builds on this machine (what the JAX
+    package's `runtime.available()` answers). The host prep and the fg
+    un-blends build without it."""
+    return codec_missing() is None
+
+
 def _hostprep() -> ctypes.CDLL:
     if "hostprep" not in _libs:
-        lib = ctypes.CDLL(str(_build(_HERE / "hostprep.cpp")))
+        # no fused multiply-adds but the ones the source asks for
+        lib = ctypes.CDLL(str(_build(_HERE / "hostprep.cpp",
+                                     ("-ffp-contract=off",))))
         lib.vu_prep_batch.restype = _I
         lib.vu_prep_batch.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I]
+        for name in ("vu_get_fg_batch", "vu_unblend_fg_batch"):
+            getattr(lib, name).restype = _I
+            getattr(lib, name).argtypes = [_P, _P, _P, _P, _I, _I, _I, _I]
+        for name in ("vu_bgr2hsv_cv", "vu_hsv2bgr_cv"):
+            getattr(lib, name).restype = _I
+            getattr(lib, name).argtypes = [_P, _P, _I, _I, _I]
         _libs["hostprep"] = lib
     return _libs["hostprep"]
 
@@ -286,3 +303,76 @@ def bgr_to_gray(img: np.ndarray) -> np.ndarray:
     x = img.astype(np.int32)
     y = 3735 * x[..., 0] + 19235 * x[..., 1] + 9798 * x[..., 2] + 16384
     return (y >> 15).astype(np.uint8)
+
+
+def _images(x: np.ndarray, what: str) -> np.ndarray:
+    x = np.ascontiguousarray(x, np.uint8)
+    if x.ndim != 4 or x.shape[3] != 3:
+        raise ValueError(f"{what}: images of shape {x.shape}, want "
+                         f"(n, h, w, 3)")
+    return x
+
+
+def _unblend(fn: str, frames: np.ndarray, alphas: np.ndarray, bg,
+             threads: int) -> np.ndarray:
+    frames = _images(frames, fn)
+    alphas = np.ascontiguousarray(alphas, np.uint8)
+    if alphas.shape != frames.shape[:3]:
+        raise ValueError(f"{fn}: alphas {alphas.shape} for frames "
+                         f"{frames.shape}")
+    out = np.empty_like(frames)
+    getattr(_hostprep(), fn)(frames.ctypes.data, alphas.ctypes.data,
+                             bg.ctypes.data, out.ctypes.data,
+                             *frames.shape[:3], int(threads))
+    return out
+
+
+def get_fg_batch(frames: np.ndarray, alphas: np.ndarray,
+                 bg_colors: np.ndarray, threads: int = 16) -> np.ndarray:
+    """The HSV foreground un-blend on the host (the reference's
+    `fgfuncs.py:84-110`) against each frame's screen colour: (n, h, w, 3)
+    uint8 BGR frames, (n, h, w) uint8 alphas, (n, 3) float BGR colours ->
+    (n, h, w, 3) uint8. The background is the frame itself where alpha <
+    128. Threaded in C++."""
+    bg_colors = np.ascontiguousarray(bg_colors, np.float32)
+    if bg_colors.shape != (len(frames), 3):
+        raise ValueError(f"get_fg_batch: bg_colors {bg_colors.shape}, want "
+                         f"({len(frames)}, 3)")
+    return _unblend("vu_get_fg_batch", frames, alphas, bg_colors, threads)
+
+
+def unblend_fg_batch(frames: np.ndarray, alphas: np.ndarray,
+                     bgs: np.ndarray, threads: int = 16) -> np.ndarray:
+    """The same un-blend against a background image a pixel (bg mode's
+    host reconstruction): `bgs` (n, h, w, 3) uint8 BGR."""
+    bgs = _images(bgs, "unblend_fg_batch")
+    if bgs.shape != np.shape(frames):
+        raise ValueError(f"unblend_fg_batch: bgs {bgs.shape} for frames "
+                         f"{np.shape(frames)}")
+    return _unblend("vu_unblend_fg_batch", frames, alphas, bgs, threads)
+
+
+def _hsv(fn: str, img: np.ndarray, threads: int) -> np.ndarray:
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim < 2 or img.shape[-1] != 3:
+        raise ValueError(f"{fn}: want uint8 (..., w, 3), got {img.shape}")
+    out = np.empty_like(img)
+    w = img.shape[-2]
+    getattr(_hostprep(), fn)(img.ctypes.data, out.ctypes.data,
+                             img.size // (3 * w), w, int(threads))
+    return out
+
+
+def bgr_to_hsv(img: np.ndarray, threads: int = THREADS) -> np.ndarray:
+    """`cv2.cvtColor(img, COLOR_BGR2HSV)` of uint8 (..., w, 3) images (H in
+    0..179), bit for bit, row by row."""
+    return _hsv("vu_bgr2hsv_cv", img, threads)
+
+
+def hsv_to_bgr(img: np.ndarray, threads: int = THREADS) -> np.ndarray:
+    """`cv2.cvtColor(img, COLOR_HSV2BGR)` of uint8 (..., w, 3) HSV images,
+    bit for bit, row by row. The cv2 build the JAX package runs (5.0.0)
+    rounds a pixel by where it sits in its row: the first 32 * (w // 32)
+    truncate (its vector loop), the rest round to nearest (its scalar
+    tail); this function does the same."""
+    return _hsv("vu_hsv2bgr_cv", img, threads)

@@ -217,133 +217,4 @@ int vu_probe(const char* path, int* h, int* w) {
   return ok ? 0 : 2;
 }
 
-// ---------------------------------------------------------------------------
-// Foreground un-blend (fgfuncs.py:84-110 semantics): fg = clamp(img_hsv -
-// (1-alpha) * bg_hsv) converted back to BGR. Lets the host reconstruct the
-// fg artifact from (frame, alpha, bg_color) instead of shipping a full fg
-// plane over the device->host link.
-
-namespace {
-
-inline void bgr2hsv(float b, float g, float r, float* h, float* s,
-                    float* v) {
-  float mx = r > g ? (r > b ? r : b) : (g > b ? g : b);
-  float mn = r < g ? (r < b ? r : b) : (g < b ? g : b);
-  float c = mx - mn;
-  *v = mx;
-  *s = mx > 0 ? 255.0f * c / mx : 0.0f;
-  float hh = 0.0f;
-  if (c > 1e-8f) {
-    if (mx == r) hh = 60.0f * (g - b) / c;
-    else if (mx == g) hh = 120.0f + 60.0f * (b - r) / c;
-    else hh = 240.0f + 60.0f * (r - g) / c;
-    if (hh < 0) hh += 360.0f;
-  }
-  *h = hh * 0.5f;
-}
-
-inline void hsv2bgr(float h, float s, float v, float* b, float* g,
-                    float* r) {
-  h *= 2.0f;
-  s /= 255.0f;
-  float c = v * s;
-  float hp = h / 60.0f;
-  float x = c * (1.0f - std::abs(std::fmod(hp, 2.0f) - 1.0f));
-  float rr = 0, gg = 0, bb = 0;
-  int idx = static_cast<int>(hp) % 6;
-  switch (idx < 0 ? idx + 6 : idx) {
-    case 0: rr = c; gg = x; break;
-    case 1: rr = x; gg = c; break;
-    case 2: gg = c; bb = x; break;
-    case 3: gg = x; bb = c; break;
-    case 4: rr = x; bb = c; break;
-    default: rr = c; bb = x; break;
-  }
-  float m = v - c;
-  *b = bb + m;
-  *g = gg + m;
-  *r = rr + m;
-}
-
-inline uint8_t clamp_u8(float x) {
-  return x <= 0 ? 0 : (x >= 255 ? 255 : static_cast<uint8_t>(x + 0.5f));
-}
-
-}  // namespace
-
-// frames: (n, h, w, 3) BGR u8; alphas: (n, h, w) u8;
-// bg_colors: (n, 3) float BGR; out: (n, h, w, 3) BGR u8 = alpha*fg.
-int vu_get_fg_batch(const uint8_t* frames, const uint8_t* alphas,
-                    const float* bg_colors, uint8_t* out, int n, int h,
-                    int w, int threads) {
-  const size_t plane = static_cast<size_t>(h) * w;
-  parallel_for(n, threads, [&](int i) {
-    const uint8_t* frame = frames + i * plane * 3;
-    const uint8_t* alpha = alphas + i * plane;
-    uint8_t* dst = out + i * plane * 3;
-    float bh, bs, bv;
-    bgr2hsv(bg_colors[i * 3 + 0], bg_colors[i * 3 + 1],
-            bg_colors[i * 3 + 2], &bh, &bs, &bv);
-    for (size_t p = 0; p < plane; ++p) {
-      float a = alpha[p] / 255.0f;
-      float ih, is, iv;
-      bgr2hsv(frame[p * 3], frame[p * 3 + 1], frame[p * 3 + 2],
-              &ih, &is, &iv);
-      // bg image is the frame itself where alpha < 128
-      // (tools/unscreen/green.py:125: bgimg[alpha < 128] = frame)
-      float ubh = bh, ubs = bs, ubv = bv;
-      if (alpha[p] < 128) { ubh = ih; ubs = is; ubv = iv; }
-      float fh = ih - (1.0f - a) * ubh;
-      float fs = is - (1.0f - a) * ubs;
-      float fv = iv - (1.0f - a) * ubv;
-      fh = fh < 0 ? 0 : (fh > 255 ? 255 : fh);
-      fs = fs < 0 ? 0 : (fs > 255 ? 255 : fs);
-      fv = fv < 0 ? 0 : (fv > 255 ? 255 : fv);
-      float b, g, r;
-      hsv2bgr(fh, fs, fv, &b, &g, &r);
-      dst[p * 3] = clamp_u8(b);
-      dst[p * 3 + 1] = clamp_u8(g);
-      dst[p * 3 + 2] = clamp_u8(r);
-    }
-  });
-  return 0;
-}
-
-// Per-pixel-background variant (bg mode): frames (n, h, w, 3) BGR u8,
-// alphas (n, h, w) u8, bgs (n, h, w, 3) BGR u8 (the regionfilled
-// background), out (n, h, w, 3) u8 = alpha*fg. Same HSV un-blend as
-// vu_get_fg_batch but the background is an image, not a flat color —
-// reconstructs fused bg mode's fg artifact on the host from the
-// (alpha, downsampled-bg) wire payload.
-int vu_unblend_fg_batch(const uint8_t* frames, const uint8_t* alphas,
-                        const uint8_t* bgs, uint8_t* out, int n, int h,
-                        int w, int threads) {
-  const size_t plane = static_cast<size_t>(h) * w;
-  parallel_for(n, threads, [&](int i) {
-    const uint8_t* frame = frames + i * plane * 3;
-    const uint8_t* alpha = alphas + i * plane;
-    const uint8_t* bg = bgs + i * plane * 3;
-    uint8_t* dst = out + i * plane * 3;
-    for (size_t p = 0; p < plane; ++p) {
-      float a = alpha[p] / 255.0f;
-      float ih, is, iv, bh, bs, bv;
-      bgr2hsv(frame[p * 3], frame[p * 3 + 1], frame[p * 3 + 2],
-              &ih, &is, &iv);
-      bgr2hsv(bg[p * 3], bg[p * 3 + 1], bg[p * 3 + 2], &bh, &bs, &bv);
-      float fh = ih - (1.0f - a) * bh;
-      float fs = is - (1.0f - a) * bs;
-      float fv = iv - (1.0f - a) * bv;
-      fh = fh < 0 ? 0 : (fh > 255 ? 255 : fh);
-      fs = fs < 0 ? 0 : (fs > 255 ? 255 : fs);
-      fv = fv < 0 ? 0 : (fv > 255 ? 255 : fv);
-      float b, g, r;
-      hsv2bgr(fh, fs, fv, &b, &g, &r);
-      dst[p * 3] = clamp_u8(b);
-      dst[p * 3 + 1] = clamp_u8(g);
-      dst[p * 3 + 2] = clamp_u8(r);
-    }
-  });
-  return 0;
-}
-
 }  // extern "C"
