@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
     python3 chip_smoke.py [--paths default|green_deeplab|iseg|train|ranks|
-                                   train_ranks|host_fetch]
+                                   train_ranks|host_fetch|disk]
 
 The default run reads weights/matting_unet.msgpack and weights/stm.msgpack
 only, so that one copy of the repo holds it (the DeepLab and SCHP seeds
@@ -149,12 +149,18 @@ wall seconds:
      (1, 1) mesh, bit-equal to this process; the card's name and power
      limit beside each line; a rank that fails, dies or outlives the
      deadline fails the run;
-  7f. disk, where libjpeg is on the machine (`runtime.codec_missing()`,
-     decided before the phase; else one line says why it did not run): the
-     8 frames written as JPEGs, then `tools/unscreen/green_torch.py` and
-     `bg_torch.py` (`--fused --segments 8 --wire yuv420`) through their
-     `main`: every artifact written, the decoded alphamasks within mean 8
-     of the returned alphas, frames/s with the read and the write;
+  7g. the port's JPEG codec (`runtime/loader.cpp`, no library) on the
+     card's host: the 8 frames encoded at quality 95 and decoded, the
+     sha256 of the frames, the files and the decoded frames against
+     CODEC_SHA256 (libjpeg's, pinned by tests/test_torch_codec.py), and
+     the ms a 1080p frame of each at 1 thread and at `runtime.THREADS`;
+  7f. disk: the 8 frames written as JPEGs, then
+     `tools/unscreen/green_torch.py` (`--fused --segments 8 --wire
+     yuv420`) and `bg_torch.py` (`--fused --segments 2 --wire yuv420`)
+     through their `main`, counts reset just before each: K1-K3 launched
+     (and K4 by bg), every artifact written,
+     the decoded alphamasks within mean 8 of the returned alphas, frames/s
+     with the read and the write;
   10. bg_offline (`pipeline/bg_offline.py:run`, fused, chunks of 4;
      configs/bg.json with the chroma seed, the shipped MattingUNet and STM
      weights) on the 8 frames, stages 1, 2, 3, bfloat16 as shipped with
@@ -174,11 +180,14 @@ wall seconds:
      Lab toning were never TPU kernels); `BackgroundAgent.forward` with
      each method at 1080p (work 303x540), K2 launched, card against host
      within the bound, pcov's iterations equal;
-  10b. where libjpeg is on the machine: `tools/unscreen/bg_offline_torch
-     .py` stages 1,2,3 and then `--stages 3` (the store's resume) through
-     `main`, then `tools/replace/replace_torch.py` on the store with and
-     without `--harmonize`, every artifact written (both PNGs included);
-     else one line says why it did not run;
+  10b. the CLIs from disk: `tools/unscreen/bg_offline_torch.py` stages
+     1,2,3 and then `--stages 3` (the store's resume) through `main`, counts
+     reset just before (K1-K4 launched), then
+     `tools/replace/replace_torch.py` on the store with and without
+     `--harmonize`: every artifact written (both PNGs included), frames/s
+     with the read and the write, and each MJPEG `.mp4` (the fg store's
+     and the replacement's) read back by the port's probes with the
+     expected frame count and size;
   11. interactive segmentation on seeded weights: `ISegAgent` at its
      shipped input_long_side 800 with flip TTA on a 1080p frame, plain and
      BRS at each insertion point (after_aspp, after_c4, after_deeplab): ms
@@ -270,6 +279,9 @@ phase 13 alone (the matting and STM weights).
 `--paths host_fetch` runs the build, K1-K4 against their plain versions
 and phase 15 alone (the matting and STM weights).
 
+`--paths disk` runs the build, K1-K4 against their plain versions, the
+codec phase, 7f and 10b (the matting and STM weights).
+
 `--paths train_ranks` runs the build, K4-K6 against their plain versions
 (the bg and training reads of phase 3) and phase 14 alone; it needs no
 weights file.
@@ -343,6 +355,19 @@ ISEG_MASK_AGREE = 0.999     # card vs host, plain and one-step BRS masks
 ISEG_BRS20_AGREE = 0.99     # card vs host, 20-step BRS masks
 ISEG_BF16_AGREE = 0.99      # bfloat16 against float32 masks on the card
 EVAL_RTOL = 1e-4            # card vs host scores, relative
+# the codec phase: the N_FRAMES frames of green_clip(..., seed=SEED) at
+# FRAME_HW, their JPEG files at CODEC_QUALITY (cv2.imwrite's default) and
+# those files decoded, each as sha256; libjpeg's, as
+# tests/test_torch_codec.py checks against the JAX package's runtime
+CODEC_QUALITY = 95
+CODEC_SHA256 = {
+    "frames": "8f845f52e51fe9fa5576b061490638268e"
+              "8f0fe1937652f9c56a8f984cc4992a",
+    "encoded": "08f166a9c0bba282df28b8cf65b94cc2fd"
+               "b320a37cacb85d293c046537a2c102",
+    "decoded": "3d2f44df8cbfb976d411e816a7cf734b2f"
+               "1940a5632bf545f6beb3bfdb0159d2"}
+CODEC_REPS = 3
 
 
 def check(cond, msg):
@@ -2012,45 +2037,127 @@ def green_modular_phase(cfg, frames, gts):
     return counts
 
 
-def disk_phase(green_cfg, stm_weights, matting_weights):
-    """The drivers from disk: the 8 synthetic 1080p frames written as
-    JPEGs, then `tools/unscreen/green_torch.py --fused --segments 8 --wire
-    yuv420` and `bg_torch.py` likewise through their `main`; every
-    artifact is there and the decoded alphamasks are within mean 8 of the
-    returned alphas; frames/s with the read and the write. Runs only where
-    the JPEG codec can build (libjpeg's header and library); returns
-    whether it ran."""
-    import importlib.util
+def sha256(data):
+    import hashlib
+    return hashlib.sha256(data).hexdigest()
+
+
+def codec_phase():
+    """7g. The port's JPEG codec on the card's host: the N_FRAMES frames
+    encoded at CODEC_QUALITY and decoded, each stage's sha256 against
+    CODEC_SHA256, and the ms a 1080p frame of the encode and the decode
+    at 1 thread and at `runtime.THREADS` (the best of CODEC_REPS), on a
+    JSON line with the card's name and power limit. Returns the line's
+    figures."""
     import tempfile
     import numpy as np
     from video_unscreen_tpu_torch import runtime
 
-    missing = runtime.codec_missing()
-    if missing:
-        print(f"  disk phase did not run: the JPEG codec needs libjpeg-turbo "
-              f"and this machine lacks {missing}", flush=True)
-        return False
     t0 = time.perf_counter()
+    frames = np.stack(green_clip(N_FRAMES, *FRAME_HW, seed=SEED)[0])
+    got = {"frames": sha256(frames.tobytes())}
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="vut_codec_") as d:
+        paths = [str(Path(d, f"frame_{i:06d}.jpg")) for i in range(N_FRAMES)]
+        runtime.encode_batch(paths, frames, quality=CODEC_QUALITY)
+        phase("codec build and first encode", t0)
+        got["encoded"] = sha256(b"".join(Path(p).read_bytes()
+                                         for p in paths))
+        got["decoded"] = sha256(runtime.decode_batch(paths).tobytes())
+        for name, want in CODEC_SHA256.items():
+            check(got[name] == want, f"codec: sha256 of the {name} "
+                  f"{got[name]}, want libjpeg's {want}")
+        for threads in sorted({1, runtime.THREADS}):
+            enc, dec = [], []
+            for _ in range(CODEC_REPS):
+                t1 = time.perf_counter()
+                runtime.encode_batch(paths, frames, quality=CODEC_QUALITY,
+                                     threads=threads)
+                enc.append(time.perf_counter() - t1)
+                t1 = time.perf_counter()
+                runtime.decode_batch(paths, threads=threads)
+                dec.append(time.perf_counter() - t1)
+            rows[f"threads_{threads}"] = {
+                "encode_ms_a_frame": min(enc) * 1e3 / N_FRAMES,
+                "decode_ms_a_frame": min(dec) * 1e3 / N_FRAMES}
+        rows["bytes_a_frame"] = sum(Path(p).stat().st_size
+                                    for p in paths) / N_FRAMES
+    print(json.dumps({"codec": rows, "frames": N_FRAMES, "hw": FRAME_HW,
+                      "quality": CODEC_QUALITY, "sha256_equal": True,
+                      "host_cpus": os.cpu_count(), "card": smi_line()}),
+          flush=True)
+    phase(f"codec ({N_FRAMES} frames at 1080p)", t0)
+    return rows
+
+
+def load_cli(rel):
+    """A tool script of the repo as a module (its `main` takes argv)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(Path(rel).stem, ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cli_twice(main, args):
+    """A CLI's `main(args)` run twice on the same clip: the first run
+    cold (its wall seconds include the first weight read, the cuDNN plan
+    builds and the cold file cache), then, counts reset just before, the
+    timed one. Returns (the second run's result, cold seconds, warm
+    seconds, its kernel counts)."""
+    from video_unscreen_tpu_torch.ops import kernels
+    t1 = time.perf_counter()
+    main(args)
+    cold = time.perf_counter() - t1
+    kernels.reset_counts()
+    t1 = time.perf_counter()
+    out = main(args)
+    return out, cold, time.perf_counter() - t1, kernels.counts()
+
+
+def write_clip(root):
+    """The N_FRAMES synthetic 1080p frames as JPEGs under
+    root/src_img/clip."""
+    import numpy as np
+    from video_unscreen_tpu_torch import runtime
     frames, _ = green_clip(N_FRAMES, *FRAME_HW, seed=SEED)
+    src = Path(root, "src_img", "clip")
+    src.mkdir(parents=True)
+    runtime.encode_batch([str(src / f"frame_{i:06d}.jpg")
+                          for i in range(N_FRAMES)], np.stack(frames))
+
+
+def disk_phase(green_cfg, stm_weights, matting_weights):
+    """7f. The drivers from disk: the 8 synthetic 1080p frames written as
+    JPEGs, then `tools/unscreen/green_torch.py --fused --segments 8 --wire
+    yuv420` and `bg_torch.py` likewise with 2 segments through their
+    `main`, counts reset just before each: K1-K3 launched (K1-K4 by bg,
+    whose segments of 4 frames read STM's memory), every artifact there,
+    the decoded alphamasks within mean 8 of the returned alphas, each
+    CLI's cold wall seconds and its warm frames/s with the read and the
+    write (`cli_twice`). Returns the counts by path."""
+    import tempfile
+    import numpy as np
+    from video_unscreen_tpu_torch import runtime
+
+    t0 = time.perf_counter()
+    counts = {}
+    # bg's segments of 4 frames, so that STM reads its memory (K4)
+    segments = {"green": N_SEGMENTS, "bg": N_FRAMES // 4}
     with tempfile.TemporaryDirectory(prefix="vut_disk_") as root:
-        src = Path(root, "src_img", "clip")
-        src.mkdir(parents=True)
-        runtime.encode_batch([str(src / f"frame_{i:06d}.jpg")
-                              for i in range(N_FRAMES)], np.stack(frames))
+        write_clip(root)
         for mode, cfg in (("green", green_cfg),
                           ("bg", bg_config(stm_weights, matting_weights))):
             cfg_path = Path(root, f"{mode}.json")
             cfg_path.write_text(json.dumps(cfg))
-            spec = importlib.util.spec_from_file_location(
-                f"{mode}_torch", ROOT / "tools" / "unscreen" /
-                f"{mode}_torch.py")
-            cli = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(cli)
-            t1 = time.perf_counter()
-            out = cli.main(["--cfg", str(cfg_path), "-vid", "clip",
-                            "--data_root", root, "--fused", "--segments",
-                            str(N_SEGMENTS), "--wire", "yuv420"])
-            secs = time.perf_counter() - t1
+            cli = load_cli(f"tools/unscreen/{mode}_torch.py")
+            out, cold, secs, counts[f"disk_{mode}"] = cli_twice(
+                cli.main, ["--cfg", str(cfg_path), "-vid", "clip",
+                           "--data_root", root, "--fused", "--segments",
+                           str(segments[mode]), "--wire", "yuv420"])
+            check_launched(counts[f"disk_{mode}"], f"disk {mode}",
+                           ("trimap", "morph", "flood") + (
+                               ("attention",) if mode == "bg" else ()))
             dst = Path(root, f"test_{mode}_img", "clip")
             kinds = ("alphamask", "fg", "bg") + (
                 ("segmask",) if mode == "bg" else ())
@@ -2062,13 +2169,15 @@ def disk_phase(green_cfg, stm_weights, matting_weights):
                 str(p) for p in dst.glob("alphamask_*.jpg")))[..., 0]
             err = float(np.abs(back.astype(np.float64)
                                - np.stack(out["alphas"])).mean())
-            print(f"  disk {mode} (--fused --segments {N_SEGMENTS} --wire "
-                  f"yuv420): {N_FRAMES / secs:.3f} frames/s with the read "
-                  f"and the write; alphamask files within mean {err:.3f} "
-                  f"of the alphas", flush=True)
+            print(f"  disk {mode} (--fused --segments {segments[mode]} --wire "
+                  f"yuv420): cold {cold:.3f} s wall; warm "
+                  f"{N_FRAMES / secs:.3f} frames/s with the read and the "
+                  f"write; alphamask files within mean {err:.3f} "
+                  f"of the alphas; (calls, launches) {counts[f'disk_{mode}']}"
+                  f"; {smi_line()}", flush=True)
             check(err < 8.0, f"disk {mode}: alphamask mean |diff| {err}")
     phase(f"disk ({N_FRAMES} frames, green and bg)", t0)
-    return True
+    return counts
 
 
 @contextlib.contextmanager
@@ -2303,46 +2412,60 @@ def replace_and_agents_phase(frames, gts, offline):
     return counts
 
 
+def check_video(path, frame_dir):
+    """An MJPEG MP4 that `save_video` wrote of `frame_dir`, read back by
+    the port's probes: as many frames as the directory has images of its
+    first image's size (by name, each side rounded down to even), at that
+    size."""
+    from video_unscreen_tpu_torch.utils import video
+    from video_unscreen_tpu_torch.utils.fileio import frame_hw
+    sizes = [tuple(v & ~1 for v in frame_hw(str(f)))
+             for f in sorted(Path(frame_dir).iterdir())
+             if f.suffix in (".jpg", ".png")]
+    n, hw = sizes.count(sizes[0]), sizes[0]
+    check(Path(path).is_file(), f"no video {path}")
+    got = (video.get_frame_count(str(path)), video.get_frame_size(str(path)))
+    check(got == (n, hw), f"{path}: {got[0]} frames of {got[1]}, want {n} "
+          f"of {hw}")
+    print(f"  {Path(path).name}: {got[0]} frames of {hw[0]}x{hw[1]}, "
+          f"{video.get_duration(str(path)):.3f} s, "
+          f"{Path(path).stat().st_size} bytes", flush=True)
+
+
 def bg_offline_disk_phase(stm_weights, matting_weights):
-    """10b. The CLIs from disk, where libjpeg is on the machine: the 8
-    frames written as JPEGs, `tools/unscreen/bg_offline_torch.py` stages
-    1,2,3 and then `--stages 3` (the resume from the store) through
-    `main`, then `tools/replace/replace_torch.py` on the store, with and
-    without `--harmonize`; every artifact written, both PNGs included.
-    Else one line says why it did not run. Returns whether it ran."""
-    import importlib.util
+    """10b. The CLIs from disk: the 8 frames written as JPEGs,
+    `tools/unscreen/bg_offline_torch.py` stages 1,2,3 and then `--stages
+    3` (the resume from the store) through `main`, counts reset just
+    before (K1-K4 launched), then `tools/replace/replace_torch.py` on the
+    store, with and without `--harmonize`; every artifact written, both
+    PNGs included, each CLI's cold wall seconds and its warm frames/s with
+    the read and the write (`cli_twice`; the resume is timed warm once),
+    and each `.mp4` read back by the port's probes. Returns the counts by
+    path."""
     import shutil
     import tempfile
-    import numpy as np
-    from video_unscreen_tpu_torch import runtime
-
-    missing = runtime.codec_missing()
-    if missing:
-        print(f"  bg_offline disk phase did not run: the JPEG codec needs "
-              f"libjpeg-turbo and this machine lacks {missing}", flush=True)
-        return False
-
-    def cli(rel):
-        spec = importlib.util.spec_from_file_location(
-            Path(rel).stem, ROOT / rel)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
 
     t0 = time.perf_counter()
-    frames, _ = green_clip(N_FRAMES, *FRAME_HW, seed=SEED)
+    counts = {}
     with tempfile.TemporaryDirectory(prefix="vut_offline_") as root:
-        src = Path(root, "src_img", "clip")
-        src.mkdir(parents=True)
-        runtime.encode_batch([str(src / f"frame_{i:06d}.jpg")
-                              for i in range(N_FRAMES)], np.stack(frames))
+        write_clip(root)
         cfg_path = Path(root, "bg.json")
         cfg_path.write_text(json.dumps(bg_config(stm_weights,
                                                  matting_weights)))
-        offline = cli("tools/unscreen/bg_offline_torch.py")
+        offline = load_cli("tools/unscreen/bg_offline_torch.py")
         args = ["--cfg", str(cfg_path), "-vid", "clip", "--data_root", root]
-        offline.main(args)
+        _, cold, secs, counts["disk_bg_offline"] = cli_twice(offline.main,
+                                                             args)
+        check_launched(counts["disk_bg_offline"], "disk bg_offline",
+                       ("trimap", "morph", "flood", "attention"))
+        t1 = time.perf_counter()
         resumed = offline.main(args + ["--stages", "3"])
+        secs3 = time.perf_counter() - t1
+        print(f"  disk bg_offline (stages 1,2,3): cold {cold:.3f} s wall; "
+              f"warm {N_FRAMES / secs:.3f} frames/s with the read and the "
+              f"write; the stage-3 resume "
+              f"{N_FRAMES / secs3:.3f} frames/s; (calls, launches) "
+              f"{counts['disk_bg_offline']}; {smi_line()}", flush=True)
         store = Path(root, "test_bg_step_img", "clip")
         for kind in ("segmask", "bg", "alphamask", "fg"):
             n = len(list(store.glob(f"{kind}_*.jpg")))
@@ -2350,6 +2473,7 @@ def bg_offline_disk_phase(stm_weights, matting_weights):
         for name in ("always_bg.jpg", "ema_bg.png", "ema_seen.png"):
             check((store / name).is_file(), f"bg_offline disk: no {name}")
         check(len(resumed["alphas"]) == N_FRAMES, "stage-3 resume alphas")
+        check_video(Path(root, "video", "clip_fg.mp4"), store)
         rep = Path(root, "rep")
         dirs = {"tgt": rep / "unscreenbg_img" / "out5",
                 "src": rep / "unscreen_img" / "test5",
@@ -2362,15 +2486,21 @@ def bg_offline_disk_phase(stm_weights, matting_weights):
             if f.name.startswith("alphamask_"):
                 shutil.copy(f, dirs["src"] / f.name)
         shutil.copy(store / "always_bg.jpg", dirs["bg"] / "bg_case.jpg")
-        rep_cli = cli("tools/replace/replace_torch.py")
+        rep_cli = load_cli("tools/replace/replace_torch.py")
         for extra in ([], ["--harmonize"]):
-            rep_cli.main(["--data_root", str(rep)] + extra)
+            _, cold, secs, _ = cli_twice(rep_cli.main,
+                                         ["--data_root", str(rep)] + extra)
             out = rep / "merge_test_img" / "test5_out5"
             for kind in ("res", "compare"):
                 n = len(list(out.glob(f"{kind}_*.jpg")))
                 check(n == N_FRAMES, f"replace disk {extra}: {n} {kind}")
+            print(f"  disk replace {' '.join(extra) or '(plain)'}: cold "
+                  f"{cold:.3f} s wall; warm {N_FRAMES / secs:.3f} frames/s "
+                  f"with the read and the write", flush=True)
+            # compare_* (twice as wide) sort first: res_* are left out
+            check_video(rep / "video" / "compare_test5_out5.mp4", out)
     phase(f"bg_offline and replace from disk ({N_FRAMES} frames)", t0)
-    return True
+    return counts
 
 
 def fused_bg_read_phase(device, rows):
@@ -3663,13 +3793,14 @@ def default_paths(device):
     counts.update(host_fetch_phase(cfg, stm_weights, weights))
     ranks_counts, rows["ranks"] = ranks_phase(device)
     counts.update(ranks_counts)
-    disk_phase(cfg, stm_weights, weights)
+    rows["codec"] = codec_phase()
+    counts.update(disk_phase(cfg, stm_weights, weights))
     offline_counts, offline = bg_offline_phase(frames, gts, stm_weights,
                                                weights)
     counts.update(offline_counts)
     counts.update(replace_and_agents_phase(frames, gts, offline))
     del offline
-    bg_offline_disk_phase(stm_weights, weights)
+    counts.update(bg_offline_disk_phase(stm_weights, weights))
     rows["iseg"] = iseg_phase(device)
     counts["app_stm_iseg"] = app_protocol_phase(str(stm_weights), None)
     counts["train"] = train_phases(stm_weights)
@@ -3691,23 +3822,42 @@ def ranks_paths(device):
     return counts, rows
 
 
-def host_fetch_paths(device):
-    """`--paths host_fetch`: K1-K4 against their plain versions, then
-    phase 15 alone (the matting and STM weights). Returns (kernel counts by
-    path, kernel rows of K1-K4)."""
-    t0 = time.perf_counter()
+def matting_paths_setup(device):
+    """What `--paths disk` and `--paths host_fetch` share: the green config
+    with chroma binseg and the shipped matting weights, the STM weights,
+    and K1-K4 against their plain versions. Returns (cfg, STM weights,
+    matting weights, kernel rows of K1-K4)."""
     from video_unscreen_tpu_torch.config import load_config
+    t0 = time.perf_counter()
     cfg = load_config(str(ROOT / "configs" / "green.json"))
     cfg["binseg"] = {"type": "chroma"}
     weights = ROOT / "weights" / "matting_unet.msgpack"
     stm_weights = ROOT / "weights" / "stm.msgpack"
-    for p in (weights, stm_weights):
-        check(p.is_file(), f"the weights {p} are missing")
+    for w in (weights, stm_weights):
+        check(w.is_file(), f"the weights {w} are missing")
     cfg["vmatting"]["model_path"] = str(weights)
     rows = morph_phase(device)
     rows.update(kernel_phase(device))
     bg_kernel_phase(device, rows)
     phase("kernels vs plain (K1-K4)", t0)
+    return cfg, stm_weights, weights, rows
+
+
+def disk_paths(device):
+    """`--paths disk`: K1-K4 against their plain versions, the codec phase,
+    7f and 10b. Returns (kernel counts by path, kernel rows of K1-K4)."""
+    cfg, stm_weights, weights, rows = matting_paths_setup(device)
+    rows["codec"] = codec_phase()
+    counts = disk_phase(cfg, stm_weights, weights)
+    counts.update(bg_offline_disk_phase(stm_weights, weights))
+    return counts, rows
+
+
+def host_fetch_paths(device):
+    """`--paths host_fetch`: K1-K4 against their plain versions, then
+    phase 15 alone. Returns (kernel counts by path, kernel rows of
+    K1-K4)."""
+    cfg, stm_weights, weights, rows = matting_paths_setup(device)
     return host_fetch_phase(cfg, stm_weights, weights), rows
 
 
@@ -3887,7 +4037,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", choices=("default", "green_deeplab", "iseg",
                                         "train", "ranks", "train_ranks",
-                                        "host_fetch"),
+                                        "host_fetch", "disk"),
                     default="default")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -3933,6 +4083,8 @@ def main(argv=None):
         counts, rows = train_ranks_paths(device)
     elif args.paths == "host_fetch":
         counts, rows = host_fetch_paths(device)
+    elif args.paths == "disk":
+        counts, rows = disk_paths(device)
     else:
         counts, rows = default_paths(device)
 
@@ -3958,7 +4110,8 @@ def main(argv=None):
         check(out[-1]["launches"] > 0, f"kernel {c.name} was launched on "
               f"none of the paths")
     print(json.dumps({k: rows[k] for k in ("seed", "schp", "evaluation",
-                                           "iseg", "ranks", "train_ranks")
+                                           "iseg", "ranks", "train_ranks",
+                                           "codec")
                       if k in rows}))
     print(f"total wall seconds: {time.perf_counter() - t_start:.1f}",
           flush=True)

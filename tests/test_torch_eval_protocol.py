@@ -39,7 +39,8 @@ def test_green_protocol_table(tmp_path):
         "--data_root", str(root), "--modes", "green",
         "--vids", "green1,green2", "--frames", "3", "--height", "64",
         "--width", "96", "--work_long_side", "96",
-        "--green_cfg", str(cfg), "--results_dir", str(results)])
+        "--green_cfg", str(cfg), "--results_dir", str(results),
+        "--device", "cpu"])
     assert set(rows["green"]) == {"green1", "green2", "ALL"}
     table = (results / "protocol.md").read_text()
     assert (results / "test_green.txt").exists()

@@ -1,7 +1,7 @@
 """Frames from disk and JPEG artifacts in the port, on the CPU.
 
 - `pipeline/common.py:read_frames` with a `range` equals the JAX
-  `read_frames` on a temp dir of JPEGs (the same libjpeg decode); a file
+  `read_frames` on a temp dir of JPEGs (bit-equal decodes); a file
   that is not JPEG raises and names its format.
 - `utils/fileio.py`: `save_img` with and without `long_side` (the resize
   is cv2's INTER_LINEAR, bit for bit: the decoded files stay within
@@ -10,7 +10,8 @@
   files read back equal through cv2 and cv2's through the port (gray and
   BGR), every row filter type read, `save_img` and `parallel_read_img`
   on `.png` as cv2's IMREAD_COLOR reads; another format raises;
-  `save_video` raises, naming the item that ports it.
+  `save_video` of PNG frames is a video cv2 reads
+  (`tests/test_torch_video.py` holds it to the JAX package's).
 - `config.py:attach_data_section` equals the JAX one; `select_device`
   names no card here; `utils/profiling.py:StageTimer.report` is the JAX
   report.
@@ -181,7 +182,8 @@ def test_png_reads_every_filter_type(tmp_path, shape):
 
 def test_png_through_save_img_and_parallel_read_img(tmp_path):
     """`.png` paths: written losslessly, read as cv2.IMREAD_COLOR reads
-    (a gray PNG as three equal channels); `save_video` is not ported."""
+    (a gray PNG as three equal channels); `save_video` of the two PNGs
+    is a 2-frame video that cv2 reads at their size."""
     rng = np.random.RandomState(8)
     gray = rng.randint(0, 256, (20, 30)).astype(np.uint8)
     bgr = rng.randint(0, 256, (20, 30, 3)).astype(np.uint8)
@@ -192,8 +194,15 @@ def test_png_through_save_img_and_parallel_read_img(tmp_path):
     for g, p in zip(got, paths):
         np.testing.assert_array_equal(g, cv2.imread(p, cv2.IMREAD_COLOR))
     np.testing.assert_array_equal(got[1], bgr)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tfileio.save_video(str(tmp_path), str(tmp_path / "v.mp4"))
+    video = str(tmp_path / "v.mp4")
+    assert tfileio.save_video(str(tmp_path / "sub"), video) == 2
+    cap = cv2.VideoCapture(video)
+    try:
+        assert (cap.get(cv2.CAP_PROP_FRAME_COUNT),
+                cap.get(cv2.CAP_PROP_FRAME_HEIGHT),
+                cap.get(cv2.CAP_PROP_FRAME_WIDTH)) == (2, 20, 30)
+    finally:
+        cap.release()
 
 
 def test_txt_lists(tmp_path):

@@ -3,8 +3,8 @@
 runtime and the streamer, bg_offline, the replacement, the background
 and harmonization agents, the evaluation, interactive segmentation and
 the MobileNetV2 backbone, the four other trainers and the dropout, the
-mesh, the rank launcher, the multi-rank dry run and the tensor-parallel
-form of a model included) loads no
+mesh, the rank launcher, the multi-rank dry run, the tensor-parallel
+form of a model and the video probes included) loads no
 JAX, flax, optax, msgpack, cv2 or JAX-package module, `chip_smoke.py`,
 `tools/train_{stm,matting,binseg,human,iseg}_torch.py` and the CLIs
 `tools/unscreen/{green,bg,bg_offline}_torch.py`,
@@ -64,7 +64,7 @@ def test_port_imports_nothing_of_jax():
                  "parallel.train_seg", "parallel.train_human",
                  "parallel.train_iseg", "models.dropout", "parallel.mesh",
                  "parallel.launch", "parallel.dryrun",
-                 "parallel.tensor_parallel", "ops.wirepack"):
+                 "parallel.tensor_parallel", "ops.wirepack", "utils.video"):
         assert f"video_unscreen_tpu_torch.{name}" in _PORT_MODULES
     assert bad == [] or bad == [""], f"forbidden modules loaded: {bad}"
 

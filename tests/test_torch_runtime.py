@@ -11,11 +11,11 @@ against cv2 and the JAX package's runtime.
   1 on about 12% of the pixels.
 - `bgr_to_i420_batch` is bit-equal to `cv2.cvtColor(...,
   COLOR_BGR2YUV_I420)` at even sizes.
-- `decode_batch` is bit-equal to the JAX runtime's on the same files (the
-  same code and libjpeg) and within `tests/test_runtime.py`'s bound of
-  `cv2.imread` (mean |diff| < 2); encodes round-trip in 3 channels and 1.
-- A build without its compiler, or the codec without libjpeg's header,
-  raises (no `None`, no other codec).
+- `decode_batch` is bit-equal to the JAX runtime's on the same files and
+  within `tests/test_runtime.py`'s bound of `cv2.imread` (mean |diff| <
+  2); encodes round-trip in 3 channels and 1 (`tests/test_torch_codec.py`
+  holds the codec bit for bit).
+- A build without its compiler raises (no `None`, no other codec).
 """
 import os
 
@@ -136,14 +136,3 @@ def test_build_without_compiler_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no-such-g\\+\\+"):
         rt.resize_batch(img, (4, 4))
     assert not os.listdir(tmp_path / "build")
-
-
-def test_codec_without_libjpeg_raises(monkeypatch, tmp_path):
-    """Where jpeglib.h is absent, the codec names it and builds nothing."""
-    monkeypatch.setattr(rt, "_INCLUDE_DIRS", (str(tmp_path),))
-    for var in ("CPATH", "CPLUS_INCLUDE_PATH", "C_INCLUDE_PATH"):
-        monkeypatch.delenv(var, raising=False)
-    monkeypatch.setattr(rt, "_libs", {})
-    assert "jpeglib.h" in rt.codec_missing()
-    with pytest.raises(RuntimeError, match="jpeglib.h"):
-        rt.decode_batch([str(tmp_path / "a.jpg")])

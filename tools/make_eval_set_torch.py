@@ -12,7 +12,8 @@ Layout:
   <root>/meta/vid_list_green.txt          green-mode clips
   <root>/meta/vid_list_natural.txt        bg-mode clips
 
-The JPEG writes (and the "jpeg" variant's round trip) need libjpeg.
+The JPEG writes (and the "jpeg" variant's round trip) go through the
+port's own codec, bit-equal to cv2's.
 """
 import argparse
 import os

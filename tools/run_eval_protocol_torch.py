@@ -10,16 +10,15 @@ MIOU / SAD / MSE / GRAD / CONN scores of its predictions
         [--height 288 --width 512] [--work_long_side 512] [--modular]
         [--wire bgr|yuv420] [--green_cfg configs/green.json]
         [--bg_cfg configs/bg.json] [--results_dir runs/eval_protocol_torch]
-        [--device cpu|cuda]
+        [--device cuda|cpu]
 
 It writes `<results_dir>/test_<mode><suffix>.txt` (the evaluation's
 lines), `<results_dir>/protocol<suffix>.md` (the table) and the clip lists
 it scored, never into the JAX package's `results/`. The eval set and the
-predictions go to `--data_root` (default `<results_dir>/data`). They are
-JPEG files, which the card's machine cannot read or write (it has no
-libjpeg), so the protocol runs on the CPU at small sizes, and `--device`
-defaults to cpu. `--vids` keeps only those clips of each
-mode's list.
+predictions go to `--data_root` (default `<results_dir>/data`), as JPEG
+files. The protocol runs on the card by default (`--device` defaults to
+cuda); `--device cpu` runs it on the host, at small sizes. `--vids` keeps
+only those clips of each mode's list.
 """
 import argparse
 import os
@@ -55,7 +54,7 @@ def read_list(root, kind):
 
 
 def run_mode(mode, root, vids, cfg_path, fused=True, work_long_side=288,
-             chunk=4, wire="bgr", device="cpu"):
+             chunk=4, wire="bgr", device="cuda"):
     """Each clip of `vids` through `mode`'s driver; the alphas land in
     `<root>/test_<mode>_img/<vid>/alphamask_*.jpg`."""
     base = load_config(cfg_path)
@@ -88,7 +87,7 @@ def run_mode(mode, root, vids, cfg_path, fused=True, work_long_side=288,
         print(f"[{mode}] {vid}: {time.time() - st:.1f}s")
 
 
-def score_mode(mode, root, vids, results_dir, suffix="", device="cpu"):
+def score_mode(mode, root, vids, results_dir, suffix="", device="cuda"):
     """`pipeline/evaluate.py:run` over `vids` (listed in
     `<results_dir>/vid_list_<mode><suffix>.txt`)."""
     meta_fn = osp.join(results_dir, f"vid_list_{mode}{suffix}.txt")
@@ -140,8 +139,8 @@ def main(argv=None):
     parser.add_argument("--suffix", type=str, default="")
     parser.add_argument("--results_dir", type=str,
                         default=str(ROOT / "runs" / "eval_protocol_torch"))
-    parser.add_argument("--device", type=str, default="cpu",
-                        choices=("cpu", "cuda"))
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
 
     modes = [m.strip() for m in args.modes.split(",") if m.strip()]

@@ -39,7 +39,7 @@ where a test says so:
   float one of the multi-shot clip by `_warp_translate` (cv2's float32
   bilinear);
 - the JPEG round trip of the "jpeg" variant by the port's codec
-  (`runtime`, libjpeg, which the card's machine lacks).
+  (`runtime`, bit-equal to cv2's libjpeg).
 """
 
 from __future__ import annotations
@@ -303,7 +303,7 @@ def _warp_translate(src: np.ndarray, tx: float, ty: float) -> np.ndarray:
 
 def _jpeg_roundtrip(frame: np.ndarray, quality: int) -> np.ndarray:
     """cv2.imdecode(cv2.imencode(".jpg", frame, quality)) through the
-    port's codec (libjpeg, as cv2's: a machine without it raises)."""
+    port's codec (bit-equal to cv2's libjpeg)."""
     import os.path as osp
     import tempfile
 

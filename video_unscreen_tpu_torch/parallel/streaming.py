@@ -130,8 +130,8 @@ class FrameStreamer:
     `FrameStreamer`, with its constructor.
 
     `paths_or_frames`: file paths (read with the port's own readers,
-    `utils/fileio.py:parallel_read_img`; a JPEG needs libjpeg, which the
-    card's machine lacks) or uint8 (H, W, 3) arrays. `chunk_size` frames
+    `utils/fileio.py:parallel_read_img`, JPEG and PNG) or uint8 (H, W, 3)
+    arrays. `chunk_size` frames
     a chunk, the last one shorter. `preprocess`: a host transform of each
     stacked (n, H, W, 3) chunk that keeps the leading n and gives every
     chunk one shape and dtype past it. `device`: where the chunks land;

@@ -8,8 +8,8 @@ and the `results/<exp>.txt` artifact keep the JAX package's format
 
 Files are read as cv2.imread(..., IMREAD_GRAYSCALE) reads them
 (`utils/fileio.py:read_gray`): PNGs by the port's PNG codec, JPEGs by the
-port's JPEG codec (libjpeg, which the card's machine lacks: there the
-device work runs on in-memory arrays, `evaluate_pair`). A prediction of
+port's own JPEG codec (bit-equal to libjpeg's; `evaluate_pair` runs the
+same device work on in-memory arrays). A prediction of
 another shape than its GT is resized to it with `runtime.resize_batch`,
 bit-equal to cv2.resize's INTER_LINEAR.
 """

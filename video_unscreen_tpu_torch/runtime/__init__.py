@@ -1,10 +1,13 @@
 """The port's native host runtime (ctypes over two C++ libraries).
 
-- `loader.cpp`, the JPEG codec (the port's own copy of the JAX package's
-  `runtime/loader.cpp`, linked against libjpeg-turbo for its BGR output):
-  `probe`, `decode_batch`, `decode_gray_batch` (libjpeg's grayscale
-  output, as cv2's IMREAD_GRAYSCALE), `encode_batch` (BGR, or gray for
-  2-D images).
+- `loader.cpp`, the port's own baseline JPEG codec (no library: written
+  from ITU-T T.81, held bit for bit to libjpeg-turbo as cv2 and the JAX
+  package's runtime use it): `probe`, `decode_batch`,
+  `decode_gray_batch` (the luma plane, as cv2's IMREAD_GRAYSCALE),
+  `encode_batch` (BGR as 4:2:0, or gray for 2-D images) and
+  `encode_jpeg` (one image to bytes). A progressive, arithmetic-coded,
+  lossless, 12-bit, CMYK or RGB-coded file raises with that name (the
+  JAX package's libjpeg decodes those).
 - `hostprep.cpp`, host frame work without OpenCV or libjpeg:
   `resize_batch` (bit-equal to `cv2.resize(..., INTER_LINEAR)` on uint8),
   `bgr_to_i420_batch` (bit-equal to `cv2.cvtColor(...,
@@ -16,17 +19,15 @@
 - `bgr_to_gray` (numpy): `cv2.cvtColor(..., COLOR_BGR2GRAY)` on uint8,
   bit for bit.
 
-Each library is built at first use with its own `g++` call into
-`video_unscreen_tpu_torch/_build/`, named by a hash of its source and
-flags. A failed build raises; nothing falls back to another codec.
-`codec_missing()` says, before any build, whether this machine has
-libjpeg's header and library.
+Each library is built at first use with its own `g++` call (no `-l`
+library) into `video_unscreen_tpu_torch/_build/`, named by a hash of its
+one source file and the flags. A failed build raises; nothing falls back
+to another codec.
 """
 
 from __future__ import annotations
 
 import ctypes
-import ctypes.util
 import hashlib
 import os
 import subprocess
@@ -40,24 +41,23 @@ _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE.parent / "_build"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
-# where g++ looks for headers unless told otherwise
-_INCLUDE_DIRS = ("/usr/include", "/usr/local/include")
 THREADS = min(8, os.cpu_count() or 1)
+_MSG_CAP = 512  # bytes of a codec error message
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _libs = {}
 
 
-def _lib_path(src: Path, libs: Tuple[str, ...]) -> Path:
-    h = hashlib.sha256(" ".join((CXX,) + CXX_FLAGS + libs).encode())
+def _lib_path(src: Path, flags: Tuple[str, ...]) -> Path:
+    h = hashlib.sha256(" ".join((CXX,) + CXX_FLAGS + flags).encode())
     h.update(src.read_bytes())
     return BUILD_DIR / f"libvut_{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def _build(src: Path, libs: Tuple[str, ...] = ()) -> Path:
+def _build(src: Path, flags: Tuple[str, ...] = ()) -> Path:
     """Compile `src` unless its library exists; raise if g++ fails or is
     missing."""
-    out = _lib_path(src, libs)
+    out = _lib_path(src, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -67,7 +67,7 @@ def _build(src: Path, libs: Tuple[str, ...] = ()) -> Path:
     os.close(fd)
     try:
         try:
-            proc = subprocess.run([CXX, *CXX_FLAGS, str(src), *libs, "-o",
+            proc = subprocess.run([CXX, *CXX_FLAGS, *flags, str(src), "-o",
                                    tmp], capture_output=True, text=True)
         except OSError as e:
             raise RuntimeError(f"cannot run {CXX} to build {src.name}: "
@@ -82,46 +82,37 @@ def _build(src: Path, libs: Tuple[str, ...] = ()) -> Path:
     return out
 
 
-def codec_missing() -> Optional[str]:
-    """None when libjpeg's header and library are on this machine, else
-    what is missing. The codec does not build without them."""
-    dirs = list(_INCLUDE_DIRS)
-    for var in ("CPATH", "CPLUS_INCLUDE_PATH", "C_INCLUDE_PATH"):
-        dirs += [d for d in os.environ.get(var, "").split(":") if d]
-    missing = []
-    if not any(Path(d, "jpeglib.h").is_file() for d in dirs):
-        missing.append(f"the header jpeglib.h (searched {', '.join(dirs)})")
-    if ctypes.util.find_library("jpeg") is None:
-        missing.append("the library libjpeg")
-    return "; ".join(missing) or None
-
-
 def _codec() -> ctypes.CDLL:
     if "codec" not in _libs:
-        missing = codec_missing()
-        if missing:
-            raise RuntimeError(f"the JPEG codec (runtime/loader.cpp) needs "
-                               f"libjpeg-turbo; this machine lacks {missing}")
-        lib = ctypes.CDLL(str(_build(_HERE / "loader.cpp", ("-ljpeg",))))
-        lib.vu_decode_batch.restype = _I
-        lib.vu_decode_batch.argtypes = [_P, _I, _I, _I, _P, _I]
-        lib.vu_decode_gray_batch.restype = _I
-        lib.vu_decode_gray_batch.argtypes = [_P, _I, _I, _I, _P, _I]
+        lib = ctypes.CDLL(str(_build(_HERE / "loader.cpp")))
+        for name in ("vu_decode_batch", "vu_decode_gray_batch"):
+            getattr(lib, name).restype = _I
+            getattr(lib, name).argtypes = [
+                _P, _I, _I, _I, _P, _I, ctypes.POINTER(ctypes.c_int),
+                ctypes.c_char_p, _I]
         lib.vu_encode_batch.restype = _I
         lib.vu_encode_batch.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I]
+        lib.vu_encode_memory.restype = ctypes.c_long
+        lib.vu_encode_memory.argtypes = [_P, _I, _I, _I, _I, _P,
+                                         ctypes.c_long]
         lib.vu_probe.restype = _I
         lib.vu_probe.argtypes = [ctypes.c_char_p,
                                  ctypes.POINTER(ctypes.c_int),
-                                 ctypes.POINTER(ctypes.c_int)]
+                                 ctypes.POINTER(ctypes.c_int),
+                                 ctypes.c_char_p, _I]
         _libs["codec"] = lib
     return _libs["codec"]
 
 
 def available() -> bool:
-    """Whether the JPEG codec builds on this machine (what the JAX
-    package's `runtime.available()` answers). The host prep and the fg
-    un-blends build without it."""
-    return codec_missing() is None
+    """Whether `g++` built the JPEG codec (what the JAX package's
+    `runtime.available()` answers). It needs no library, so it builds
+    wherever `g++` runs; the codec's own calls raise where it does not."""
+    try:
+        _codec()
+    except RuntimeError:
+        return False
+    return True
 
 
 def _hostprep() -> ctypes.CDLL:
@@ -145,13 +136,41 @@ def _c_paths(paths: Sequence[str]):
     return (ctypes.c_char_p * len(paths))(*[os.fsencode(p) for p in paths])
 
 
-def probe(path: str) -> Optional[Tuple[int, int]]:
-    """(h, w) of a JPEG file, or None if it cannot be read as one."""
+def _probe(path: str) -> Tuple[Optional[Tuple[int, int]], str]:
     h, w = ctypes.c_int(), ctypes.c_int()
-    if _codec().vu_probe(os.fsencode(path), ctypes.byref(h),
-                         ctypes.byref(w)) != 0:
-        return None
-    return h.value, w.value
+    msg = ctypes.create_string_buffer(_MSG_CAP)
+    if _codec().vu_probe(os.fsencode(path), ctypes.byref(h), ctypes.byref(w),
+                         msg, _MSG_CAP) != 0:
+        return None, msg.value.decode(errors="replace")
+    return (h.value, w.value), ""
+
+
+def probe(path: str) -> Optional[Tuple[int, int]]:
+    """(h, w) of a JPEG file from its frame header (any JPEG, also one
+    the decoder refuses), or None if it has none."""
+    return _probe(path)[0]
+
+
+def _first_size(paths: Sequence[str]) -> Tuple[int, int]:
+    hw, why = _probe(paths[0])
+    if hw is None:
+        raise RuntimeError(f"{paths[0]}: {why}")
+    return hw
+
+
+def _decode(fn, paths: Sequence[str], hw: Tuple[int, int],
+            out: np.ndarray, threads: int) -> np.ndarray:
+    """Run a batch decode of the codec; raises with the first failed file
+    and why it failed."""
+    first = ctypes.c_int(-1)
+    msg = ctypes.create_string_buffer(_MSG_CAP)
+    failures = fn(_c_paths(paths), len(paths), *hw, out.ctypes.data, threads,
+                  ctypes.byref(first), msg, _MSG_CAP)
+    if failures:
+        raise RuntimeError(
+            f"{paths[first.value]}: {msg.value.decode(errors='replace')} "
+            f"({failures} of {len(paths)} JPEG decodes failed)")
+    return out
 
 
 def decode_batch(paths: Sequence[str],
@@ -159,56 +178,46 @@ def decode_batch(paths: Sequence[str],
                  threads: int = 16) -> np.ndarray:
     """Threaded JPEG decode to one (n, h, w, 3) BGR uint8 array, at the
     first file's size unless `target_hw` is given (then resized with the
-    codec's float bilinear). Raises if a file does not decode."""
+    codec's float bilinear). Raises, naming the file and why, if a file
+    does not decode."""
     paths = list(paths)
     if not paths:
         raise ValueError("decode_batch: no paths")
-    if target_hw is None:
-        target_hw = probe(paths[0])
-        if target_hw is None:
-            raise RuntimeError(f"{paths[0]} is not a readable JPEG")
-    th, tw = target_hw
-    out = np.empty((len(paths), th, tw, 3), np.uint8)
-    failures = _codec().vu_decode_batch(_c_paths(paths), len(paths), th, tw,
-                                        out.ctypes.data, threads)
-    if failures:
-        raise RuntimeError(f"{failures} of {len(paths)} JPEG decodes failed "
-                           f"(first path {paths[0]})")
-    return out
+    th, tw = _first_size(paths) if target_hw is None else target_hw
+    return _decode(_codec().vu_decode_batch, paths, (th, tw),
+                   np.empty((len(paths), th, tw, 3), np.uint8), threads)
 
 
 def decode_gray_batch(paths: Sequence[str], threads: int = 16) -> np.ndarray:
     """Threaded JPEG decode to one (n, h, w) gray uint8 array, at the first
-    file's size: libjpeg's grayscale output, the luma plane of a colour
-    file, which is what `cv2.imread(..., IMREAD_GRAYSCALE)` reads (not the
-    BGR decode's `bgr_to_gray`). Raises if a file does not decode or has
-    another size."""
+    file's size: the luma plane of a colour file, which is what
+    `cv2.imread(..., IMREAD_GRAYSCALE)` reads (not the BGR decode's
+    `bgr_to_gray`). Raises, naming the file and why, if a file does not
+    decode or has another size."""
     paths = list(paths)
     if not paths:
         raise ValueError("decode_gray_batch: no paths")
-    hw = probe(paths[0])
-    if hw is None:
-        raise RuntimeError(f"{paths[0]} is not a readable JPEG")
-    out = np.empty((len(paths),) + hw, np.uint8)
-    failures = _codec().vu_decode_gray_batch(_c_paths(paths), len(paths),
-                                             *hw, out.ctypes.data, threads)
-    if failures:
-        raise RuntimeError(f"{failures} of {len(paths)} gray JPEG decodes "
-                           f"failed (first path {paths[0]}; all must be "
-                           f"{hw[0]}x{hw[1]})")
-    return out
+    hw = _first_size(paths)
+    return _decode(_codec().vu_decode_gray_batch, paths, hw,
+                   np.empty((len(paths),) + hw, np.uint8), threads)
+
+
+def _image_batch(imgs: np.ndarray, what: str) -> np.ndarray:
+    imgs = np.ascontiguousarray(imgs, np.uint8)
+    if imgs.ndim not in (3, 4) or (imgs.ndim == 4 and imgs.shape[3] != 3) \
+            or 0 in imgs.shape[1:3]:
+        raise ValueError(f"{what}: images of shape {imgs.shape}, want "
+                         f"(n, h, w) or (n, h, w, 3), h and w > 0")
+    return imgs
 
 
 def encode_batch(paths: Sequence[str], imgs: np.ndarray, quality: int = 95,
                  threads: int = 16) -> int:
     """Threaded JPEG encode of (n, h, w, 3) BGR or (n, h, w) gray uint8
-    images. Returns the failure count (0); raises if a file was not
-    written."""
+    images, byte for byte what `cv2.imwrite` writes at that quality.
+    Returns the failure count (0); raises if a file was not written."""
     paths = list(paths)
-    imgs = np.ascontiguousarray(imgs, np.uint8)
-    if imgs.ndim not in (3, 4) or (imgs.ndim == 4 and imgs.shape[3] != 3):
-        raise ValueError(f"encode_batch: images of shape {imgs.shape}, want "
-                         f"(n, h, w) or (n, h, w, 3)")
+    imgs = _image_batch(imgs, "encode_batch")
     if len(paths) != imgs.shape[0]:
         raise ValueError(f"encode_batch: {len(paths)} paths for "
                          f"{imgs.shape[0]} images")
@@ -220,6 +229,25 @@ def encode_batch(paths: Sequence[str], imgs: np.ndarray, quality: int = 95,
         raise RuntimeError(f"{failures} of {n} JPEG encodes failed (first "
                            f"path {paths[0]})")
     return failures
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """One (h, w, 3) BGR or (h, w) gray uint8 image as JPEG bytes (what
+    `encode_batch` writes to a file)."""
+    img = _image_batch(np.asarray(img)[None], "encode_jpeg")
+    h, w = img.shape[1:3]
+    c = 1 if img.ndim == 3 else 3
+    cap = h * w * c + 4096
+    while True:
+        buf = np.empty(cap, np.uint8)
+        n = _codec().vu_encode_memory(img.ctypes.data, h, w, c, int(quality),
+                                      buf.ctypes.data, cap)
+        if n < 0:
+            raise RuntimeError(f"JPEG encode of a {img.shape[1:]} image "
+                               f"failed")
+        if n <= cap:
+            return buf[:n].tobytes()
+        cap = n
 
 
 def _frame_pointers(frames: Sequence[np.ndarray]) -> Tuple[List, tuple]:

@@ -1,14 +1,14 @@
 """File I/O: image lists, parallel image decode, image writes.
 
 Port of `video_unscreen_tpu/utils/fileio.py` without cv2: JPEG files go
-through the port's native codec (`runtime/loader.cpp`, threaded libjpeg)
-and resizes through its host prep (`runtime/hostprep.cpp`, cv2's
-INTER_LINEAR). PNG files, 8-bit gray or BGR, go through a lossless codec
-on the standard library's `zlib` and `struct` (`write_png`, `read_png`),
-which needs no libpng and so also runs where libjpeg is missing. Another
-format raises and names itself (the JAX package falls back to cv2 there).
-`save_video` is not ported: it needs a video encoder (ROADMAP.md, item
-19).
+through the port's own threaded codec (`runtime/loader.cpp`, bit-equal to
+libjpeg-turbo) and resizes through its host prep (`runtime/hostprep.cpp`,
+cv2's INTER_LINEAR). PNG files, 8-bit gray or BGR, go through a lossless
+codec on the standard library's `zlib` and `struct` (`write_png`,
+`read_png`). Another format raises and names itself (the JAX package
+falls back to cv2 there). `save_video` writes an MJPEG MP4
+(`utils/video.py`), where the JAX package writes MPEG-4 Part 2 through
+cv2: neither machine the port runs on has an MPEG-4 encoder.
 """
 
 from __future__ import annotations
@@ -17,11 +17,12 @@ import os
 import os.path as osp
 import struct
 import zlib
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
 from .. import runtime
+from . import video
 
 _JPEG = (".jpg", ".jpeg")
 _PNG = (".png",)
@@ -217,9 +218,49 @@ def save_img(path: str, img: np.ndarray, long_side: int = -1) -> None:
         runtime.encode_batch([path], img[None])
 
 
+def frame_hw(path: str) -> Tuple[int, int]:
+    """(h, w) of a JPEG (from its frame header) or PNG file."""
+    if _image_format(path) == "jpeg":
+        hw = runtime.probe(path)
+        if hw is None:
+            raise ValueError(f"{path}: not a readable JPEG")
+        return hw
+    return read_png(path).shape[:2]
+
+
 def save_video(frame_dir: str, video_path: str, fps: float = 25.0,
-               filename_tmpl: str = "{:06d}.jpg") -> None:
-    """Not ported: the mux needs a video encoder, and the port has none."""
-    raise NotImplementedError(
-        "save_video is not ported yet: it needs a video encoder (ROADMAP.md, "
-        "Queue 1, item 19)")
+               filename_tmpl: str = "{:06d}.jpg") -> int:
+    """Assemble the frames of `frame_dir` (every `.jpg` and `.png`, sorted
+    by name, as the JAX package selects them) into an MJPEG MP4 at `fps`
+    (`utils/video.py:write_mjpeg_mp4`); returns the frame count. The
+    video's size is the first frame's with each side rounded down to even,
+    and a frame of another size is left out: what `cv2.VideoWriter` does
+    with the frames the JAX package hands it. A JPEG of that size goes in
+    as its own bytes; a PNG, or a frame cropped to even sides (its top
+    left, as cv2 crops it), is encoded at quality 95. `filename_tmpl` is
+    unused, as in the JAX package."""
+    names = sorted(f for f in os.listdir(frame_dir)
+                   if f.endswith((".jpg", ".png")))
+    if not names:
+        raise ValueError(f"no frames in {frame_dir}")
+    paths = [osp.join(frame_dir, f) for f in names]
+
+    def even(hw):
+        return hw[0] & ~1, hw[1] & ~1
+
+    h, w = even(frame_hw(paths[0]))
+
+    def frames():
+        for p in paths:
+            hw = frame_hw(p)
+            if even(hw) != (h, w):
+                continue
+            if _image_format(p) == "jpeg" and hw == (h, w):
+                with open(p, "rb") as f:
+                    yield f.read()
+                continue
+            img = parallel_read_img([p], num_workers=1)[0]
+            yield runtime.encode_jpeg(np.ascontiguousarray(img[:h, :w]), 95)
+
+    os.makedirs(osp.dirname(video_path) or ".", exist_ok=True)
+    return video.write_mjpeg_mp4(video_path, frames(), (w, h), fps)
