@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import nn_, tt
 from video_unscreen_tpu.models.stm import memory_read as j_memory_read
 from video_unscreen_tpu.ops.pallas.attention import (_fwd_call, _pad_inputs,

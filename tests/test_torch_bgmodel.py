@@ -4,11 +4,13 @@ against the JAX package on the CPU.
 - `BackgroundAgent.forward` with each method on `tests/test_agents.py`'s
   green-screen frame, at its own size and from twice its size (resized to
   long side 128 and back): the uint8 backgrounds within 1 level (the CG
-  and the box-filter loop reassociate float sums); `pcov`'s iteration
-  count equal to that of JAX's `lax.while_loop` (run here with a
-  counter); the two early exits
-  (no background: float zeros; no foreground: the frame itself) and the
-  unknown method, as JAX's.
+  and the box-filter loop reassociate float sums; JAX's `mean` runs op by
+  op, which compiles in seconds where its jitted program takes minutes,
+  to the same bits, as the `slow` test
+  `test_mean_reference_op_by_op_is_the_jitted_program` checks); `pcov`'s
+  iteration count equal to that of JAX's `lax.while_loop` (run here with
+  a counter); the two early exits (no background: float zeros; no
+  foreground: the frame itself) and the unknown method, as JAX's.
 - `box_filter` against JAX to 1e-5 of its scale and against
   `cv2.boxFilter` to 1e-4; `morph_open`, `morph_close` and
   `get_outer_boundary` bit-exact; the K1/K2 dispatch refuses a
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 
 from tests.test_agents import make_greenscreen
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_close, assert_equal, soft_mask, tt
 from video_unscreen_tpu.agents.bgmodel import BackgroundAgent as JAgent
 from video_unscreen_tpu.ops import morphology as jmorph
@@ -79,7 +82,15 @@ def test_background_agent_against_jax(jax_agent, method, scale):
     img, gt = make_greenscreen(h=96 * scale, w=128 * scale, noise=2)
     jag = jax_agent
     tag = BackgroundAgent(input_long_side=128, device="cpu")
-    want = jag.forward(img, gt, method=method)
+    if method == "mean":
+        # op by op: XLA's CPU fusion pass takes minutes on the jitted
+        # `device_mean` (the 7x7 ellipse chain of 10 iterations feeds two
+        # reductions), op by op seconds; at both sizes the values are the
+        # jitted program's bit for bit
+        with jax.disable_jit():
+            want = jag.forward(img, gt, method=method)
+    else:
+        want = jag.forward(img, gt, method=method)
     got = tag.forward(img, gt, method=method)
     assert got.shape == want.shape == img.shape and got.dtype == np.uint8
     _within_one(got, want, method)
@@ -88,6 +99,20 @@ def test_background_agent_against_jax(jax_agent, method, scale):
     hole = gt > 0
     err = np.abs(got[hole].astype(float) - np.array([40, 190, 50])).mean()
     assert err < 40, err
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("scale", [1, 2])
+def test_mean_reference_op_by_op_is_the_jitted_program(jax_agent, scale):
+    """The op-by-op `mean` reference of `test_background_agent_against_jax`
+    has the bytes of the jitted `device_mean` that users run, at both
+    sizes. Slow: XLA takes many minutes to compile the jitted program on
+    a cold cache."""
+    img, gt = make_greenscreen(h=96 * scale, w=128 * scale, noise=2)
+    want = jax_agent.forward(img, gt, method="mean")
+    with jax.disable_jit():
+        got = jax_agent.forward(img, gt, method="mean")
+    assert_equal(got, want)
 
 
 def test_background_agent_exits_against_jax():

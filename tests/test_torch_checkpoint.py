@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 from flax import serialization
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_equal
 from video_unscreen_tpu_torch.models.matting_unet import MattingUNet
 from video_unscreen_tpu_torch.utils.checkpoint import (load_matting_unet,

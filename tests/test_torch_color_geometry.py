@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_close, assert_equal, compare, tt
 from video_unscreen_tpu.ops import color as jcolor
 from video_unscreen_tpu.ops import geometry as jgeo

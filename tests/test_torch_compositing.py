@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_close, assert_equal, tt
 from video_unscreen_tpu.ops import compositing as jc
 from video_unscreen_tpu.utils import visualize as jv

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_equal, blob_mask, tt
 from video_unscreen_tpu.ops import connected as jcc
 from video_unscreen_tpu.ops.pallas.flood import \

@@ -15,6 +15,7 @@ import cv2
 import numpy as np
 import pytest
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from video_unscreen_tpu.parallel import data_synth as jds
 from video_unscreen_tpu.parallel import train_stm as jts
 from video_unscreen_tpu_torch.parallel import data_synth as ds

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from tests.test_pipeline_green import TEST_CFG, make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import (assert_bf16_close, assert_close, nn_,
                                    tt)
 from video_unscreen_tpu.agents.binseg import SegAgent as JSeg

@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 
 from tests.test_pipeline_green import TEST_CFG
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import require_cuda  # noqa: F401 (thread cap)
 from video_unscreen_tpu_torch.pipeline import evaluate
 

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from tests.test_pipeline_green import TEST_CFG, make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_close, within_jax_bound
 from video_unscreen_tpu import runtime as jruntime
 from video_unscreen_tpu.pipeline.fused_green import \

@@ -33,6 +33,7 @@ import torch
 
 from tests.test_pipeline_bg import BG_TEST_CFG
 from tests.test_pipeline_green import TEST_CFG, make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import require_cuda  # noqa: F401 (thread cap)
 from video_unscreen_tpu import config as jconfig
 from video_unscreen_tpu.pipeline import common as jcommon

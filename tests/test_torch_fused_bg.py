@@ -27,6 +27,7 @@ import torch
 
 from tests.test_pipeline_bg import BG_TEST_CFG
 from tests.test_pipeline_green import make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import (assert_bf16_close, assert_close,
                                    assert_equal, nn_, tt)
 from video_unscreen_tpu.models import stm as jstm

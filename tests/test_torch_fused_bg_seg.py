@@ -22,6 +22,7 @@ import torch
 
 from tests.test_pipeline_bg import BG_TEST_CFG
 from tests.test_pipeline_green import make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_equal
 from video_unscreen_tpu.ops import geometry as jgeo
 from video_unscreen_tpu.pipeline.fused_bg import FusedBgPipeline as JPipe

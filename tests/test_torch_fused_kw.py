@@ -19,6 +19,7 @@ import torch
 
 from tests.test_pipeline_bg import BG_TEST_CFG
 from tests.test_pipeline_green import TEST_CFG, make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import within_jax_bound
 from video_unscreen_tpu.pipeline.fused_bg import \
     FusedBgPipeline as JBgPipe

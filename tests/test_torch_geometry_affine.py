@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import tt
 from video_unscreen_tpu.ops import geometry as jg
 from video_unscreen_tpu_torch.ops import geometry as pg

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from tests.test_pipeline_green import make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_close, assert_equal, compare, tt
 from video_unscreen_tpu.agents.colorfiltering import \
     ColorFilteringAgent as JCF

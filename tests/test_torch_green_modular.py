@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from tests.test_pipeline_green import TEST_CFG, make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import require_cuda  # noqa: F401 (thread cap)
 from video_unscreen_tpu.agents.colorfiltering import \
     ColorFilteringAgent as JCF

@@ -16,6 +16,7 @@ import none either, and the entry
 points (`FrameStreamer` and the dry run among them) refuse a missing card
 instead of quietly running on the host."""
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -86,42 +87,69 @@ def test_chip_smoke_imports_nothing_of_jax():
     assert "video_unscreen_tpu_torch" in roots
 
 
-def _loads_nothing_of_jax(rel_path):
+FAMILIES = ["matting", "binseg", "human", "iseg"]
+CLIS = ["unscreen/green_torch", "unscreen/bg_torch",
+        "unscreen/bg_offline_torch", "replace/replace_torch", "eval_torch",
+        "make_eval_set_torch", "run_app_protocol_torch",
+        "unscreen_parallel_torch", "link_probe_torch",
+        "run_eval_protocol_torch", "profile_stages_torch"]
+# every tool and CLI whose import the tests below check, all loaded in one
+# child process (one interpreter start and one torch import for all)
+_TOOLS = (["tools/train_stm_torch.py"]
+          + [f"tools/train_{family}_torch.py" for family in FAMILIES]
+          + [f"tools/{cli}.py" for cli in CLIS])
+
+_TOOLS_PROBE = """
+import importlib.util, json, sys, traceback
+forbidden = {forbidden!r}
+out = {{}}
+for i, path in enumerate({paths!r}):
+    try:
+        spec = importlib.util.spec_from_file_location(f"t{{i}}", path)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        out[path] = sorted(k for k in sys.modules
+                           if k.split(".")[0] in forbidden)
+    except BaseException:
+        out[path] = traceback.format_exc()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def tool_imports():
+    """path -> the forbidden modules loaded once that tool and the tools
+    before it have loaded (a list), or the traceback of its failed load
+    (a string). A forbidden import fails its tool's test and the tests of
+    the tools after it."""
+    out = subprocess.run(
+        [sys.executable, "-c", _TOOLS_PROBE.format(
+            forbidden=set(FORBIDDEN), paths=_TOOLS)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _loads_nothing_of_jax(rel_path, tool_imports):
     roots = _import_roots(ROOT / rel_path)
     assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
     assert "video_unscreen_tpu_torch" in roots
-    probe = ("import importlib.util, sys\n"
-             "spec = importlib.util.spec_from_file_location('t', "
-             f"{rel_path!r})\n"
-             "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-             f"print(sorted(k for k in sys.modules if k.split('.')[0] in "
-             f"{set(FORBIDDEN)!r}))")
-    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]", out.stdout
+    loaded = tool_imports[rel_path]
+    assert isinstance(loaded, list), loaded
+    assert loaded == [], loaded
 
 
-def test_port_trainer_imports_nothing_of_jax():
-    _loads_nothing_of_jax("tools/train_stm_torch.py")
+def test_port_trainer_imports_nothing_of_jax(tool_imports):
+    _loads_nothing_of_jax("tools/train_stm_torch.py", tool_imports)
 
 
-@pytest.mark.parametrize("family", ["matting", "binseg", "human", "iseg"])
-def test_port_trainers_import_nothing_of_jax(family):
-    _loads_nothing_of_jax(f"tools/train_{family}_torch.py")
+@pytest.mark.parametrize("family", FAMILIES)
+def test_port_trainers_import_nothing_of_jax(family, tool_imports):
+    _loads_nothing_of_jax(f"tools/train_{family}_torch.py", tool_imports)
 
 
-@pytest.mark.parametrize("cli", ["unscreen/green_torch", "unscreen/bg_torch",
-                                 "unscreen/bg_offline_torch",
-                                 "replace/replace_torch", "eval_torch",
-                                 "make_eval_set_torch",
-                                 "run_app_protocol_torch",
-                                 "unscreen_parallel_torch",
-                                 "link_probe_torch",
-                                 "run_eval_protocol_torch",
-                                 "profile_stages_torch"])
-def test_port_clis_import_nothing_of_jax(cli):
-    _loads_nothing_of_jax(f"tools/{cli}.py")
+@pytest.mark.parametrize("cli", CLIS)
+def test_port_clis_import_nothing_of_jax(cli, tool_imports):
+    _loads_nothing_of_jax(f"tools/{cli}.py", tool_imports)
 
 
 def _cli(name):

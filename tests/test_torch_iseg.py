@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import flax.serialization
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_close, assert_equal, tt
 from video_unscreen_tpu.agents import iseg as jagents
 from video_unscreen_tpu.models import iseg as jmodels

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tests.test_pipeline_green import make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import (assert_bf16_close, assert_close,
                                    assert_equal, tt)
 from video_unscreen_tpu.agents.vmatting import VMattingAgent as JVM

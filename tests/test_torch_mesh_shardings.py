@@ -22,6 +22,7 @@ import pytest
 import torch.nn as nn
 
 from tests import torch_train_rank_cases as cases
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from video_unscreen_tpu.parallel import make_mesh as jax_make_mesh
 from video_unscreen_tpu.parallel.mesh import param_shardings as jax_shardings
 from video_unscreen_tpu.parallel.mesh import \

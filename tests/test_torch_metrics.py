@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import tt
 from video_unscreen_tpu.ops import metrics as jm
 from video_unscreen_tpu.pipeline import run_eval as j_run_eval

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_close, assert_equal, soft_mask, tt
 from video_unscreen_tpu.ops import morphology as jmorph
 from video_unscreen_tpu.ops.chroma import chroma_segment as jchroma

@@ -9,7 +9,9 @@ process run) and `select_device` on unset, out-of-range and malformed
 ids, and `test_graft_entry_multichip`'s lines (`parallel/dryrun.py` on 4
 ranks: the training step's line, then the two inference lines). The
 launcher's failures: a rank that raises, one that dies and one that
-hangs each fail the call within seconds. Imports no JAX: the reference values are JAX's rules, restated.
+hangs each fail the call within seconds; a rank that reports progress
+keeps its deadline moving. Imports no JAX: the reference values are
+JAX's rules, restated.
 """
 import importlib.util
 import re
@@ -66,6 +68,15 @@ def test_make_mesh_without_process_group():
 def test_run_ranks_fails_fast(fn, match):
     with pytest.raises((RuntimeError, TimeoutError), match=match):
         run_ranks(fn, 2, timeout=6)
+
+
+def test_run_ranks_deadline_runs_from_the_last_report():
+    """Nine naps of 1 s with a `heartbeat` after each outlast the 6 s
+    deadline and finish: the deadline runs from the last report (without
+    one, `rank1_hangs` above fails). A report comes 5 s before it is due,
+    so a loaded host does not fail the test."""
+    assert run_ranks(cases.naps_with_reports, 2, (9, 1.0), timeout=6) == [
+        0, 1]
 
 
 def test_frame_streamer():

@@ -17,6 +17,7 @@ from torch.utils._pytree import tree_leaves
 
 from tests.test_pipeline_bg import BG_TEST_CFG
 from tests.test_pipeline_green import TEST_CFG, make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from video_unscreen_tpu_torch import runtime
 from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
 from video_unscreen_tpu_torch.pipeline.fused_green import \

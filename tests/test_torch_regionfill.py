@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import nn_, tt
 
 jrf = importlib.import_module("video_unscreen_tpu.ops.regionfill")

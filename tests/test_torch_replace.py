@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from tests.test_replace import _write_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_close, nn_, tt
 from video_unscreen_tpu.agents import harmonization as jharm
 from video_unscreen_tpu.ops.color import bgr2lab as j_bgr2lab

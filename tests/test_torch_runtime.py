@@ -23,6 +23,7 @@ import cv2
 import numpy as np
 import pytest
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import require_cuda  # noqa: F401 (thread cap)
 from video_unscreen_tpu import runtime as jrt
 from video_unscreen_tpu_torch import runtime as rt

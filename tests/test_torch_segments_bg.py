@@ -24,6 +24,7 @@ import pytest
 from tests import torch_rank_cases as cases
 from tests.test_pipeline_bg import BG_TEST_CFG
 from tests.test_pipeline_green import make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_equal, within_jax_bound
 from video_unscreen_tpu.parallel import make_mesh as jax_make_mesh
 from video_unscreen_tpu.pipeline.fused_bg import FusedBgPipeline as JPipe

@@ -24,6 +24,7 @@ import pytest
 
 from tests import torch_rank_cases as cases
 from tests.test_pipeline_green import TEST_CFG, make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_close, assert_equal
 from video_unscreen_tpu_torch.agents.binseg import _crop_grid
 from video_unscreen_tpu_torch.parallel.launch import run_ranks

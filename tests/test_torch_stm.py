@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from tests.test_pipeline_green import make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_close, nn_, tt
 from video_unscreen_tpu.agents.stm import STMAgent as JAgent
 from video_unscreen_tpu.models import resnet as jresnet

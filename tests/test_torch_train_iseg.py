@@ -31,6 +31,7 @@ import optax
 import pytest
 import torch
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_train_util import (check_float64_grads,
                                     check_loss_and_grads,
                                     check_saved_variables, check_stats,

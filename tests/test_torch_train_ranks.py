@@ -57,6 +57,7 @@ import torch
 import torch.nn as nn
 
 from tests import torch_train_rank_cases as cases
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_train_util import (check_loss_and_grads, check_stats,
                                     check_step, flax_dropout_off,
                                     grads_tree, np_tree)

@@ -39,6 +39,7 @@ import optax
 import pytest
 import torch
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import nn_, tt
 from video_unscreen_tpu.models.stm import STM as JSTM
 from video_unscreen_tpu.parallel import train_stm as jts

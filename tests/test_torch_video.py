@@ -20,6 +20,7 @@ import cv2
 import numpy as np
 import pytest
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from video_unscreen_tpu.utils import fileio as jfileio
 from video_unscreen_tpu.utils import video as jvideo
 from video_unscreen_tpu_torch import runtime as rt

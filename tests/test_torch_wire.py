@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from tests.test_pipeline_green import TEST_CFG, make_clip
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from tests.torch_port_util import assert_close
 from video_unscreen_tpu.ops.color import yuv420_to_bgr as j_yuv420_to_bgr
 from video_unscreen_tpu.pipeline.fused_green import \

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_jax_cache import cache_every_compile  # noqa: F401
 from video_unscreen_tpu.ops import wirepack as jw
 from video_unscreen_tpu_torch.ops import wirepack as tw
 

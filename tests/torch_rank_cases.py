@@ -13,6 +13,7 @@ import time
 import numpy as np
 import torch
 
+from video_unscreen_tpu_torch.parallel.launch import heartbeat
 from video_unscreen_tpu_torch.parallel.mesh import make_mesh
 from video_unscreen_tpu_torch.pipeline.fused_bg import FusedBgPipeline
 from video_unscreen_tpu_torch.pipeline.fused_green import FusedGreenPipeline
@@ -116,6 +117,14 @@ def rank0_dies(rank):
 def rank1_hangs(rank):
     if rank == 1:
         time.sleep(600)
+    return rank
+
+
+def naps_with_reports(rank, naps, seconds):
+    """`naps` sleeps of `seconds` each, a progress report after each."""
+    for _ in range(naps):
+        time.sleep(seconds)
+        heartbeat()
     return rank
 
 

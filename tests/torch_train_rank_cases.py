@@ -29,6 +29,7 @@ from video_unscreen_tpu_torch.models.matting_unet import MattingUNet
 from video_unscreen_tpu_torch.models.resnet import ResNet
 from video_unscreen_tpu_torch.models.stm import STM
 from video_unscreen_tpu_torch.parallel import families, train
+from video_unscreen_tpu_torch.parallel.launch import heartbeat
 from video_unscreen_tpu_torch.parallel.mesh import (make_mesh,
                                                     param_shardings,
                                                     spatial_sharding)
@@ -150,7 +151,8 @@ def train_cases(rank, batches, band_batch, save_dir, steps_batch,
     family -> namespace), rank 0's prints returned. Then, outside the
     mesh, each rank takes the one-process references of its share of
     the families (`references`), and rank 3 the band batch's losses (the
-    whole batch's and each data block's own)."""
+    whole batch's and each data block's own). A `heartbeat` ends each
+    phase, so `run_ranks`'s deadline bounds a phase, not the whole job."""
     mesh = make_mesh(4)
     out = {"mesh": dict(mesh.shape), "coords": dict(mesh.coords)}
     for name in FAMILIES:
@@ -165,6 +167,7 @@ def train_cases(rank, batches, band_batch, save_dir, steps_batch,
             for r in (off, on):
                 r.pop("grads"), r.pop("stepped"), r.pop("stats")
         del model, opt
+        heartbeat()
     model = make_state("matting", mesh)
     step = families.family("matting").step(
         model, *train.make_optimizer(model, *OPTIM["matting"]), mesh=mesh)
@@ -173,10 +176,12 @@ def train_cases(rank, batches, band_batch, save_dir, steps_batch,
     step = families.family("matting").step(
         model, *train.make_optimizer(model, *OPTIM["matting"]), mesh=mesh)
     out["losses"] = [float(step(steps_batch)) for _ in range(5)]
+    heartbeat()
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         for name, args in tool_args.items():
             families._train(name, args, mesh)
+            heartbeat()
     out["printed"] = printed.getvalue()
     out["references"] = references(FAMILIES[rank::4], batches)
     if rank == 3:   # the band batch's one-process losses: whole and halves
@@ -196,6 +201,7 @@ def references(names, batches):
         off = on if not dropouts(reduced(name)) else one_process_step(
             name, batches[name], dropout=False, dtype=torch.float64)
         out[name] = {"on": on, "off_grads": off["grads"]}
+        heartbeat()
     return out
 
 

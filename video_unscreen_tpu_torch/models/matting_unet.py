@@ -240,7 +240,9 @@ def spectral_normalize_tree(state_dict: Dict[str, torch.Tensor],
         transposed = tuple(arr.shape[2:]) == (4, 4)
         kern = (arr.transpose(2, 3, 0, 1)[::-1, ::-1] if transposed
                 else arr.transpose(2, 3, 1, 0))
-        mat = kern.reshape(-1, kern.shape[-1]).T          # (out, rest)
+        # (out, rest) in float64 once: a float32 matrix is cast anew at
+        # every product, to the same values and the same products
+        mat = kern.reshape(-1, kern.shape[-1]).T.astype(np.float64)
         u = rng.randn(mat.shape[0]).astype(np.float64)
         for _ in range(n_power_iterations):
             v = mat.T @ u

@@ -9,16 +9,19 @@ process group through a `file://` store in a fresh temporary directory
 - `fn` must be a module-level function of a module that imports no JAX:
   the child unpickles it by its module path and imports that module.
 - Every rank runs `torch.set_num_threads(threads)`.
-- The process group gets `collective_timeout`. Each rank reports once it
-  has joined the group; the parent waits at most START_TIMEOUT seconds
-  for every rank to join (the spawn, the imports and the rendezvous,
-  which take seconds on an idle host and several times that on a loaded
-  one), then at most `timeout` seconds more for all results. Past either
-  deadline it kills every rank still alive and raises. A rank that
-  raises sends its traceback and the parent raises at once; a rank that
-  dies without a result (a crash, a kill) raises too. So a hung
-  collective fails `timeout` seconds after the ranks are up, however long
-  they took to start.
+- The process group gets `collective_timeout`. Each rank reports once
+  every rank has joined the group (a barrier after the join, so no rank
+  runs `fn`, or leaves, while a peer is still connecting); the parent
+  waits at most START_TIMEOUT seconds for every rank to join (the spawn,
+  the imports and the rendezvous, which take seconds on an idle host and
+  several times that on a loaded one), then for the results at most
+  `timeout` seconds after the last join or progress report (`heartbeat`,
+  which a long `fn` calls between its phases). Past either deadline it
+  kills every rank still alive and raises. A rank that raises sends its
+  traceback and the parent raises at once; a rank that dies without a
+  result (a crash, a kill) raises too. So a hung collective fails
+  `timeout` seconds after the ranks are up, however long they took to
+  start.
 - `backend="nccl"` puts rank r on card r % the card count; with `gloo`,
   `fn` places its own tensors (ranks may share one card).
 """
@@ -39,7 +42,19 @@ import torch
 import torch.distributed as dist
 
 _JOINED = "joined"  # a rank's first message: it is in the process group
+_ALIVE = "alive"  # a rank's progress report (`heartbeat`)
 START_TIMEOUT = 300.0  # seconds for every rank to start and join
+_report = None  # in a rank: (the results queue, the rank), for `heartbeat`
+
+
+def heartbeat() -> None:
+    """Report progress from a rank of `run_ranks`: the parent's `timeout`
+    runs again from now, so a long job whose phases each end in a report
+    gives each phase the whole `timeout`, however loaded the host. Does
+    nothing outside a rank."""
+    if _report is not None:
+        results, rank = _report
+        results.put((rank, _ALIVE, None))
 
 
 def _rank_main(fn: Callable, rank: int, n_ranks: int, store: str,
@@ -48,6 +63,7 @@ def _rank_main(fn: Callable, rank: int, n_ranks: int, store: str,
     """One rank: join the group, report it, run `fn`, report its result or
     its traceback (before leaving the group, which can take a while), then
     leave."""
+    global _report
     joined = False
     try:
         torch.set_num_threads(threads)
@@ -57,7 +73,13 @@ def _rank_main(fn: Callable, rank: int, n_ranks: int, store: str,
             backend, init_method=f"file://{store}", world_size=n_ranks,
             rank=rank, timeout=timedelta(seconds=collective_timeout))
         joined = True
+        # gloo returns from init once this rank's own connections are up;
+        # a rank that then ran `fn`, returned and left could close its
+        # pairs under a peer still connecting ("Connection closed by
+        # peer"). Nobody starts before everybody is in.
+        dist.barrier()
         results.put((rank, _JOINED, None))
+        _report = (results, rank)
         results.put((rank, True, fn(rank, *args)))
     except BaseException:  # reported to the parent, which raises
         results.put((rank, False, traceback.format_exc()))
@@ -120,7 +142,7 @@ def run_ranks(fn: Callable, n_ranks: int, args: Sequence = (),
                         f"{START_TIMEOUT} s")
                 raise TimeoutError(
                     f"ranks {sorted(set(range(n_ranks)) - set(done))} gave "
-                    f"no result within {timeout} s")
+                    f"no result within {timeout} s of the last report")
             try:
                 rank, ok, value = results.get(timeout=min(left, 0.5))
             except queue.Empty:
@@ -132,7 +154,8 @@ def run_ranks(fn: Callable, n_ranks: int, args: Sequence = (),
                 continue
             if ok == _JOINED:
                 joined.add(rank)
-                if len(joined) == n_ranks:  # the run's own deadline
+            if ok in (_JOINED, _ALIVE):
+                if len(joined) == n_ranks:  # the run's deadline, anew
                     deadline = time.monotonic() + timeout
                 continue
             if not ok:
