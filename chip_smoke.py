@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card.
 
     python3 chip_smoke.py [--paths default|green_deeplab|iseg|train|ranks|
-                                   train_ranks|host_fetch|disk]
+                                   train_ranks|host_fetch|disk|protocol]
 
 The default run reads weights/matting_unet.msgpack and weights/stm.msgpack
 only, so that one copy of the repo holds it (the DeepLab and SCHP seeds
@@ -270,6 +270,23 @@ float32 card against host on 2 frames of 270x480 (work 288x480) within the
 JAX bound, frames/s and the seed's time with the shipped weights. It ends
 with the same JSON lines (the kernels row for K1-K3).
 
+`--paths protocol` runs the evaluation protocol's green rows at the
+operating point of the JAX tables of record (results/protocol_960.md,
+BGR wire; results/protocol_960_yuv420.md, I420 wire) and reads the same
+two weights files as `--paths green_deeplab`: the build, K1-K3 against
+their plain versions (K2's calls include the scoring's roi_sad), the 5
+green clips of tools/make_eval_set_torch.py at 1080p, 12 frames each,
+made here by the port's clip maker (one process a clip) and written as
+JPEGs and PNG GTs, then for each wire every clip through
+tools/run_eval_protocol_torch.py's own `run_mode` (fused green,
+configs/green.json as shipped: the DeepLab seed, bfloat16; work long
+side 960, chunks of 4; its alphas written as JPEGs) and `score_mode`
+(`pipeline/evaluate.py:run` on the card), counts reset just before each
+wire. One line a clip and wire (MIOU, SAD, MSE, GRAD, CONN, wall
+seconds of the run) beside the JAX row (`PROTOCOL_JAX`); a clip more
+than PROTOCOL_MIOU_TOL from its JAX row's MIOU fails the run. Its
+kernels row lists K1-K3.
+
 `--paths train` runs only the build and phase 12 (no weights file); its
 kernels row is empty, since the trainers launch none of K1-K6.
 
@@ -368,6 +385,29 @@ CODEC_SHA256 = {
     "decoded": "3d2f44df8cbfb976d411e816a7cf734b2f"
                "1940a5632bf545f6beb3bfdb0159d2"}
 CODEC_REPS = 3
+# the green rows of the JAX package's tables of record at 1080p, work
+# long side 960, 12 frames a clip: (MIOU, SAD, MSE, GRAD, CONN) by wire and
+# clip, as results/protocol_960.md (BGR) and results/protocol_960_yuv420.md
+# (I420) print them (tests/test_torch_eval_protocol.py holds this copy to
+# them)
+PROTOCOL_JAX = {
+    "bgr": {
+        "green1": (0.9884, 5.784, 2.0756, 17.802, 6.797),
+        "green2": (0.9855, 6.569, 2.8020, 20.992, 7.972),
+        "green_mblur": (0.7805, 31.448, 19.1237, 9.438, 46.904),
+        "green_jpeg": (0.9751, 7.641, 3.4648, 28.352, 9.322),
+        "green_twop": (0.9798, 8.924, 4.4790, 30.752, 11.243),
+        "ALL": (0.9419, 12.073, 6.3890, 21.467, 16.448)},
+    "yuv420": {
+        "green1": (0.9798, 5.530, 2.5616, 20.415, 6.273),
+        "green2": (0.9774, 6.940, 3.7082, 27.897, 8.484),
+        "green_mblur": (0.7785, 31.772, 19.4589, 9.442, 47.391),
+        "green_jpeg": (0.9650, 7.544, 3.8745, 28.934, 8.967),
+        "green_twop": (0.9689, 10.690, 6.8567, 40.649, 13.556),
+        "ALL": (0.9339, 12.495, 7.2920, 25.467, 16.934)}}
+PROTOCOL_MIOU_TOL = 0.01    # a clip's MIOU against its JAX row
+PROTOCOL_HW, PROTOCOL_FRAMES, PROTOCOL_CHUNK = (1080, 1920), 12, 4
+PROTOCOL_WIRES = ("bgr", "yuv420")
 
 
 def check(cond, msg):
@@ -4033,11 +4073,124 @@ def green_deeplab_paths(device):
     return counts, rows
 
 
+def protocol_check(wire, vid, miou):
+    """A green clip's MIOU against its row of the JAX table of record
+    (`PROTOCOL_JAX`): raises when they are more than PROTOCOL_MIOU_TOL
+    apart; returns the difference."""
+    want = PROTOCOL_JAX[wire][vid][0]
+    d = miou - want
+    check(abs(d) <= PROTOCOL_MIOU_TOL, f"protocol {wire} green {vid}: MIOU "
+          f"{miou:.4f} is {d:+.4f} from the JAX row's {want:.4f} (bound "
+          f"{PROTOCOL_MIOU_TOL})")
+    return d
+
+
+def protocol_phase(cfg_path, root):
+    """The protocol's green rows on the card, through
+    tools/run_eval_protocol_torch.py: the 5 green clips made under `root`
+    by tools/make_eval_set_torch.py, then for each wire the tool's
+    `run_mode` on each clip (fused green, its alphas written as JPEGs) and
+    its `score_mode` (`pipeline/evaluate.py:run` on the card), the kernel
+    counts reset just before the wire and read just after. Returns (kernel
+    counts by wire, the rows: wire -> clip -> the five scores and the
+    run's seconds)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from glob import glob
+    from video_unscreen_tpu_torch.ops import kernels
+    from video_unscreen_tpu_torch.pipeline.evaluate import KEYS
+
+    vids = [v for v in PROTOCOL_JAX["bgr"] if v != "ALL"]
+    t0 = time.perf_counter()
+    maker = load_cli("tools/make_eval_set_torch.py")
+    maker.make_clips(root, set(vids), PROTOCOL_FRAMES, *PROTOCOL_HW,
+                     workers=len(vids))
+    phase(f"protocol clips ({len(vids)} x {PROTOCOL_FRAMES} frames at "
+          f"{PROTOCOL_HW[0]}x{PROTOCOL_HW[1]}, one process a clip)", t0)
+    tool = load_cli("tools/run_eval_protocol_torch.py")
+    results_dir = os.path.join(root, "results")
+    os.makedirs(results_dir)
+    counts, rows = {}, {}
+    for wire in PROTOCOL_WIRES:
+        t0 = time.perf_counter()
+        shutil.rmtree(os.path.join(root, "test_green_img"),
+                      ignore_errors=True)
+        kernels.reset_counts()
+        secs = {}
+        for vid in vids:
+            t1 = time.perf_counter()
+            tool.run_mode("green", root, [vid], cfg_path,
+                          work_long_side=WORK_LONG_SIDE,
+                          chunk=PROTOCOL_CHUNK, wire=wire, device="cuda")
+            torch.cuda.synchronize()
+            secs[vid] = time.perf_counter() - t1
+            n = [len(glob(os.path.join(root, sub, vid, tmpl)))
+                 for sub, tmpl in (("alpha_img", "*.*"),
+                                   ("test_green_img", "alphamask_*.*"))]
+            check(n == [PROTOCOL_FRAMES] * 2, f"protocol {wire} {vid}: "
+                  f"{n[0]} GTs, {n[1]} predictions")
+        scores = tool.score_mode("green", root, vids, results_dir,
+                                 suffix=f"_{wire}", device="cuda")
+        torch.cuda.synchronize()
+        counts[f"protocol_{wire}"] = kernels.counts()
+        phase(f"protocol {wire} ({len(vids)} clips)", t0)
+        check_launched(counts[f"protocol_{wire}"], f"protocol {wire}")
+        secs["ALL"] = float(np.mean(list(secs.values())))
+        rows[wire] = {vid: [scores[vid][k] for k in KEYS] + [secs[vid]]
+                      for vid in vids + ["ALL"]}
+        for vid, m in rows[wire].items():
+            want = PROTOCOL_JAX[wire][vid]
+            check(all(np.isfinite(m)) and 0.0 <= m[0] <= 1.0,
+                  f"protocol {wire} {vid}: scores {m}")
+            print(f"  protocol {wire} green {vid}: MIOU {m[0]:.4f} SAD "
+                  f"{m[1]:.3f} MSE {m[2]:.4f} GRAD {m[3]:.3f} CONN "
+                  f"{m[4]:.3f}; {m[5]:.2f}s; JAX MIOU {want[0]:.4f} "
+                  f"({m[0] - want[0]:+.4f})", flush=True)
+        print(f"  protocol {wire}: (calls, launches) "
+              f"{counts[f'protocol_{wire}']}", flush=True)
+    for wire in PROTOCOL_WIRES:   # every row printed before any raise
+        for vid in vids:
+            protocol_check(wire, vid, rows[wire][vid][0])
+    return counts, rows
+
+
+def protocol_paths(device):
+    """`--paths protocol`: configs/green.json as shipped (its weights by
+    their paths in the checkout), K1-K3 against their plain versions, then
+    the protocol phase. Returns (kernel counts by wire, kernel rows of
+    K1-K3 and the protocol's rows)."""
+    import tempfile
+    from video_unscreen_tpu_torch.config import load_config
+
+    cfg = load_config(str(ROOT / "configs" / "green.json"))
+    seed_weights = ROOT / "weights" / "deeplab_binseg.msgpack"
+    weights = ROOT / "weights" / "matting_unet.msgpack"
+    for p in (seed_weights, weights):
+        check(p.is_file(), f"the weights {p} are missing")
+    check("type" not in cfg["binseg"] and cfg["binseg"]["model_path"],
+          "configs/green.json no longer ships the DeepLab seed")
+    cfg["binseg"]["model_path"] = str(seed_weights)
+    cfg["vmatting"]["model_path"] = str(weights)
+    t0 = time.perf_counter()
+    rows = morph_phase(device)
+    rows.update(kernel_phase(device))
+    phase("kernels vs plain (K1-K3)", t0)
+    with tempfile.TemporaryDirectory(prefix="protocol_") as root:
+        cfg_path = os.path.join(root, "green.json")
+        with open(cfg_path, "w") as fh:
+            json.dump(cfg, fh)
+        counts, rows["protocol"] = protocol_phase(cfg_path, root)
+    return counts, rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", choices=("default", "green_deeplab", "iseg",
                                         "train", "ranks", "train_ranks",
-                                        "host_fetch", "disk"),
+                                        "host_fetch", "disk",
+                                        "protocol"),
                     default="default")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -4085,6 +4238,8 @@ def main(argv=None):
         counts, rows = host_fetch_paths(device)
     elif args.paths == "disk":
         counts, rows = disk_paths(device)
+    elif args.paths == "protocol":
+        counts, rows = protocol_paths(device)
     else:
         counts, rows = default_paths(device)
 
@@ -4111,7 +4266,7 @@ def main(argv=None):
               f"none of the paths")
     print(json.dumps({k: rows[k] for k in ("seed", "schp", "evaluation",
                                            "iseg", "ranks", "train_ranks",
-                                           "codec")
+                                           "codec", "protocol")
                       if k in rows}))
     print(f"total wall seconds: {time.perf_counter() - t_start:.1f}",
           flush=True)

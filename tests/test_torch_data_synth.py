@@ -11,6 +11,8 @@ on >= 99% of the pixels of every frame, and the frames agree to 1e-4
 except within 2 px of an edge of a mask or of a person's part map (the
 part maps are recorded from both packages' `draw_person`). The cv2
 resamplers have exact counterparts and are held to cv2 itself."""
+import sys
+
 import cv2
 import numpy as np
 import pytest
@@ -330,3 +332,72 @@ def test_make_eval_set_torch_writes_the_layout(tmp_path):
         assert (tmp_path / "src_img" / vid / f"frame_{i:06d}.jpg").is_file()
         np.testing.assert_array_equal(read_png(str(
             tmp_path / "alpha_img" / vid / f"frame_{i:06d}.png")), gts[i])
+
+
+def test_make_eval_set_torch_clips_in_processes(tmp_path):
+    """`make_clips` makes only the clips named, and with `workers=2` (a
+    spawned process a clip, `--workers`) writes the same bytes as one
+    process, without changing the caller's `sys.path`."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "make_eval_set_torch", root / "tools" / "make_eval_set_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    vids = ["natural_occl", "green1"]
+    path = list(sys.path)
+    for workers in (1, 2):
+        lines = tool.make_clips(str(tmp_path / str(workers)), set(vids), 2,
+                                32, 48, workers)
+        assert [ln.split(":")[0] for ln in lines] == ["green1",
+                                                       "natural_occl"]
+    assert sys.path == path    # the caller's import path left as it was
+    one, two = tmp_path / "1", tmp_path / "2"
+    files = sorted(p.relative_to(one) for p in one.rglob("*")
+                   if p.is_file())
+    assert len(files) == 2 * 2 * len(vids)
+    assert files == sorted(p.relative_to(two) for p in two.rglob("*")
+                           if p.is_file())
+    for f in files:
+        assert (one / f).read_bytes() == (two / f).read_bytes(), f
+
+
+def test_compare_eval_sets_counts_differences(tmp_path):
+    """tools/compare_eval_sets_torch.py: nothing differs between a set and
+    its copy; one changed GT pixel and one changed frame pixel are
+    counted where they are, with their size."""
+    import importlib.util
+    import shutil
+    from pathlib import Path
+
+    from video_unscreen_tpu_torch.utils.fileio import read_png, write_png
+    root = Path(__file__).resolve().parents[1]
+    tools = {}
+    for name in ("make_eval_set_torch", "compare_eval_sets_torch"):
+        spec = importlib.util.spec_from_file_location(
+            name, root / "tools" / f"{name}.py")
+        tools[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tools[name])
+    a, b = tmp_path / "a", tmp_path / "b"
+    tools["make_eval_set_torch"].make_clips(str(a), {"green1", "natural1"},
+                                            2, 32, 48)
+    shutil.copytree(a, b)
+    rows = tools["compare_eval_sets_torch"].main([str(a), str(b)])
+    assert set(rows) == {"green1", "natural1"}
+    for per_dir in rows.values():
+        assert per_dir["alpha_img"] == (0, 0, 2, 0, (32, 48))
+        assert per_dir["src_img"] == (0, 0, 2, 0, (32, 48, 3))
+    gt = b / "alpha_img" / "natural1" / "frame_000001.png"
+    img = read_png(str(gt))
+    img[3, 4] = 255 - img[3, 4]
+    write_png(str(gt), img)
+    shutil.copy(a / "src_img" / "green1" / "frame_000001.jpg",
+                b / "src_img" / "green1" / "frame_000000.jpg")
+    rows = tools["compare_eval_sets_torch"].main([str(a), str(b)])
+    assert rows["natural1"]["alpha_img"] == (1, 1, 2, 255, (32, 48))
+    assert rows["natural1"]["src_img"][:2] == (0, 0)
+    n_px, n_frames, _, top, _ = rows["green1"]["src_img"]
+    assert n_frames == 1 and n_px > 0 and top > 0
+    assert rows["green1"]["alpha_img"][:2] == (0, 0)

@@ -14,6 +14,7 @@ from glob import glob
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 from tests.test_pipeline_green import TEST_CFG
 from tests.torch_jax_cache import cache_every_compile  # noqa: F401
@@ -60,6 +61,34 @@ def test_green_protocol_table(tmp_path):
         assert m["miou"] > 0.5
 
 
+def test_protocol_run_then_score(tmp_path):
+    """`--only run` writes the predictions and no table; `--only score`
+    then scores them (the eval set is not made again) as one call does."""
+    root = tmp_path / "eval"
+    cfg = tmp_path / "green.json"
+    cfg.write_text(json.dumps({k: v for k, v in TEST_CFG.items()
+                               if k != "data"}))
+    common = ["--data_root", str(root), "--modes", "green", "--vids",
+              "green2", "--frames", "3", "--height", "64", "--width", "96",
+              "--work_long_side", "96", "--green_cfg", str(cfg),
+              "--device", "cpu"]
+    tool = _tool()
+    assert tool.main(common + ["--only", "run", "--results_dir",
+                               str(tmp_path / "run")]) == {}
+    assert not (tmp_path / "run" / "protocol.md").exists()
+    preds = sorted(glob(osp.join(root, "test_green_img", "green2",
+                                 "alphamask_*.jpg")))
+    assert len(preds) == 3
+    (root / "src_img").rename(tmp_path / "src_img")   # not read again
+    rows = tool.main(common + ["--only", "score", "--results_dir",
+                               str(tmp_path / "score")])
+    gts = sorted(glob(osp.join(root, "alpha_img", "green2", "*.*")))
+    want = {k: float(np.mean(v)) for k, v in
+            evaluate.evaluate_video(gts, preds, "cpu").items()}
+    assert rows["green"]["green2"] == want
+    assert (tmp_path / "score" / "protocol.md").exists()
+
+
 def test_link_probe_on_host(capsys):
     r = _tool("link_probe_torch").main(["--device", "cpu", "--mb", "1",
                                         "--repeats", "3"])
@@ -84,7 +113,52 @@ def test_profile_stages_builds_its_stages():
                      "regionfill_50", "regionfill3_cold", "regionfill3_warm",
                      "pack_plane", "pack_plane_bg"]
     if not torch.cuda.is_available():
-        import pytest
         with pytest.raises(SystemExit) as exc:
             mod.main([])
         assert exc.value.code == 2
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _record(name):
+    """The green rows of a table of record as {clip: its five cells as
+    printed}."""
+    out = {}
+    for line in (ROOT / "results" / name).read_text().splitlines()[2:]:
+        mode, vid, *cells = [c.strip() for c in line.strip("|").split("|")]
+        if mode == "green":
+            out[vid] = cells
+    return out
+
+
+def test_chip_smoke_protocol_rows_are_the_record():
+    """`chip_smoke.py`'s copy of the green rows of the JAX tables of
+    record, digit for digit, in the record's own formats."""
+    fmts = ("{:.4f}", "{:.3f}", "{:.4f}", "{:.3f}", "{:.3f}")
+    rows = _chip_smoke().PROTOCOL_JAX
+    assert set(rows) == {"bgr", "yuv420"}
+    for wire, name in (("bgr", "protocol_960.md"),
+                       ("yuv420", "protocol_960_yuv420.md")):
+        want = _record(name)
+        assert len(want) == 6, name      # the 5 green clips and ALL
+        got = {vid: [f.format(v) for f, v in zip(fmts, m)]
+               for vid, m in rows[wire].items()}
+        assert got == want, wire
+
+
+def test_chip_smoke_protocol_check_bound():
+    cs = _chip_smoke()
+    assert cs.PROTOCOL_MIOU_TOL == 0.01
+    want = cs.PROTOCOL_JAX["yuv420"]["green2"][0]
+    for off in (0.009, -0.009):
+        assert abs(cs.protocol_check("yuv420", "green2", want + off)
+                   - off) < 1e-12
+    for off in (0.011, -0.011):
+        with pytest.raises(RuntimeError, match="green2"):
+            cs.protocol_check("yuv420", "green2", want + off)

@@ -11,8 +11,8 @@ JAX, flax, optax, msgpack, cv2 or JAX-package module, `chip_smoke.py`,
 `tools/replace/replace_torch.py`, `tools/eval_torch.py`,
 `tools/make_eval_set_torch.py`, `tools/run_app_protocol_torch.py`,
 `tools/unscreen_parallel_torch.py`, `tools/link_probe_torch.py`,
-`tools/run_eval_protocol_torch.py` and `tools/profile_stages_torch.py`
-import none either, and the entry
+`tools/run_eval_protocol_torch.py`, `tools/profile_stages_torch.py` and
+`tools/compare_eval_sets_torch.py` import none either, and the entry
 points (`FrameStreamer` and the dry run among them) refuse a missing card
 instead of quietly running on the host."""
 import ast
@@ -92,7 +92,8 @@ CLIS = ["unscreen/green_torch", "unscreen/bg_torch",
         "unscreen/bg_offline_torch", "replace/replace_torch", "eval_torch",
         "make_eval_set_torch", "run_app_protocol_torch",
         "unscreen_parallel_torch", "link_probe_torch",
-        "run_eval_protocol_torch", "profile_stages_torch"]
+        "run_eval_protocol_torch", "profile_stages_torch",
+        "compare_eval_sets_torch"]
 # every tool and CLI whose import the tests below check, all loaded in one
 # child process (one interpreter start and one torch import for all)
 _TOOLS = (["tools/train_stm_torch.py"]

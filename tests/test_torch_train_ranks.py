@@ -1,8 +1,9 @@
 """The five trainers' steps over a (data 2, model 2) mesh of 4 `gloo` CPU
 ranks, against the JAX value-and-grad and the port's one-process step.
 
-One spawn of 4 ranks for the file (`parallel/launch.py:run_ranks`; what
-they run is `tests/torch_train_rank_cases.py:train_cases`), every family
+One spawn of 4 ranks for the file (`parallel/launch.py:run_ranks`, made
+by the matting tool's own `--ranks 4` run; what they run is
+`tests/torch_train_rank_cases.py:tool_and_train_cases`), every family
 at the small widths of `tests/test_torch_train_*.py` (stages (1, 1, 1,
 1), 64x64, the tools' optimizers), from the port's seeded init (the STM
 from weights/stm.msgpack), on one batch of the JAX maker:
@@ -39,9 +40,12 @@ from weights/stm.msgpack), on one batch of the JAX maker:
 - JAX's `make_train_step(model, optimizer, make_mesh(4))` (on 4 of the 8
   virtual CPU devices) and the ranks reach the same loss over 5 steps of
   one batch, and it falls (`tests/test_parallel.py:36-61`);
-- the five tools' loops on the mesh (`families._train`, each tool's own
-  flags) and one tool's `--ranks 4` spawn: the mesh printed as the JAX
-  tools print it, one whole checkpoint that JAX's `load_variables` reads.
+- the five tools' runs with each tool's own flags: the matting tool's
+  `main` with `--ranks 4` makes the file's one spawn (the cases above ride
+  it, after the tool's own rank function), and the other four tools'
+  loops run on its mesh (`families._train`): the mesh printed as the JAX
+  tools print it, one whole checkpoint each that JAX's `load_variables`
+  reads.
 """
 import contextlib
 import importlib.util
@@ -69,6 +73,9 @@ from video_unscreen_tpu.models.resnet import ResNet as JResNet
 from video_unscreen_tpu.models.stm import STM as JSTM
 from video_unscreen_tpu.parallel import data_synth as jds
 from video_unscreen_tpu.parallel import make_mesh as jax_make_mesh
+from video_unscreen_tpu.parallel.mesh import (
+    batch_sharding as jax_batch_sharding,
+    param_shardings as jax_param_shardings, replicate as jax_replicate)
 from video_unscreen_tpu.parallel import train as jtr
 from video_unscreen_tpu.parallel import train_human as jth
 from video_unscreen_tpu.parallel import train_iseg as jti
@@ -126,32 +133,60 @@ def batches():
     return _batches()
 
 
+# the tool whose own `--ranks 4` spawn carries the file's cases
+SPAWNING_TOOL = "matting"
+
+
+def _tool_argv(name, out_dir):
+    """Each tool's flags: `--ranks 4 --device cpu`, 1 step of batch 2 at
+    64x64 (the SCHP at stages (1, 1, 1, 1)), the checkpoint to
+    `out_dir / <family>`."""
+    argv = ["--steps", "1", "--batch", "2", "--size", "64", "--device",
+            "cpu", "--ranks", "4", "--out", str(out_dir / name)]
+    if name == "human":
+        argv += ["--layers", "1", "1", "1", "1"]
+    return argv
+
+
 def _tool_args(out_dir):
-    """Each tool's flags, parsed by the tool: `--ranks 4 --device cpu`, 1
-    step of batch 2 at 64x64 (the SCHP at stages (1, 1, 1, 1)), the
-    checkpoint to `out_dir / <family>`."""
-    args = {}
-    for name in FAMILIES:
-        argv = ["--steps", "1", "--batch", "2", "--size", "64", "--device",
-                "cpu", "--ranks", "4", "--out", str(out_dir / name)]
-        if name == "human":
-            argv += ["--layers", "1", "1", "1", "1"]
-        args[name] = _tool(name).parse_args(argv)
-    return args
+    """The other tools' flags (`_tool_argv`), parsed by each tool, for
+    their loops on the ranks (`families._train`)."""
+    return {name: _tool(name).parse_args(_tool_argv(name, out_dir))
+            for name in FAMILIES if name != SPAWNING_TOOL}
 
 
 @pytest.fixture(scope="module")
 def ranks(batches, tmp_path_factory):
+    """One spawn of 4 ranks for the file: the matting tool's own `main`
+    with `--ranks 4` makes it (`families.run_tool` -> `run_ranks`), and
+    each rank runs the tool's rank function and then
+    `cases.train_cases`."""
     save_dir = tmp_path_factory.mktemp("ranks")
     tools_dir = tmp_path_factory.mktemp("tools")
-    got = run_ranks(cases.train_cases, 4,
-                    (batches, _band_batch(), str(save_dir), _steps_batch(),
-                     _tool_args(tools_dir)), timeout=600)
+    spawns = []
+
+    def tool_spawn(fn, n, args, backend, timeout, collective_timeout):
+        # the tool's deadline and collective timeout are kept for the test
+        # to check; the spawn runs on the file's own (600 s, and
+        # `run_ranks`' 60 s), so that a hung collective fails fast
+        spawns.append(dict(fn=fn, n=n, backend=backend, timeout=timeout,
+                           collective_timeout=collective_timeout))
+        spawns[-1]["got"] = run_ranks(
+            cases.tool_and_train_cases, n,
+            (fn, args, batches, _band_batch(), str(save_dir),
+             _steps_batch(), _tool_args(tools_dir)),
+            backend=backend, timeout=600)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(families, "run_ranks", tool_spawn)
+        _tool(SPAWNING_TOOL).main(_tool_argv(SPAWNING_TOOL, tools_dir))
+    (spawn,) = spawns
+    got = spawn.pop("got")
     refs = {}
     for r in got:
         refs.update(r.pop("references"))
     return {"ranks": got, "dir": save_dir, "tools": tools_dir,
-            "references": refs}
+            "references": refs, "spawn": spawn}
 
 
 def _holder(name, arrays=None, grads=None):
@@ -366,7 +401,17 @@ def test_five_steps_reach_jaxs_loss(ranks):
     mesh = jax_make_mesh(4)
     assert dict(mesh.shape) == {"data": 2, "model": 2}
     step = jtr.make_train_step(model, opt, mesh)
-    batch = {k: jnp.asarray(v) for k, v in _steps_batch().items()}
+    # placed as the step's own in/out shardings place them, so that the
+    # first step's program serves the next four (a first call on unplaced
+    # arrays traces and lowers the same program twice; the same losses)
+    rep = jax_replicate(mesh)
+    state = jax.device_put(state, jtr.TrainState(
+        jax_param_shardings(state.params, mesh),
+        jax.tree.map(lambda _: rep, state.batch_stats),
+        jax.tree.map(lambda _: rep, state.opt_state), rep))
+    batch = jax.device_put({k: jnp.asarray(v)
+                            for k, v in _steps_batch().items()},
+                           jax_batch_sharding(mesh))
     want = []
     with mesh:
         for _ in range(5):
@@ -403,21 +448,26 @@ def _jax_template(name):
     return _variables("stm")
 
 
-def test_tools_train_over_four_ranks(ranks, tmp_path, capfd):
-    """Each tool's flags (`_tool_args`) through the tools' loop on the
-    ranks of the file's spawn, and the matting tool's own `--ranks 4`
-    spawn: the mesh printed once each, a whole checkpoint each that JAX's
+def test_tools_train_over_four_ranks(ranks):
+    """Each tool's flags (`_tool_argv`): the matting tool's own `--ranks
+    4` spawn (its `main`: `families.run_tool` hands `run_ranks` its rank
+    function on 4 `gloo` ranks, which the file's cases ride), and the
+    other tools' loops on the ranks of that spawn: the mesh printed once
+    each, by rank 0 only, a whole checkpoint each that JAX's
     `load_variables` reads."""
-    _tool("matting").main(["--steps", "1", "--batch", "2", "--size", "64",
-                           "--device", "cpu", "--ranks", "4", "--out",
-                           str(tmp_path / "main")])
-    out = ranks["ranks"][0]["printed"] + capfd.readouterr().out
+    spawn = ranks["spawn"]
+    assert spawn["fn"] is families._tool_rank and spawn["n"] == 4
+    assert spawn["backend"] == "gloo"
+    assert spawn["timeout"] == families.TOOL_DEADLINE
+    assert spawn["collective_timeout"] == families.TOOL_COLLECTIVE_TIMEOUT
+    r0 = ranks["ranks"][0]
     mesh = "mesh: {'data': 2, 'model': 2} on cpu"
-    assert out.count(mesh) == 6, out
-    assert all(mesh not in r["printed"] for r in ranks["ranks"][1:])
+    assert r0["tool_printed"].count(mesh) == 1, r0["tool_printed"]
+    assert r0["printed"].count(mesh) == len(FAMILIES) - 1, r0["printed"]
+    assert all(mesh not in r["printed"] + r["tool_printed"]
+               for r in ranks["ranks"][1:])
     for name in FAMILIES:
         _read_by_jax(ranks["tools"] / name, _jax_template(name))
-    _read_by_jax(tmp_path / "main", _jax_template("matting"))
 
 
 @pytest.mark.parametrize("shape", [(8, 8, 16, 16), (16, 16, 64, 64),

@@ -191,6 +191,20 @@ def train_cases(rank, batches, band_batch, save_dir, steps_batch,
     return out
 
 
+def tool_and_train_cases(rank, tool_rank, tool_args, *args):
+    """A tool's own `--ranks` spawn and `train_cases` in one spawn: the
+    rank function and arguments that `families.run_tool` hands to
+    `run_ranks` (`tool_rank(rank, *tool_args)`, its prints on this rank
+    kept), then `train_cases(rank, *args)`."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        tool_rank(rank, *tool_args)
+    heartbeat()
+    out = train_cases(rank, *args)
+    out["tool_printed"] = printed.getvalue()
+    return out
+
+
 def references(names, batches):
     """For each family of `names`, one process's float64 step on the whole
     batch with dropout on (`one_process_step`), and its float64

@@ -3,7 +3,10 @@ and layout of `tools/make_eval_set.py`, drawn by the port's cv2-free clip
 makers and written by its codecs (JPEG frames at quality 95, PNG GTs).
 
     python tools/make_eval_set_torch.py --data_root /tmp/unscreen_eval \
-        --frames 12 --height 288 --width 512
+        --frames 12 --height 288 --width 512 [--workers 5]
+
+`--workers` makes that many clips at once, each in a process of its own
+(a 1080p clip of 12 frames takes about 100 s in one process).
 
 Layout:
   <root>/src_img/<vid>/frame_%06d.jpg     pipeline input
@@ -23,12 +26,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import numpy as np  # noqa: E402
-
-from video_unscreen_tpu_torch import runtime  # noqa: E402
 from video_unscreen_tpu_torch.parallel.data_synth import \
-    make_eval_clip  # noqa: E402
-from video_unscreen_tpu_torch.utils.fileio import write_png  # noqa: E402
+    write_eval_clip  # noqa: E402
 
 # (vid, kind, seed, variant): tools/make_eval_set.py's table
 CLIPS = (
@@ -45,29 +44,34 @@ CLIPS = (
 )
 
 
+def make_clips(root, vids, frames, height, width, workers=1):
+    """The clips of `CLIPS` named in `vids` (`data_synth.write_eval_clip`),
+    `workers` at a time (spawned processes); returns their report lines
+    in `CLIPS`' order."""
+    todo = [(root, *c, frames, height, width) for c in CLIPS
+            if c[0] in vids]
+    if workers <= 1:
+        return [write_eval_clip(*a) for a in todo]
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(min(workers, len(todo)),
+                             mp_context=mp.get_context("spawn")) as ex:
+        return list(ex.map(write_eval_clip, *zip(*todo)))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--data_root", type=str, default="/tmp/unscreen_eval")
     parser.add_argument("--frames", type=int, default=12)
     parser.add_argument("--height", type=int, default=288)
     parser.add_argument("--width", type=int, default=512)
+    parser.add_argument("--workers", type=int, default=1)
     args = parser.parse_args(argv)
 
     root = args.data_root
-    for vid, kind, seed, variant in CLIPS:
-        frames, gts = make_eval_clip(kind, n=args.frames, h=args.height,
-                                     w=args.width, seed=seed,
-                                     variant=variant)
-        src = osp.join(root, "src_img", vid)
-        gtd = osp.join(root, "alpha_img", vid)
-        os.makedirs(src, exist_ok=True)
-        os.makedirs(gtd, exist_ok=True)
-        runtime.encode_batch([osp.join(src, f"frame_{i:06d}.jpg")
-                              for i in range(len(frames))],
-                             np.stack(frames), quality=95)
-        for i, g in enumerate(gts):
-            write_png(osp.join(gtd, f"frame_{i:06d}.png"), g)
-        print(f"{vid}: {len(frames)} frames -> {src}")
+    for line in make_clips(root, {c[0] for c in CLIPS}, args.frames,
+                           args.height, args.width, args.workers):
+        print(line)
 
     meta = osp.join(root, "meta")
     os.makedirs(meta, exist_ok=True)

@@ -18,7 +18,12 @@ it scored, never into the JAX package's `results/`. The eval set and the
 predictions go to `--data_root` (default `<results_dir>/data`), as JPEG
 files. The protocol runs on the card by default (`--device` defaults to
 cuda); `--device cpu` runs it on the host, at small sizes. `--vids` keeps
-only those clips of each mode's list.
+only those clips of each mode's list. `--only run` runs the modes and
+writes their predictions without scoring them, `--only score` scores the
+predictions already under `--data_root` (its `alpha_img/`, `meta/` and
+`test_<mode>_img/`): bg and bg_step run on the host, where SCHP's
+weights are, and the card scores them (the host's CONN labeller takes
+~15 s a 1080p frame).
 """
 import argparse
 import os
@@ -141,6 +146,10 @@ def main(argv=None):
                         default=str(ROOT / "runs" / "eval_protocol_torch"))
     parser.add_argument("--device", type=str, default="cuda",
                         choices=("cuda", "cpu"))
+    parser.add_argument("--only", type=str, default=None,
+                        choices=("run", "score"),
+                        help="run the modes, or score their predictions, "
+                             "alone (default both)")
     args = parser.parse_args(argv)
 
     modes = [m.strip() for m in args.modes.split(",") if m.strip()]
@@ -149,18 +158,23 @@ def main(argv=None):
         parser.error(f"unknown modes {sorted(unknown)}: of {MODES}")
     keep = {v.strip() for v in args.vids.split(",") if v.strip()}
     root = args.data_root or osp.join(args.results_dir, "data")
-    ensure_eval_set(root, args.frames, args.height, args.width)
+    if args.only != "score":
+        ensure_eval_set(root, args.frames, args.height, args.width)
     os.makedirs(args.results_dir, exist_ok=True)
     rows = {}
     for mode in modes:
         vids = read_list(root, "green" if mode == "green" else "natural")
         vids = [v for v in vids if not keep or v in keep]
         cfg_path = args.green_cfg if mode == "green" else args.bg_cfg
-        run_mode(mode, root, vids, cfg_path, fused=not args.modular,
-                 work_long_side=args.work_long_side, wire=args.wire,
-                 device=args.device)
-        rows[mode] = score_mode(mode, root, vids, args.results_dir,
-                                args.suffix, args.device)
+        if args.only != "score":
+            run_mode(mode, root, vids, cfg_path, fused=not args.modular,
+                     work_long_side=args.work_long_side, wire=args.wire,
+                     device=args.device)
+        if args.only != "run":
+            rows[mode] = score_mode(mode, root, vids, args.results_dir,
+                                    args.suffix, args.device)
+    if args.only == "run":
+        return rows
     text = table(rows)
     with open(osp.join(args.results_dir,
                        f"protocol{args.suffix}.md"), "w") as fh:

@@ -2,7 +2,8 @@
 `video_unscreen_tpu/parallel/data_synth.py` that STM training and the
 evaluation reach (`draw_person`, `make_nongreen_clip`,
 `render_soft_person`, `make_eval_clip` in every variant,
-`make_multishot_clip`) and the matting trainer's `make_batch`.
+`make_multishot_clip`), the matting trainer's `make_batch` and
+`write_eval_clip` (a clip in the eval set's layout).
 
 The figures draw from the `np.random.RandomState` in exactly the order the
 JAX package's do; no cv2 call there consumes the generator, so one seed
@@ -449,9 +450,14 @@ def _fill_circle(img: np.ndarray, center: Point, radius: int, val) -> None:
     """cv2.circle(img, center, radius, val, -1): the pixels within the
     radius."""
     h, w = img.shape[:2]
-    yy, xx = np.ogrid[:h, :w]
-    inside = (xx - center[0]) ** 2 + (yy - center[1]) ** 2 <= radius ** 2
-    img[inside] = val
+    cx, cy = center
+    y0, y1 = max(cy - radius, 0), min(cy + radius + 1, h)
+    x0, x1 = max(cx - radius, 0), min(cx + radius + 1, w)
+    if y0 >= y1 or x0 >= x1:
+        return
+    yy, xx = np.ogrid[y0:y1, x0:x1]
+    inside = (xx - cx) ** 2 + (yy - cy) ** 2 <= radius ** 2
+    img[y0:y1, x0:x1][inside] = val
 
 
 def _sin_deg(deg: int) -> float:
@@ -662,7 +668,6 @@ def draw_person(rng: np.random.RandomState, h: int, w: int,
             _polyline(parts, pts, LIP_HAIR, max(int(0.012 * s), 1))
 
     # paint: per-part base color x smooth texture
-    img = np.zeros((h, w, 3), np.float32)
     skin = rng.uniform(0.35, 0.85, 3).astype(np.float32)
     colors = {
         LIP_HAIR: rng.uniform(0.02, 0.35, 3),
@@ -683,10 +688,10 @@ def draw_person(rng: np.random.RandomState, h: int, w: int,
     leg = skin if rng.rand() < 0.5 else colors[LIP_PANTS]
     colors[LIP_LEG_L] = colors[LIP_LEG_R] = leg
     tex = 0.85 + 0.3 * _smooth_noise(rng, h, w, 8)
+    lut = np.zeros((max(int(parts.max()), max(colors)) + 1, 3), np.float32)
     for cls, col in colors.items():
-        sel = parts == cls
-        img[sel] = np.asarray(col, np.float32)
-    img = (img * tex).clip(0, 1)
+        lut[cls] = np.asarray(col, np.float32)
+    img = (lut[parts] * tex).clip(0, 1)
     return img, parts
 
 
@@ -828,6 +833,31 @@ def make_eval_clip(kind: str = "green", n: int = 12, h: int = 288,
         frames.append(frame)
         gts.append((alpha * 255).astype(np.uint8))
     return frames, gts
+
+
+def write_eval_clip(root: str, vid: str, kind: str, seed: int,
+                    variant: str, n: int, h: int, w: int) -> str:
+    """`make_eval_clip(kind, n, h, w, seed, variant=variant)` written in
+    the eval set's layout: its frames as
+    `<root>/src_img/<vid>/frame_%06d.jpg` (quality 95) and its GT alphas
+    as `<root>/alpha_img/<vid>/frame_%06d.png`. Returns a report line."""
+    import os
+    import os.path as osp
+
+    from .. import runtime
+    from ..utils.fileio import write_png
+    frames, gts = make_eval_clip(kind, n=n, h=h, w=w, seed=seed,
+                                 variant=variant)
+    src = osp.join(root, "src_img", vid)
+    gtd = osp.join(root, "alpha_img", vid)
+    os.makedirs(src, exist_ok=True)
+    os.makedirs(gtd, exist_ok=True)
+    runtime.encode_batch([osp.join(src, f"frame_{i:06d}.jpg")
+                          for i in range(len(frames))],
+                         np.stack(frames), quality=95)
+    for i, g in enumerate(gts):
+        write_png(osp.join(gtd, f"frame_{i:06d}.png"), g)
+    return f"{vid}: {len(frames)} frames -> {src}"
 
 
 def make_multishot_clip(n_shots: int = 2, frames_per_shot: int = 8,
